@@ -8,3 +8,8 @@ tests/test_sharding_dryrun.py."""
 import jax
 
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA card; skips without one")
