@@ -6,7 +6,11 @@ It does three things:
   1. Registers the GEMM's :class:`~repro_torch.core.job.JobSet` with the
      active :class:`SynergyTrace` (the job decomposition the schedulers,
      cost model, and roofline analysis operate on).
-  2. Asks the :class:`~repro_torch.engines.Dispatcher` for the best-capable
+  2. Executes: under an active :func:`repro_torch.soc.runtime_scope` the
+     JobSet's tile jobs are SPLIT into row panels across the live engine
+     pool and merged (work stealing balances the split; an ``engine=`` pin
+     is demoted to a queue-affinity hint).  Otherwise it asks the
+     :class:`~repro_torch.engines.Dispatcher` for the best-capable
      registered :class:`~repro_torch.engines.Engine` for operands on the
      device they live on (the CUDA ``tiled_mm`` kernel for CUDA tensors,
      ``torch.matmul`` for CPU tensors, or whatever the user registered)
@@ -31,6 +35,7 @@ import torch
 
 from repro_torch.engines import (CAP_GRAD, Engine, Telemetry,
                                  current_scope_engine, dispatch_gemm)
+from repro_torch.soc.runtime import current_runtime, is_concrete
 
 from .job import JobSet
 
@@ -49,6 +54,9 @@ class SynergyTrace:
     jobsets: list[JobSet] = dataclasses.field(default_factory=list)
     engine_stats: dict[str, Telemetry] = dataclasses.field(
         default_factory=dict)
+    #: one (JobSet, {engine: tile jobs it executed}) per runtime GEMM
+    runtime_shares: list[tuple[JobSet, dict[str, int]]] = dataclasses.field(
+        default_factory=list)
     _next_layer_id: int = 0
 
     def add(self, m: int, n: int, k: int, tile, name: str) -> JobSet:
@@ -61,6 +69,22 @@ class SynergyTrace:
                       est_s: float) -> None:
         self.engine_stats.setdefault(engine_name, Telemetry()).record(js,
                                                                       est_s)
+
+    def record_runtime(self, js: JobSet, accounting: dict) -> None:
+        """Book a SynergyRuntime submission's per-engine shares: the split
+        GEMM's jobs land on every engine that actually executed part of it
+        (stolen jobs included), on the same cost-model busy basis.  The
+        gemm itself counts ONCE, credited to the dominant executor, so
+        ``sum(gemms) == len(jobsets)`` holds on both dispatch paths."""
+        self.runtime_shares.append(
+            (js, {name: acct["jobs"] for name, acct in accounting.items()}))
+        dominant = (max(accounting, key=lambda n: accounting[n]["jobs"])
+                    if accounting else None)
+        for name, acct in accounting.items():
+            t = self.engine_stats.setdefault(name, Telemetry())
+            t.record_jobs(acct["jobs"], acct["est_s"], acct["bytes"],
+                          gemms=int(name == dominant),
+                          steals=acct["steals"])
 
     @property
     def total_flops(self) -> int:
@@ -107,7 +131,10 @@ def synergy_matmul(a: torch.Tensor, b: torch.Tensor, *,
     instance); None lets the dispatcher rank capable engines by their cost
     model on the operands' device.  ``job_class``: one of
     :data:`repro_torch.engines.JOB_CLASSES` ("decode", "prefill", "train")
-    applying the precision-routing policy.
+    applying the precision-routing policy.  Under a runtime scope the GEMM
+    is split across the runtime's pool, unless autograd records it: the
+    pool's kernels have no backward, so a differentiated GEMM keeps
+    single-engine dispatch onto a grad-safe engine.
     """
     *lead, m, k = a.shape
     k2, n = b.shape
@@ -130,6 +157,20 @@ def synergy_matmul(a: torch.Tensor, b: torch.Tensor, *,
         js = tr.add(batch * m, n, k, tile, name=name or "gemm")
     else:
         js = JobSet.for_gemm(0, batch * m, n, k, tile, name=name or "gemm")
+
+    rt = current_runtime()
+    if rt is not None and not require and is_concrete(a, b, bias):
+        # precision routing under a runtime scope happens INSIDE the
+        # split (per-job int8 eligibility + LPT over the pool); only an
+        # explicit engine pin survives, as a queue-affinity hint
+        affinity = engine.name if isinstance(engine, Engine) else engine
+        y, accounting = rt.run_matmul(
+            js, a.reshape(-1, k), b, bias=bias, activation=activation,
+            tile=tile if isinstance(tile, tuple) else (tile,) * 3,
+            out_dtype=out_dtype, affinity=affinity, job_class=job_class)
+        if tr is not None:
+            tr.record_runtime(js, accounting)
+        return y.reshape(*lead, m, n)
 
     eng = dispatch_gemm(js, engine=engine, require=require,
                         job_class=job_class, device=a.device)

@@ -14,8 +14,9 @@ One registry, one dispatch surface, every backend:
     register_engine(MyEngine())   # every GEMM call site can now route here
 
 Importing this package registers the built-in engines (``torch``,
-``cuda-tiled``, ``reference``) and the calibrated simulated Zynq PEs
-(``F-PE``, ``S-PE``, ``NEON``, ``ARM``) exactly once.
+``cuda-tiled``, ``reference``), the slow CUDA-core engine ``neon-vpu``
+and the calibrated simulated Zynq PEs (``F-PE``, ``S-PE``, ``NEON``,
+``ARM``) exactly once.
 """
 
 from .base import (CAP_EPILOGUE, CAP_GEMM, CAP_GRAD, CAP_INT8, CAP_INTERPRET,
@@ -28,6 +29,7 @@ from .registry import (OpVariant, add_registry_listener, find_engine,
                        unregister_engine)
 from .builtin import CudaTiledEngine, ReferenceEngine, TorchEngine
 from .sim import SIM_ENGINE_SPECS, SimPEEngine, make_sim_engines
+from .vpu import NeonVpuEngine
 from .dispatch import (DEFAULT_DISPATCHER, JOB_CLASSES, Dispatcher,
                        JobClassPolicy, current_scope_engine, dispatch_gemm,
                        engine_scope)
@@ -41,7 +43,7 @@ __all__ = [
     "add_registry_listener", "remove_registry_listener",
     "OpVariant", "register_op_impl", "resolve_op", "op_variants",
     "TorchEngine", "CudaTiledEngine", "ReferenceEngine",
-    "SimPEEngine", "SIM_ENGINE_SPECS", "make_sim_engines",
+    "SimPEEngine", "SIM_ENGINE_SPECS", "make_sim_engines", "NeonVpuEngine",
     "Dispatcher", "DEFAULT_DISPATCHER", "dispatch_gemm",
     "engine_scope", "current_scope_engine",
     "JobClassPolicy", "JOB_CLASSES", "ENGINE_NAME_MAP",
@@ -51,13 +53,14 @@ __all__ = [
 #: decisions across the two packages (the simulated PEs keep their names)
 ENGINE_NAME_MAP: dict[str, str] = {
     "xla": "torch", "pallas": "cuda-tiled", "reference": "reference",
+    "neon-vpu": "neon-vpu",
     **{kind: kind for kind in SIM_ENGINE_SPECS},
 }
 
 
 def _register_defaults() -> None:
     for eng in (TorchEngine(), CudaTiledEngine(), ReferenceEngine(),
-                *make_sim_engines()):
+                NeonVpuEngine(), *make_sim_engines()):
         if find_engine(eng.name) is None:
             register_engine(eng)
 

@@ -227,17 +227,17 @@ class Engine(abc.ABC):
         return True
 
     def recalibrate(self, observed_macs_per_s: float,
-                    alpha: float = 0.5) -> float:
+                    alpha: float = 0.5, device=None) -> float:
         """EMA-blend a measured MAC rate into this engine's cost model
         (steal-aware recalibration: the runtime feeds measured
         ``wall_busy_s`` back so LPT seeding adapts to observed speed).
-        The blend starts from the CURRENT effective model (stored or
-        device-computed) and persists in ``_cost``; builtin engines with
-        dynamic cost properties honor the stored model once set.  Returns
-        the rate now in effect."""
+        The blend starts from the CURRENT effective model on ``device``
+        (stored, or computed for that device) and persists in ``_cost``;
+        builtin engines with device-dependent rates honor the stored model
+        once set.  Returns the rate now in effect."""
+        current = self.cost_on(device)
         if observed_macs_per_s <= 0:
-            return self.cost.macs_per_s
-        current = self.cost
+            return current.macs_per_s
         blended = ((1.0 - alpha) * current.macs_per_s
                    + alpha * observed_macs_per_s)
         self._cost = dataclasses.replace(current, macs_per_s=blended)

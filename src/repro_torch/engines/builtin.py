@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.device import device_type
 from repro_torch.kernels.tiled_mm import ops as tiled_ops
 from repro_torch.kernels.tiled_mm.ref import tiled_mm_ref
 
@@ -23,14 +24,6 @@ from .base import (CAP_EPILOGUE, CAP_GEMM, CAP_GRAD, CAP_INTERPRET,
                    CAP_ORACLE, CAP_TILED, CostModel, Engine)
 
 __all__ = ["TorchEngine", "CudaTiledEngine", "ReferenceEngine"]
-
-
-def _device_type(device) -> str:
-    """``device``'s type; None means the port's default device, the card
-    when there is one."""
-    if device is None:
-        return "cuda" if torch.cuda.is_available() else "cpu"
-    return torch.device(device).type
 
 
 class TorchEngine(Engine):
@@ -47,7 +40,7 @@ class TorchEngine(Engine):
     def cost_on(self, device) -> CostModel:
         if self._cost is not None:       # steal-aware recalibration applied
             return self._cost
-        return CostModel(self._RATES.get(_device_type(device), 2e9))
+        return CostModel(self._RATES.get(device_type(device), 2e9))
 
     def execute(self, a, b, *, bias=None, activation: Callable | None = None,
                 tile=(256, 256, 256), out_dtype=None):
@@ -77,7 +70,7 @@ class CudaTiledEngine(Engine):
     def cost_on(self, device) -> CostModel:
         if self._cost is not None:       # steal-aware recalibration applied
             return self._cost
-        if _device_type(device) == "cuda":
+        if device_type(device) == "cuda":
             return CostModel(self._CUDA_RATE)
         return CostModel(2e6)   # plain version: auto-dispatch never picks it
 

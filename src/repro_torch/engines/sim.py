@@ -54,7 +54,7 @@ class SimPEEngine(Engine):
                          | set(capabilities), cost=cost)
 
     def recalibrate(self, observed_macs_per_s: float,
-                    alpha: float = 0.5) -> float:
+                    alpha: float = 0.5, device=None) -> float:
         """No-op: this cost model is the PAPER's calibrated constant for
         hardware that is not actually here — a measured host-oracle rate
         would corrupt every DES/LPT/Table-6 result that reads it."""

@@ -2,4 +2,6 @@
 
 Each package holds the kernel's source (``csrc/``), the loader that builds
 it at first use (``<name>.py``), the checked wrapper with its launch count
-(``ops.py``) and the plain PyTorch version (``ref.py``)."""
+(``ops.py``) and the plain PyTorch version (``ref.py``).  ``common/``
+holds what the GEMM kernels share: the build, the checked launch and the
+epilogue header."""

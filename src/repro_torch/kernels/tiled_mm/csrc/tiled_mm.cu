@@ -15,11 +15,12 @@
 // output tile and walks k in steps of 16, staging the A and B slices through
 // shared memory so that every element read from device memory feeds 64
 // FMAs; each thread keeps a 4 x 4 register micro-tile, read from shared
-// memory as float4 pairs (8 shared loads per 16 FMAs).  The epilogue runs
-// on the register tile, so C is written to device memory once, in its
-// final type.  Ragged edges are masked in the loads and stores; nothing is
-// padded in device memory.  Making it fast (wgmma, TMA, a multi-stage
-// ring) is later work.
+// memory as float4 pairs (8 shared loads per 16 FMAs).  The epilogue (the
+// device function shared with vpu_mm.cu, common/epilogue.cuh) runs on the
+// register tile, so C is written to device memory once, in its final type.
+// Ragged edges are masked in the loads and stores; nothing is padded in
+// device memory.  Making it fast (wgmma, TMA, a multi-stage ring) is later
+// work.
 //
 // Determinism: every output element sums its k products in increasing k
 // order with one fmaf per step, independent of which block or row panel
@@ -34,7 +35,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "epilogue.cuh"
+
 namespace {
+
+using namespace synergy;
 
 constexpr int BM = 64;              // block tile rows
 constexpr int BN = 64;              // block tile cols
@@ -43,26 +48,6 @@ constexpr int TM = 4;               // register micro-tile rows per thread
 constexpr int TN = 4;               // register micro-tile cols per thread
 constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
 constexpr int A_PAD = 4;            // keeps float4 alignment, spreads banks
-
-enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_SILU = 2 };
-enum DType { DT_F32 = 0, DT_BF16 = 1 };
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-template <int ACT>
-__device__ __forceinline__ float activate(float y) {
-  if (ACT == ACT_RELU) return fmaxf(y, 0.0f);
-  if (ACT == ACT_SILU) return y / (1.0f + expf(-y));
-  return y;
-}
 
 template <typename TIn, typename TOut, int ACT>
 __global__ void __launch_bounds__(THREADS)
@@ -127,35 +112,12 @@ tiled_mm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
   for (int j = 0; j < TN; ++j) {
     const int gc = col0 + tx * TN + j;
     if (gc >= n) continue;
-    const float bj = bias != nullptr ? bias[gc] : 0.0f;
+    const float bj = bias_at(bias, gc);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
       const int64_t gr = row0 + ty * TM + i;
-      if (gr < m) store(&c[gr * n + gc], activate<ACT>(acc[i][j] + bj));
+      if (gr < m) epilogue_store<ACT>(&c[gr * n + gc], acc[i][j], bj);
     }
-  }
-}
-
-template <typename TIn, typename TOut>
-void launch_typed(const void* a, const void* b, const float* bias, void* c,
-                  int m, int n, int k, int act, cudaStream_t stream) {
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
-  const TIn* ap = static_cast<const TIn*>(a);
-  const TIn* bp = static_cast<const TIn*>(b);
-  TOut* cp = static_cast<TOut*>(c);
-  switch (act) {
-    case ACT_RELU:
-      tiled_mm_kernel<TIn, TOut, ACT_RELU>
-          <<<grid, THREADS, 0, stream>>>(ap, bp, bias, cp, m, n, k);
-      break;
-    case ACT_SILU:
-      tiled_mm_kernel<TIn, TOut, ACT_SILU>
-          <<<grid, THREADS, 0, stream>>>(ap, bp, bias, cp, m, n, k);
-      break;
-    default:
-      tiled_mm_kernel<TIn, TOut, ACT_NONE>
-          <<<grid, THREADS, 0, stream>>>(ap, bp, bias, cp, m, n, k);
-      break;
   }
 }
 
@@ -166,22 +128,17 @@ void launch_typed(const void* a, const void* b, const float* bias, void* c,
 extern "C" int tiled_mm(const void* a, const void* b, const void* bias,
                         void* c, int m, int n, int k, int in_dtype,
                         int out_dtype, int act, void* stream) {
-  if (m < 1 || n < 1 || k < 0 || act < ACT_NONE || act > ACT_SILU ||
-      (in_dtype != DT_F32 && in_dtype != DT_BF16) ||
-      (out_dtype != DT_F32 && out_dtype != DT_BF16)) {
+  if (!gemm_args_ok(m, n, k, in_dtype, out_dtype, act)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* biasp = static_cast<const float*>(bias);
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == DT_F32 && out_dtype == DT_F32) {
-    launch_typed<float, float>(a, b, biasp, c, m, n, k, act, s);
-  } else if (in_dtype == DT_F32) {
-    launch_typed<float, __nv_bfloat16>(a, b, biasp, c, m, n, k, act, s);
-  } else if (out_dtype == DT_F32) {
-    launch_typed<__nv_bfloat16, float>(a, b, biasp, c, m, n, k, act, s);
-  } else {
-    launch_typed<__nv_bfloat16, __nv_bfloat16>(a, b, biasp, c, m, n, k, act,
-                                               s);
-  }
+  dispatch_gemm(in_dtype, out_dtype, act, [&](auto in, auto out, auto fused) {
+    using TIn = decltype(in);
+    using TOut = decltype(out);
+    tiled_mm_kernel<TIn, TOut, decltype(fused)::value><<<grid, THREADS, 0, s>>>(
+        static_cast<const TIn*>(a), static_cast<const TIn*>(b),
+        static_cast<const float*>(bias), static_cast<TOut*>(c), m, n, k);
+  });
   return (int)cudaGetLastError();
 }

@@ -12,6 +12,7 @@ Layer dims are modeled from the Darknet/Caffe configs the paper trained
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -19,20 +20,14 @@ import torch
 
 from repro_torch.core.im2col import conv_out_shape, im2col
 from repro_torch.core.job import JobSet
+from repro_torch.core.scheduler import SimLayer, SimNet
 from repro_torch.core.synergy_mm import synergy_matmul
+from repro_torch.device import resolve_device
+from repro_torch.soc.runtime import runtime_scope
 
 __all__ = ["CNNConfig", "init_cnn", "params_from_jax", "cnn_forward",
-           "conv_jobsets", "maxpool2d", "cnn_flops_per_frame"]
-
-
-def _resolve_device(device: str | torch.device | None) -> torch.device:
-    """``device``, defaulting to the card; raises when the card is asked
-    for and there is none (nothing falls back to the CPU quietly)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "to run on the CPU")
-    return dev
+           "conv_jobsets", "maxpool2d", "cnn_flops_per_frame",
+           "build_simnet"]
 
 
 def maxpool2d(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -84,7 +79,7 @@ def init_cnn(cfg: CNNConfig, generator: torch.Generator,
     """He-normal weights drawn from ``generator``, zero biases, on
     ``device``.  Keys and layouts are ``repro``'s: ``conv{i}_w`` is
     (kh, kw, cin, cout), ``fc{i}_w`` is (n_in, n_out)."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     params = {}
     shapes, _ = cfg.trace_shapes()
 
@@ -111,7 +106,7 @@ def params_from_jax(np_params: dict[str, np.ndarray],
                     device: str | torch.device | None = None) -> dict:
     """Parameters of ``repro.models.cnn.init_cnn``, handed over as numpy
     arrays, as tensors on ``device`` with the same keys and layouts."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     return {name: torch.tensor(np.asarray(v), device=dev)
             for name, v in np_params.items()}
 
@@ -132,6 +127,7 @@ def _conv_via_jobs(x, w, b, stride, pad, tile, name, engine=None,
 def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
                 engine: str | None = None,
                 job_class: str | None = None,
+                runtime=None,
                 device: str | torch.device | None = None) -> torch.Tensor:
     """x: (N, H, W, Cin) -> logits (N, num_classes), run on ``device``
     (default the card) under ``torch.inference_mode``.
@@ -139,14 +135,20 @@ def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
     ``engine``: pin every GEMM to a registered engine; None lets the
     dispatcher rank capable engines per GEMM (the default).
     ``job_class``: precision-routing policy for every GEMM
-    (:data:`repro_torch.engines.JOB_CLASSES`).  ``params`` must already
-    live on ``device``; ``x`` is moved there."""
-    dev = _resolve_device(device)
+    (:data:`repro_torch.engines.JOB_CLASSES`).
+    ``runtime``: a :class:`repro_torch.soc.SynergyRuntime` on the same
+    device — every CONV/FC GEMM is split into row panels across its
+    engine pool and balanced by work stealing (with ``engine`` demoted to
+    a queue-affinity hint).  ``params`` must already live on ``device``;
+    ``x`` is moved there."""
+    dev = resolve_device(device)
     for name, p in params.items():
         if p.device.type != dev.type:
             raise ValueError(f"param {name!r} is on {p.device}, the forward "
                              f"runs on {dev}")
-    with torch.inference_mode():
+    scope = (runtime_scope(runtime) if runtime is not None
+             else contextlib.nullcontext())
+    with scope, torch.inference_mode():
         x = x.to(dev)
         shapes, _ = cfg.trace_shapes()
         for i, (spec, *_rest) in enumerate(shapes):
@@ -201,3 +203,33 @@ def conv_jobsets(cfg: CNNConfig, n_frames: int = 1, *,
         out.append((i, js))
         conv_id += 1
     return out
+
+
+def build_simnet(cfg: CNNConfig) -> SimNet:
+    """Export as a SimNet for the discrete-event runtime simulator.
+
+    CONV layers -> accelerated tile-job stages (+ im2col CPU cost);
+    pool/fc -> CPU stages; plus the paper's normalization preprocessing."""
+    layers: list[SimLayer] = []
+    shapes, _ = cfg.trace_shapes()
+    # normalization / scaling preprocessing (§3.1.4)
+    n_in_elems = cfg.input_hw * cfg.input_hw * cfg.cin
+    layers.append(SimLayer("norm", "cpu", cpu_ops=4 * n_in_elems))
+    # DES layer names are bare conv{i} (no net prefix): keep them stable
+    conv_js = {i: dataclasses.replace(js, name=f"conv{i}")
+               for i, js in conv_jobsets(cfg)}
+    for i, (spec, h, w, c) in enumerate(shapes):
+        if spec[0] == "conv":
+            js = conv_js[i]
+            # im2col writes m*k floats (fp32), reads input once
+            layers.append(SimLayer(f"conv{i}", "conv", jobset=js,
+                                   im2col_bytes=4 * (js.m * js.k
+                                                     + h * w * c)))
+        elif spec[0] == "pool":
+            size = spec[1]
+            layers.append(SimLayer(f"pool{i}", "cpu",
+                                   cpu_ops=h * w * c))
+        elif spec[0] == "fc":
+            layers.append(SimLayer(f"fc{i}", "cpu",
+                                   cpu_ops=2 * h * w * c * spec[1]))
+    return SimNet(cfg.name, tuple(layers))
