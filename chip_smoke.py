@@ -13,7 +13,10 @@ Phases, in order; each raises on failure and nothing is caught:
    inputs and every fused epilogue.  TF32 is off for both matmul and cuDNN.
    ``vpu_mm`` is also checked at the runtime's 32-row panel shapes, bitwise
    against ``tiled_mm`` for every fp32 case, and its SASS must hold no
-   tensor-core instruction.
+   tensor-core instruction.  ``qmm`` (slice 3) at the Alex+ GEMMs, their
+   panels, the ragged shapes and k = 75 with n = 10: raw int32 bitwise,
+   fused fp32/bf16 none/relu bitwise and silu within 2 ulp; one build
+   serves four activation scales.
 4. Main path, dispatcher (slice 1): ``cnn_forward`` of CIFAR_Alex+ at its
    published widths on 256 frames, with launch counts set to 0 just before
    and read just after; logits are held against the same forward with
@@ -25,18 +28,31 @@ Phases, in order; each raises on failure and nothing is caught:
    0 just before and read just after; logits must be BITWISE equal to the
    dispatcher forward, both kernels must run panels, and launches must
    equal panels.  The other six CNNs run through it at 16 frames, bitwise.
+   Int8 (slice 3): the quantizers on the card bitwise equal to the CPU
+   over the Alex+ weights and patch panels; ``register_quantized`` calibrates
+   ``cuda-tiled-int8``; the decode forward through the dispatcher (K2 once
+   per GEMM, K1/K3 never, logits within ``rel_err`` 0.05 of fp32) and through
+   ``SynergyRuntime(["cuda-tiled", "cuda-tiled-int8"])`` (K2 once per panel
+   on both workers, bitwise equal to a one-worker int8 pool from the same
+   calibrator state); fp32 through that pool launches K2 never and is
+   bitwise the dispatcher forward.  The other six CNNs run both decode
+   paths at 16 frames.
 5. Times (CUDA events, warm-up, median of 25): per Alex+ GEMM, each kernel,
    its plain version, ``torch.addmm`` + ReLU as the library yardstick, and
    the bound; both kernels also at the runtime's panel shapes, weighted by
    the panels each ran in phase 4's runtime forward; frames/s of the whole
    forward on both paths, and the runtime's host cost per panel; one
    runtime forward under ``torch.profiler``: each kernel's device time and
-   the card's busy share.
+   the card's busy share.  Slice 3: K2 per whole GEMM (fused) and per panel
+   (raw) beside its plain version, its bound and ``torch._int_mm``; the
+   quantization pass per GEMM; frames/s of both decode forwards beside
+   both fp32 forwards; one profiled runtime decode forward.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's top-level numbers are the
    runtime path's (this slice's main path): launches in phase 4's runtime
-   forward, and times of the panels it ran there; ``by_path`` gives each
-   path's launches and times on its own basis.
+   forward, and times of the panels it ran there (``qmm``: the runtime
+   decode forward's); ``by_path`` gives each path's launches and times on
+   its own basis.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -62,14 +78,20 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs import PAPER_CNNS  # noqa: E402
 from repro_torch.core.im2col import im2col  # noqa: E402
 from repro_torch.core.synergy_mm import SynergyTrace  # noqa: E402
-from repro_torch.engines import get_engine, list_engines  # noqa: E402
+from repro_torch.engines import (CostModel, Engine, get_engine,  # noqa: E402
+                                 list_engines)
+from repro_torch.kernels.common import build as kernel_build  # noqa: E402
 from repro_torch.kernels.common.build import sass_opcodes  # noqa: E402
+from repro_torch.kernels.qmm import load_qmm, qmm_matmul, qmm_ref  # noqa: E402
 from repro_torch.kernels.tiled_mm import (load_tiled_mm,  # noqa: E402
                                           tiled_matmul, tiled_mm_ref)
 from repro_torch.kernels.vpu_mm import (load_vpu_mm,  # noqa: E402
                                         vpu_matmul, vpu_mm_library,
                                         vpu_mm_ref)
 from repro_torch.models.cnn import cnn_forward, init_cnn  # noqa: E402
+from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
+                               quantize_activations, quantize_weights,
+                               register_quantized, rel_err)
 from repro_torch.soc import SynergyRuntime  # noqa: E402
 
 DEVICE = "cuda"
@@ -79,6 +101,11 @@ DEVICE = "cuda"
 FP32_PEAK_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 PEAK_NOTE = "fp32 non-tensor 67 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)"
+
+#: int8 dense on the tensor cores (data sheet): the card's least time for
+#: int8 products, whatever K2 runs them on
+INT8_PEAK_OPS = 1979e12
+INT8_NOTE = "int8 dense 1,979 TOP/s, HBM 3.35 TB/s (H100 SXM data sheet)"
 
 FRAMES = 256
 OTHER_FRAMES = 64
@@ -93,6 +120,10 @@ ALEX_GEMMS = [("conv0", 262144, 64, 75, True), ("conv2", 65536, 64, 1600, True),
 #: the runtime's row panels of those GEMMs (TS = 32): (m, n, k)
 PANELS = [(32, n, k) for _, _, n, k, _ in ALEX_GEMMS]
 RAGGED = [(70, 45, 33), (1, 257, 129), (130, 1, 31)]
+#: the int8 pool of slice 3: K1's engine and its int8 twin, both on K2
+QPOOL = ["cuda-tiled", "cuda-tiled-int8"]
+#: conv0's k with fc7's n: ragged in k and in n at once (m, n, k)
+QMM_EDGE = (130, 10, 75)
 LOGIT_TOL = 1e-4     # fp32 logits, five GEMMs summed in another order
 BF16_TOL = 3e-2
 
@@ -264,6 +295,149 @@ def phase_sass() -> None:
           f"FFMA, no *MMA opcode; opcodes {sorted(ops)}", flush=True)
 
 
+def rand_int8(g: torch.Generator, *shape: int) -> torch.Tensor:
+    """Uniform int8 on the card, -128 included."""
+    return torch.randint(-128, 128, shape, device=DEVICE, generator=g,
+                         dtype=torch.int8)
+
+
+def ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units in the last place of want, in want's
+    type (float32 or bfloat16)."""
+    bits = 23 if want.dtype == torch.float32 else 7
+    _, e = torch.frexp(want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(want, dtype=torch.float32),
+                      (e - 1 - bits).clamp_min(-126 - bits))
+    return float(((got.float() - want.float()).abs() / ulp).max())
+
+
+def phase_qmm_kernel() -> float:
+    """Phase 3, K2: ``qmm`` against its plain version at the five Alex+
+    GEMMs whole, their 32-row panels, the ragged shapes and conv0's k with
+    fc7's n: the raw int32 accumulator BITWISE; the fused epilogue (fp32
+    and bf16 out, none/relu/silu) bitwise for none and relu, within 2 ulp
+    for silu.  Then one build serves four activation scales.  Returns the
+    largest abs error over the main path's modes (raw, and fp32 with
+    none/relu) at its shapes."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    acts = {"none": None, "relu": torch.relu, "silu": F.silu}
+    main_shapes = set(PANELS) | {(m, n, k) for _, m, n, k, _ in ALEX_GEMMS}
+    shapes = ([(m, n, k) for _, m, n, k, _ in ALEX_GEMMS] + PANELS + RAGGED
+              + [QMM_EDGE])
+    main_err, silu_ulps, cases = 0.0, 0.0, 0
+    for m, n, k in shapes:
+        a, w = rand_int8(g, m, k), rand_int8(g, k, n)
+        w_scale = torch.rand(1, n, device=DEVICE, generator=g) * 1e-3
+        bias = torch.randn(n, device=DEVICE, generator=g)
+        acc = qmm_matmul(a, w, w_scale, fuse_dequant=False)
+        want = qmm_ref(a, w, w_scale, fuse_dequant=False)
+        torch.cuda.synchronize()
+        if acc.dtype != torch.int32 or not torch.equal(acc, want):
+            raise AssertionError(f"qmm {m}x{n}x{k} raw: not bitwise equal to "
+                                 f"the plain version")
+        cases += 1
+        act_scale = 0.02
+        scale = w_scale * act_scale        # folded as the wrapper folds it
+        for dtype in (torch.float32, torch.bfloat16):
+            for act_name, act in acts.items():
+                y = qmm_matmul(a, w, w_scale, act_scale=act_scale, bias=bias,
+                               activation=act, out_dtype=dtype)
+                r = qmm_ref(a, w, scale, bias=bias, activation=act,
+                            out_dtype=dtype)
+                torch.cuda.synchronize()
+                if y.dtype != dtype or y.shape != (m, n):
+                    raise AssertionError(f"qmm {m}x{n}x{k} {dtype}: got "
+                                         f"{y.dtype} {tuple(y.shape)}")
+                if act is F.silu:
+                    u = ulps(y, r)
+                    if u > 2:
+                        raise AssertionError(f"qmm {m}x{n}x{k} {dtype} silu: "
+                                             f"{u} ulp from the plain version")
+                    silu_ulps = max(silu_ulps, u)
+                else:
+                    if not torch.equal(y, r):
+                        d = (y.float() - r.float()).abs().max().item()
+                        raise AssertionError(
+                            f"qmm {m}x{n}x{k} {dtype} {act_name}: not bitwise "
+                            f"equal, max |diff| {d:.3g}")
+                    if (m, n, k) in main_shapes and dtype == torch.float32:
+                        main_err = max(main_err, (y - r).abs().max().item())
+                cases += 1
+    # scales are operands: four activation scales, one library
+    m, n, k = QMM_EDGE
+    a, w = rand_int8(g, m, k), rand_int8(g, k, n)
+    w_scale = torch.rand(1, n, device=DEVICE, generator=g)
+    lib = kernel_build._libs["qmm"]
+    built = sorted(kernel_build._BUILD_DIR.glob("qmm-*.so"))
+    for s in (0.011, 0.012, 0.013, 0.014):
+        y = qmm_matmul(a, w, w_scale, act_scale=s, activation=torch.relu)
+        if not torch.equal(y, qmm_ref(a, w, w_scale * s,
+                                      activation=torch.relu)):
+            raise AssertionError(f"qmm at act_scale {s}: not bitwise equal")
+    if (kernel_build._libs["qmm"] is not lib
+            or sorted(kernel_build._BUILD_DIR.glob("qmm-*.so")) != built):
+        raise AssertionError("a new activation scale rebuilt qmm")
+    print(f"qmm: {cases} cases against the plain version: raw int32 and "
+          f"fused none/relu (fp32, bf16) bitwise, fused silu within "
+          f"{silu_ulps:.3g} ulp (limit 2); one build served 4 activation "
+          f"scales ({built[0].name})", flush=True)
+    return main_err
+
+
+class CaptureEngine(Engine):
+    """Runs K1 and keeps each GEMM's operands: the main path's patch
+    panels and weights, for the quantization checks."""
+
+    def __init__(self):
+        super().__init__("capture", {"gemm", "epilogue"},
+                         cost=CostModel(1e12))
+        self.operands: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+    def execute(self, a, b, *, bias=None, activation=None, tile=None,
+                out_dtype=None):
+        self.operands.append((a, b))
+        return tiled_matmul(a, b, bias=bias, activation=activation,
+                            out_dtype=out_dtype)
+
+
+def phase_quantization(card: str, main: tuple) -> None:
+    """Phase 3, K2's operands: ``quantize_weights`` and
+    ``quantize_activations`` on the card BITWISE equal to the same calls on
+    the CPU, over the five Alex+ weights and patch panels of phase 4's fp32
+    forward; and the quantization pass's time per GEMM (max|a| and
+    quantize, CUDA events) beside its bound (A read twice, int8 written)."""
+    cfg, params, x, *_ = main
+    cap = CaptureEngine()
+    cnn_forward(cfg, params, x, engine=cap, device=DEVICE)
+    torch.cuda.synchronize()
+    for (name, m, n, k, _), (a, b) in zip(ALEX_GEMMS, cap.operands):
+        if tuple(a.shape) != (m, k) or tuple(b.shape) != (k, n):
+            raise AssertionError(f"{name}: captured {tuple(a.shape)} @ "
+                                 f"{tuple(b.shape)}")
+        a_cpu, b_cpu = a.cpu(), b.cpu()
+        qw, qw_cpu = quantize_weights(b), quantize_weights(b_cpu)
+        s, s_cpu = one_shot_act_scale(a), one_shot_act_scale(a_cpu)
+        a_q = quantize_activations(a, s)
+        if not (torch.equal(qw.q.cpu(), qw_cpu.q)
+                and torch.equal(qw.scale.cpu(), qw_cpu.scale)):
+            raise AssertionError(f"{name}: quantize_weights on the card "
+                                 f"differs from the CPU")
+        if s != s_cpu or not torch.equal(
+                a_q.cpu(), quantize_activations(a_cpu, s_cpu)):
+            raise AssertionError(f"{name}: quantize_activations on the card "
+                                 f"differs from the CPU")
+        emit({"quantize": f"{cfg.name}/{name}", "m": m, "k": k, "n": n,
+              "amax_ms": median_ms(lambda: a.abs().amax()),
+              "quantize_ms": median_ms(lambda: quantize_activations(a, s)),
+              "weights_ms": median_ms(lambda: quantize_weights(b)),
+              "bound_ms": 1e3 * 9 * m * k / HBM_BYTES_PER_S,
+              "bound": "A read twice (fp32), A_q written (int8), at HBM rate",
+              "card": card})
+    print(f"quantization: weights and activations of the {len(ALEX_GEMMS)} "
+          f"{cfg.name} GEMMs bitwise equal on the card and the CPU",
+          flush=True)
+
+
 def phase_main_path() -> tuple:
     """Phase 4: the CNN forward through the dispatcher onto the kernel."""
     cfg = PAPER_CNNS["CIFAR_Alex+"]
@@ -272,14 +446,16 @@ def phase_main_path() -> tuple:
     x = torch.randn(FRAMES, cfg.input_hw, cfg.input_hw, cfg.cin, generator=g)
 
     tr = SynergyTrace()
-    tiled_matmul.launches = 0
-    vpu_matmul.launches = 0
+    reset_launches()
     for e in list_engines():
         e.telemetry.reset()
     with tr.activate():
         logits = cnn_forward(cfg, params, x, device=DEVICE)
     torch.cuda.synchronize()
     launches, k3_launches = tiled_matmul.launches, vpu_matmul.launches
+    if qmm_matmul.launches != 0:
+        raise AssertionError(f"qmm launched {qmm_matmul.launches} times in "
+                             f"the fp32 dispatcher forward")
     torch_gemms = get_engine("torch").telemetry.gemms
 
     if launches != len(ALEX_GEMMS):
@@ -339,13 +515,15 @@ def phase_runtime_path(main: tuple) -> dict:
         for e in list_engines():
             e.telemetry.reset()
         rt.reset_stats()
-        tiled_matmul.launches = 0
-        vpu_matmul.launches = 0
+        reset_launches()
         with tr.activate():
             got = cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
         torch.cuda.synchronize()
         k1, k3 = tiled_matmul.launches, vpu_matmul.launches
         stats = rt.stats()
+    if qmm_matmul.launches != 0:
+        raise AssertionError(f"qmm launched {qmm_matmul.launches} times in "
+                             f"the fp32 runtime forward")
     panels = sum(js.grid[0] for js in tr.jobsets)
     # panels each engine ran, per GEMM (a panel is one row of tile jobs)
     panels_by = {(js.m, js.n, js.k): {e: jobs // js.grid[1]
@@ -410,6 +588,172 @@ def phase_runtime_path(main: tuple) -> dict:
             "engines": {n: {k: per[n][k] for k in ("jobs", "steals",
                                                    "wall_busy_s", "idle_s")}
                         for n in POOL}}
+
+
+def reset_launches() -> None:
+    tiled_matmul.launches = 0
+    vpu_matmul.launches = 0
+    qmm_matmul.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"tiled_mm": tiled_matmul.launches, "vpu_mm": vpu_matmul.launches,
+            "qmm": qmm_matmul.launches}
+
+
+def phase_decode_paths(main: tuple) -> dict:
+    """Phase 4, slice 3: int8 inference of CIFAR_Alex+ x256 on K2.
+
+    ``register_quantized("cuda-tiled")`` calibrates ``cuda-tiled-int8`` on
+    the card.  The dispatcher decode forward must launch K2 once per GEMM
+    and K1/K3 never, within ``rel_err`` DEFAULT_TOL of phase 4's fp32
+    logits.  From the same calibrator state, the runtime decode forward
+    over ``QPOOL`` must launch K2 once per panel (both workers, with
+    steals) and K1/K3 never, be BITWISE equal to the same forward on a
+    one-worker int8 pool, and come within DEFAULT_TOL of the dispatcher
+    decode forward (the fused epilogue rounds once, the merge per step;
+    a last-bit difference can move an int8 value of the next layer).  An
+    fp32 forward through the same mixed pool launches K2 never and is
+    bitwise phase 4's dispatcher forward.  The other six CNNs run both
+    decode paths at 16 frames."""
+    cfg, params, x, _, logits = main
+    eng = register_quantized("cuda-tiled", device=DEVICE)
+    rep = eng.calibration
+    rows = [{k: r[k] for k in ("m", "k", "n", "rel_err")} for r in rep.rows]
+    print(f"calibration: {rep}; rows {rows}; measured "
+          f"{rep.measured_macs_per_s:.4g} MAC/s", flush=True)
+    state0 = eng.calibrator.export_state()
+
+    tr = SynergyTrace()
+    reset_launches()
+    with tr.activate():
+        q_logits = cnn_forward(cfg, params, x, job_class="decode",
+                               device=DEVICE)
+    torch.cuda.synchronize()
+    disp = launch_counts()
+    if disp != {"tiled_mm": 0, "vpu_mm": 0, "qmm": len(ALEX_GEMMS)}:
+        raise AssertionError(f"dispatcher decode forward launched {disp}")
+    if set(tr.engine_stats) != {"cuda-tiled-int8"}:
+        raise AssertionError(f"decode GEMMs went to {sorted(tr.engine_stats)}")
+    if q_logits.shape != logits.shape or not bool(
+            torch.isfinite(q_logits).all()):
+        raise AssertionError(f"decode logits {tuple(q_logits.shape)}, finite "
+                             f"{bool(torch.isfinite(q_logits).all())}")
+    disp_err = rel_err(q_logits, logits)
+    if disp_err > DEFAULT_TOL:
+        raise AssertionError(f"decode logits rel_err {disp_err:.4g} vs fp32 "
+                             f"> {DEFAULT_TOL}")
+    print(f"main path (dispatcher, int8): {cfg.name} x{FRAMES}, launches "
+          f"{disp}, logits rel_err vs fp32 {disp_err:.4g} (tol "
+          f"{DEFAULT_TOL})", flush=True)
+
+    eng.calibrator.import_state(state0)
+    tr = SynergyTrace()
+    with SynergyRuntime(QPOOL, name="int8", device=DEVICE) as rt:
+        for e in list_engines():
+            e.telemetry.reset()
+        rt.reset_stats()
+        reset_launches()
+        with tr.activate():
+            got = cnn_forward(cfg, params, x, runtime=rt, job_class="decode",
+                              device=DEVICE)
+        torch.cuda.synchronize()
+        run = launch_counts()
+        stats = rt.stats()
+    panels_per_gemm = [js.grid[0] for js in tr.jobsets]
+    panels = sum(panels_per_gemm)
+    per = stats["engines"]
+    if run != {"tiled_mm": 0, "vpu_mm": 0, "qmm": panels}:
+        raise AssertionError(f"runtime decode forward launched {run}, "
+                             f"{panels} panels")
+    if min(per[e]["jobs"] for e in QPOOL) == 0 or stats["total_steals"] == 0:
+        raise AssertionError(f"a worker ran no panel or nothing was stolen: "
+                             f"{ {e: per[e]['jobs'] for e in QPOOL} }, "
+                             f"{stats['total_steals']} steals")
+    rt_err = rel_err(got, q_logits)
+    if rt_err > DEFAULT_TOL:
+        raise AssertionError(f"runtime decode logits rel_err {rt_err:.4g} vs "
+                             f"the dispatcher decode forward")
+    eng.calibrator.import_state(state0)
+    with SynergyRuntime(QPOOL[1:], name="int8-one", device=DEVICE) as rt:
+        one = cnn_forward(cfg, params, x, runtime=rt, job_class="decode",
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    if not torch.equal(got, one):
+        raise AssertionError(
+            f"runtime decode logits differ from the one-worker pool's: max "
+            f"|diff| {(got - one).abs().max().item():.3g}")
+    print(f"main path (runtime, int8): {cfg.name} x{FRAMES} through "
+          f"SynergyRuntime({QPOOL}): {panels} panels = qmm {run['qmm']} "
+          f"launches (tiled_mm {run['tiled_mm']}, vpu_mm {run['vpu_mm']}), "
+          f"{stats['total_steals']} steals, logits bitwise equal to the "
+          f"one-worker int8 pool, rel_err vs the dispatcher decode forward "
+          f"{rt_err:.4g} (tol {DEFAULT_TOL})", flush=True)
+    for name in QPOOL:
+        p = per[name]
+        print(f"  {name}: {p['jobs']} tile jobs, {p['steals']} steals, "
+              f"wall_busy_s {p['wall_busy_s']:.4f}, idle_s "
+              f"{p['idle_s']:.4f}", flush=True)
+
+    tr = SynergyTrace()
+    reset_launches()
+    with SynergyRuntime(QPOOL, name="int8-fp32", device=DEVICE) as rt, \
+            tr.activate():
+        fp = cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
+    torch.cuda.synchronize()
+    fp_run = launch_counts()
+    if fp_run != {"tiled_mm": panels, "vpu_mm": 0, "qmm": 0}:
+        raise AssertionError(f"fp32 forward through the int8 pool launched "
+                             f"{fp_run}, {panels} panels")
+    if not torch.equal(fp, logits):
+        raise AssertionError("fp32 forward through the int8 pool differs "
+                             "from the dispatcher forward")
+    print(f"  fp32 through the same pool: launches {fp_run}, logits bitwise "
+          f"equal to the dispatcher forward", flush=True)
+
+    g = torch.Generator().manual_seed(6)
+    with SynergyRuntime(QPOOL, name="int8-others", device=DEVICE) as rt:
+        for name, other in sorted(PAPER_CNNS.items()):
+            if name == cfg.name:
+                continue
+            p = init_cnn(other, g, device=DEVICE)
+            xo = torch.randn(RUNTIME_OTHER_FRAMES, other.input_hw,
+                             other.input_hw, other.cin, generator=g)
+            want = cnn_forward(other, p, xo, device=DEVICE)
+            n_gemm = sum(1 for sp in other.layers if sp[0] in ("conv", "fc"))
+            eng.calibrator.import_state(state0)
+            before = qmm_matmul.launches
+            yd = cnn_forward(other, p, xo, job_class="decode", device=DEVICE)
+            torch.cuda.synchronize()
+            if qmm_matmul.launches - before != n_gemm:
+                raise AssertionError(f"{name}: dispatcher decode launched "
+                                     f"qmm {qmm_matmul.launches - before}")
+            eng.calibrator.import_state(state0)
+            tr_o = SynergyTrace()
+            before = qmm_matmul.launches
+            with tr_o.activate():
+                yr = cnn_forward(other, p, xo, runtime=rt, job_class="decode",
+                                 device=DEVICE)
+            torch.cuda.synchronize()
+            n_panels = sum(js.grid[0] for js in tr_o.jobsets)
+            if qmm_matmul.launches - before != n_panels:
+                raise AssertionError(f"{name}: runtime decode launched qmm "
+                                     f"{qmm_matmul.launches - before}, "
+                                     f"{n_panels} panels")
+            errs = (rel_err(yd, want), rel_err(yr, want), rel_err(yr, yd))
+            if max(errs) > DEFAULT_TOL:
+                raise AssertionError(f"{name}: decode rel_err {errs}")
+            print(f"  {name} x{RUNTIME_OTHER_FRAMES}: qmm {n_gemm} + "
+                  f"{n_panels} launches; rel_err dispatcher/runtime vs fp32 "
+                  f"{errs[0]:.4g} / {errs[1]:.4g}, runtime vs dispatcher "
+                  f"{errs[2]:.4g}", flush=True)
+    eng.calibrator.import_state(state0)
+    return {"dispatcher": disp, "runtime": run, "panels": panels,
+            "panels_per_gemm": panels_per_gemm, "disp_err": disp_err,
+            "rt_err": rt_err, "steals": stats["total_steals"],
+            "engines": {n: {k: per[n][k] for k in ("jobs", "steals",
+                                                   "wall_busy_s", "idle_s")}
+                        for n in QPOOL}}
 
 
 def phase_times(card: str, main: tuple) -> tuple[dict, float]:
@@ -543,19 +887,22 @@ def phase_panel_times(card: str, run: dict) -> tuple[dict, dict]:
 
 
 def runtime_forwards(cfg, params, x, pool: list, reps: int,
-                     name: str = "timed") -> dict:
+                     name: str = "timed", job_class: str | None = None
+                     ) -> dict:
     """The runtime forward over ``pool``: host clock around synchronize,
     median of ``reps`` after 1 warm-up, whose trace gives the panels."""
     tr = SynergyTrace()
     with SynergyRuntime(pool, name=name, device=DEVICE) as rt:
         with tr.activate():
-            cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
+            cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
+                        device=DEVICE)
         rt.reset_stats()
         samples = []
         for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
+            cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
+                        device=DEVICE)
             torch.cuda.synchronize()
             samples.append(time.perf_counter() - t0)
         stats = rt.stats()
@@ -573,7 +920,7 @@ def runtime_forwards(cfg, params, x, pool: list, reps: int,
 
 
 def phase_runtime_times(card: str, main: tuple, run: dict,
-                        dispatcher_s: float) -> None:
+                        dispatcher_s: float) -> dict:
     """Phase 5, slice 2: frames/s of the runtime forward (median of 5
     after 1 warm-up) beside the dispatcher forward of this run, and the
     host cost per panel."""
@@ -584,6 +931,119 @@ def phase_runtime_times(card: str, main: tuple, run: dict,
                              f"phase 4 {run['panels']}")
     emit({"forward": cfg.name, "path": "runtime", **t,
           "dispatcher_frames_per_s": FRAMES / dispatcher_s, "card": card})
+    return t
+
+
+def qmm_bound(m: int, n: int, k: int, fused: bool) -> tuple[float, str]:
+    """Least time in ms for K2: int8 A and W read once, the 4-byte output
+    (fp32 or int32) written once, plus scale and bias when fused, at the
+    HBM rate; or the products at the int8 tensor-core peak."""
+    t_ops = 2.0 * m * n * k / INT8_PEAK_OPS
+    t_bytes = (m * k + k * n + 4 * m * n + (8 * n if fused else 0)
+               ) / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def qmm_times(m: int, n: int, k: int, relu: bool, fused: bool,
+              g: torch.Generator) -> dict:
+    """One K2 shape: the kernel, its plain version and ``torch._int_mm`` on
+    operands zero-padded to multiples of 8 (its requirement; padded before
+    timing) plus the epilogue as torch ops, beside the bound.  ``fused``
+    is the dispatcher's mode (fp32 out, bias, ReLU unless the last layer);
+    otherwise the runtime's raw int32 panel."""
+    a, w = rand_int8(g, m, k), rand_int8(g, k, n)
+    w_scale = torch.rand(1, n, device=DEVICE, generator=g) * 1e-3
+    bias = torch.randn(n, device=DEVICE, generator=g)
+    act = torch.relu if relu else None
+    scale = w_scale * 0.02
+    kp, np8 = -(-k // 8) * 8, -(-n // 8) * 8
+    a_p = torch.zeros(m, kp, dtype=torch.int8, device=DEVICE)
+    w_p = torch.zeros(kp, np8, dtype=torch.int8, device=DEVICE)
+    a_p[:, :k], w_p[:k, :n] = a, w
+    if fused:
+        def kernel():
+            return qmm_matmul(a, w, w_scale, act_scale=0.02, bias=bias,
+                              activation=act)
+
+        def plain():
+            return qmm_ref(a, w, scale, bias=bias, activation=act)
+
+        def library():
+            y = torch.addcmul(bias, torch._int_mm(a_p, w_p)[:, :n].float(),
+                              scale)
+            return torch.relu_(y) if relu else y
+    else:
+        def kernel():
+            return qmm_matmul(a, w, w_scale, fuse_dequant=False)
+
+        def plain():
+            return qmm_ref(a, w, w_scale, fuse_dequant=False)
+
+        def library():
+            return torch._int_mm(a_p, w_p)
+    bound_ms, bound_by = qmm_bound(m, n, k, fused)
+    return {"m": m, "n": n, "k": k, "mode": "fused" if fused else "raw",
+            "ms": median_ms(kernel), "plain_ms": median_ms(plain),
+            "library_ms": median_ms(library), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_qmm_times(card: str, decode: dict) -> tuple[dict, dict]:
+    """Phase 5, slice 3: K2 per whole Alex+ GEMM in the dispatcher's fused
+    mode (the dispatcher decode forward runs exactly these), and per 32-row
+    panel in the runtime's raw mode, weighted by the panels of each GEMM in
+    phase 4's runtime decode forward (every panel runs on K2, whichever
+    worker took it)."""
+    g = torch.Generator(device=DEVICE).manual_seed(7)
+    dispatcher, runtime = new_totals(), new_totals()
+    lib = "torch._int_mm (operands zero-padded to 8) + torch epilogue"
+    for (name, m, n, k, relu), panel, ran in zip(
+            ALEX_GEMMS, PANELS, decode["panels_per_gemm"]):
+        t = qmm_times(m, n, k, relu, True, g)
+        add_times(dispatcher, t)
+        emit({"gemm": f"CIFAR_Alex+/{name}", **t, "kernel": "qmm",
+              "peak": INT8_NOTE, "library": lib,
+              "tops": 2e-9 * m * n * k / t["ms"], "card": card})
+        t = qmm_times(*panel, relu, False, g)
+        add_times(runtime, t, ran)
+        emit({"panel": f"CIFAR_Alex+/{name}", **t, "kernel": "qmm",
+              "panels_run": ran, "peak": INT8_NOTE, "library": lib,
+              "card": card})
+    return dispatcher, runtime
+
+
+def phase_decode_times(card: str, main: tuple, decode: dict,
+                       dispatcher_s: float, runtime_fp32: dict) -> None:
+    """Phase 5, slice 3: frames/s of both decode forwards beside both fp32
+    forwards of this call, and the runtime decode forward's host cost per
+    panel.  The calibrator keeps folding batches in while they run."""
+    cfg, params, x, *_ = main
+    for _ in range(3):
+        cnn_forward(cfg, params, x, job_class="decode", device=DEVICE)
+    samples = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cnn_forward(cfg, params, x, job_class="decode", device=DEVICE)
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    wall = statistics.median(samples)
+    emit({"forward": cfg.name, "path": "dispatcher", "job_class": "decode",
+          "frames": FRAMES, "frames_per_s": FRAMES / wall, "ms": 1e3 * wall,
+          "fp32_frames_per_s": FRAMES / dispatcher_s,
+          "timer": "host clock around synchronize, median of 20",
+          "card": card})
+    t = runtime_forwards(cfg, params, x, QPOOL, reps=5, name="int8-timed",
+                         job_class="decode")
+    if t["panels"] != decode["panels"]:
+        raise AssertionError(f"timed decode forward ran {t['panels']} "
+                             f"panels, phase 4 {decode['panels']}")
+    emit({"forward": cfg.name, "path": "runtime", "job_class": "decode", **t,
+          "fp32_runtime_frames_per_s": runtime_fp32["frames_per_s"],
+          "fp32_runtime_pool": runtime_fp32["pool"],
+          "fp32_dispatcher_frames_per_s": FRAMES / dispatcher_s,
+          "card": card})
 
 
 def union_us(intervals) -> float:
@@ -597,20 +1057,24 @@ def union_us(intervals) -> float:
     return total
 
 
-def phase_runtime_profile(card: str, main: tuple) -> dict:
-    """Phase 5, slice 2: one runtime forward (after a warm-up one) under
+def phase_runtime_profile(card: str, main: tuple, pool: list = POOL,
+                          job_class: str | None = None,
+                          label: str = "two-kernel pool") -> dict:
+    """Phase 5: one runtime forward (after a warm-up one) under
     ``torch.profiler``: each kernel's device time and launches, and the
     share of the wall time in which at least one kernel ran on the card.
     Returns ``{kernel: {"count", "device_ms"}}``."""
     from torch.profiler import ProfilerActivity, profile
     cfg, params, x, *_ = main
-    with SynergyRuntime(POOL, name="profiled", device=DEVICE) as rt:
-        cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
+    with SynergyRuntime(pool, name="profiled", device=DEVICE) as rt:
+        cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
+                    device=DEVICE)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
+            cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
+                        device=DEVICE)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     kernels, intervals = {}, []
@@ -618,13 +1082,14 @@ def phase_runtime_profile(card: str, main: tuple) -> dict:
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ("tiled_mm" if "tiled_mm_kernel" in ev.name else
-                "vpu_mm" if "vpu_mm_kernel" in ev.name else "other")
+                "vpu_mm" if "vpu_mm_kernel" in ev.name else
+                "qmm" if "qmm_kernel" in ev.name else "other")
         k = kernels.setdefault(name, {"count": 0, "device_ms": 0.0})
         k["count"] += 1
         k["device_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
         intervals.append((ev.time_range.start, ev.time_range.end))
     busy_ms = union_us(intervals) / 1e3 if intervals else None
-    emit({"profile": "one runtime forward, two-kernel pool",
+    emit({"profile": f"one runtime forward, {label}",
           "wall_ms_under_profiler": 1e3 * wall, "kernels": kernels,
           "device_busy_ms": busy_ms,
           "device_busy_share": None if busy_ms is None
@@ -663,30 +1128,37 @@ def main() -> int:
             errors.append(e)
 
     threads = [threading.Thread(target=build, args=(load,))
-               for load in (load_tiled_mm, load_vpu_mm)]
+               for load in (load_tiled_mm, load_vpu_mm, load_qmm)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print(f"set-up: tiled_mm and vpu_mm built and loaded in "
+    print(f"set-up: tiled_mm, vpu_mm and qmm built and loaded in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernels against their plain versions
     main_err = phase_kernels()
     vpu_err = phase_vpu_kernel()
     phase_sass()
+    qmm_err = phase_qmm_kernel()
 
-    # phase 4: the main paths
+    # phase 4: the main paths (fp32, then int8)
     main = phase_main_path()
     run = phase_runtime_path(main)
+    phase_quantization(card, main)
+    decode = phase_decode_paths(main)
 
     # phase 5: times
     totals, dispatcher_s = phase_times(card, main)
     runtime_totals, vpu_whole = phase_panel_times(card, run)
-    phase_runtime_times(card, main, run, dispatcher_s)
+    runtime_fp32 = phase_runtime_times(card, main, run, dispatcher_s)
     profiled = phase_runtime_profile(card, main)
+    qmm_dispatcher, qmm_runtime = phase_qmm_times(card, decode)
+    phase_decode_times(card, main, decode, dispatcher_s, runtime_fp32)
+    q_profiled = phase_runtime_profile(card, main, QPOOL, "decode",
+                                       "int8 pool, decode")
 
     # phase 6: the kernels line, the card, the result
     on_runtime = (f"one CIFAR_Alex+ forward at {FRAMES} frames through the "
@@ -720,6 +1192,24 @@ def main() -> int:
             entry["whole_gemms"] = {**summary(vpu_whole), "per": (
                 whole + "; a comparison with tiled_mm's whole GEMMs")}
         entries.append(entry)
+    q_on_runtime = (f"one CIFAR_Alex+ decode forward at {FRAMES} frames "
+                    f"through the runtime: per-panel medians (raw int32) "
+                    f"times the panels of each GEMM, every one on qmm")
+    q_runtime = {"launches": decode["runtime"]["qmm"], **summary(qmm_runtime),
+                 "per": q_on_runtime,
+                 "profiled": {**q_profiled.get("qmm", {}), "per": (
+                     "device time of another runtime decode forward under "
+                     "torch.profiler")}}
+    entries.append({
+        "name": "qmm", "route": "cuda",
+        "source": "src/repro_torch/kernels/qmm/csrc/qmm.cu",
+        "replaces": "src/repro/kernels/qmm/qmm.py:123",
+        "launches": decode["runtime"]["qmm"], "max_abs_err": qmm_err,
+        **summary(qmm_runtime), "per": q_on_runtime,
+        "by_path": {"dispatcher": {"launches": decode["dispatcher"]["qmm"],
+                                   **summary(qmm_dispatcher),
+                                   "per": whole + ", fused epilogue"},
+                    "runtime": q_runtime}})
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

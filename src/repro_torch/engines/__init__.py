@@ -16,7 +16,10 @@ One registry, one dispatch surface, every backend:
 Importing this package registers the built-in engines (``torch``,
 ``cuda-tiled``, ``reference``), the slow CUDA-core engine ``neon-vpu``
 and the calibrated simulated Zynq PEs (``F-PE``, ``S-PE``, ``NEON``,
-``ARM``) exactly once.
+``ARM``) exactly once.  Int8 engines are not registered by default:
+``repro_torch.quant.register_quantized("cuda-tiled")`` calibrates
+``cuda-tiled-int8`` (the hand-written int8 kernel, K2) on the card and
+registers it, as ``repro.quant.register_quantized`` does for ``repro``.
 """
 
 from .base import (CAP_EPILOGUE, CAP_GEMM, CAP_GRAD, CAP_INT8, CAP_INTERPRET,
@@ -54,6 +57,8 @@ __all__ = [
 ENGINE_NAME_MAP: dict[str, str] = {
     "xla": "torch", "pallas": "cuda-tiled", "reference": "reference",
     "neon-vpu": "neon-vpu",
+    # the int8 engines of ``register_quantized(base)``: f"{base}-int8"
+    "pallas-int8": "cuda-tiled-int8", "xla-int8": "torch-int8",
     **{kind: kind for kind in SIM_ENGINE_SPECS},
 }
 

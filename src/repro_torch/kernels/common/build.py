@@ -84,10 +84,12 @@ def build_library(name: str, source: Path) -> Path:
     return so
 
 
-def load_library(name: str, source: Path) -> ctypes.CDLL:
-    """The bound library of a GEMM kernel, built on the first call in this
-    process; its entry point ``name`` gets :data:`GEMM_ARGTYPES`.  Once
-    bound, a call takes no lock: every launch goes through here."""
+def load_library(name: str, source: Path,
+                 argtypes: list = GEMM_ARGTYPES) -> ctypes.CDLL:
+    """The bound library of a kernel, built on the first call in this
+    process; its entry point ``name`` gets ``argtypes`` (the GEMM entry
+    point's by default) and returns the CUDA error as an int.  Once bound,
+    a call takes no lock: every launch goes through here."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
@@ -98,7 +100,7 @@ def load_library(name: str, source: Path) -> ctypes.CDLL:
         if lib is None:
             lib = ctypes.CDLL(str(build_library(name, source)))
             fn = getattr(lib, name)
-            fn.argtypes = GEMM_ARGTYPES
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib

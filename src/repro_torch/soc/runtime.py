@@ -36,9 +36,10 @@ workers rank and estimate engines with ``engine.cost_on(device)``, and
 ``submit_gemm`` refuses operands on another device.  On a card each worker
 owns a CUDA stream: a panel runs under it, after the stream waits on an
 event recorded on the submitter's stream (A was written there, e.g. by
-im2col), and the worker synchronises its stream before the panel's time
-is read, so ``wall_busy_s``, recalibration and health time the panel and
-not its launch.  Panel outputs are marked as used on the submitter's
+im2col, and on the int8 path quantized there too), and the worker
+synchronises its stream before the panel's time is read, so
+``wall_busy_s``, recalibration and health time the panel and not its
+launch.  Panel outputs are marked as used on the submitter's
 stream, where the merge concatenates them.  Launches go through
 ``ctypes``, which releases the GIL, so two workers' launches can overlap;
 the rest of the worker loop holds it.
@@ -65,6 +66,9 @@ from repro_torch.obs.trace import get_default_tracer
 from repro_torch.engines.registry import (add_registry_listener, get_engine,
                                           remove_registry_listener)
 from repro_torch.runtime.fault_tolerance import HeartbeatMonitor
+from repro_torch.kernels.qmm import qmm_matmul
+from repro_torch.quant.act import quantize_activations
+from repro_torch.quant.quantize import dequant_finish
 from .faults import (CorruptOutput, DroppedCompletion, PanelRetryExhausted,
                      RetryPolicy, WorkerKilled)
 from .policy import lpt_pick, should_steal
@@ -1307,6 +1311,7 @@ class SynergyRuntime:
                     tile=(256, 256, 256), out_dtype=None,
                     affinity: Optional[str] = None,
                     job_class: Optional[str] = None,
+                    observe_acts: bool = True,
                     qos: Optional[QosTag] = None) -> RuntimeFuture:
         """Split one GEMM's tile jobs across the pool as row panels; the
         future's result is the merged ``act(A @ B + bias)``.  ``a``, ``b``
@@ -1320,14 +1325,29 @@ class SynergyRuntime:
         ``job_class`` admits int8 (decode), every panel carries
         ``int8_ok=False`` and can never be placed on a CAP_INT8 worker —
         at seed time, by a steal, by a hotplug rebalance, or on engine
-        removal.  Mixed-pool panels are pinned to the deterministic LPT
+        removal.
+
+        An opted-in GEMM whose activation scale has been calibrated takes
+        the **int32-partial path** instead: the activations (and, on first
+        use, the weights) quantize ONCE at submit time, every panel
+        computes the raw int8×int8 int32 accumulator on the qmm kernel
+        (exact integer math — bitwise identical on every engine, so these
+        panels steal freely even across precision classes), and the merge
+        concatenates the partials and applies ``dequant_finish`` exactly
+        once.  The submission also feeds the calibrator (one host sync for
+        max|a|), so the first decode split calibrates and the rest run
+        quantized; ``observe_acts=False`` skips that feed, for a caller
+        that calibrates on its own cadence.
+
+        Otherwise mixed-pool panels are pinned to the deterministic LPT
         seed (stealable=False) — stealing an fp32 panel across precision
         classes would make the merged numerics a function of thread
-        timing.  (``repro``'s int32-partial split for calibrated int8
-        engines arrives with the port's int8 kernel.)
+        timing — and panels landing on a quantized engine run its
+        weight-only fallback (never the order-dependent online path).
 
         On a card, the panels wait for an event recorded on the caller's
-        current stream, and the merge runs on that stream."""
+        current stream after the quantization, and the merge runs on that
+        stream."""
         for t in (a, b, bias):
             if t is not None and t.device != self.device:
                 raise ValueError(f"runtime {self.name!r} runs on "
@@ -1339,38 +1359,70 @@ class SynergyRuntime:
         j = next(jobset.jobs())
         final_dtype = out_dtype or a.dtype
         int8_ok = _admits_int8(job_class)
+        # quantizes A (and W) on the caller's stream: before the event
+        plan = (self._plan_int8_split(a, b, observe=observe_acts)
+                if int8_ok else None)
         caller, ready = None, None
         if self.device.type == "cuda":
             caller = torch.cuda.current_stream(self.device)
             ready = torch.cuda.Event()
             ready.record(caller)
 
-        def make_fn(r0: int, r1: int):
+        def on_worker(compute):
+            """``compute(eng)`` as a panel: on the card it waits for the
+            caller's operands first, and keeps its part's block from reuse
+            until the caller's stream, where the merge reads it, is past
+            it."""
             def fn(eng: Engine):
                 if ready is not None:
-                    # runs on the worker's stream: A is ready once the
-                    # caller's stream has passed the event
                     torch.cuda.current_stream(self.device).wait_event(ready)
-                ex = getattr(eng, "execute_weight_only", eng.execute)
-                part = ex(a[r0:r1], b, bias=bias, activation=activation,
-                          tile=tile, out_dtype=torch.float32)
+                part = compute(eng)
                 if caller is not None:
-                    # the merge reads the part on the caller's stream: keep
-                    # its block from reuse until that stream has passed it
                     part.record_stream(caller)
                 return part
             return fn
 
-        units = []
-        for t1 in range(gm):
-            r0, r1 = t1 * ts_m, min((t1 + 1) * ts_m, m)
-            units.append((make_fn(r0, r1), gn, j.macs, j.bytes_moved))
+        def on_caller(merge_parts):
+            def merge(parts: list):
+                with (torch.cuda.stream(caller) if caller is not None
+                      else contextlib.nullcontext()):
+                    return merge_parts(parts[0] if len(parts) == 1
+                                       else torch.cat(parts, 0))
+            return merge
 
-        def merge(parts: list):
-            with (torch.cuda.stream(caller) if caller is not None
-                  else contextlib.nullcontext()):
-                y = parts[0] if len(parts) == 1 else torch.cat(parts, 0)
-                return y.to(final_dtype)
+        rows = [(t1 * ts_m, min((t1 + 1) * ts_m, m)) for t1 in range(gm)]
+        if plan is not None:
+            qw, act_scale, a_q = plan
+
+            def make_qfn(r0: int, r1: int):
+                def compute(eng: Engine):
+                    fn8 = getattr(eng, "execute_int8", None)
+                    if fn8 is not None:
+                        return fn8(a_q[r0:r1], qw, tile=tile)
+                    # any engine computes the exact integer partial
+                    # through the shared kernel (steals/hotplug-safe)
+                    return qmm_matmul(a_q[r0:r1], qw.q, qw.scale,
+                                      fuse_dequant=False)
+                return on_worker(compute)
+
+            units = [(make_qfn(r0, r1), gn, j.macs, j.bytes_moved)
+                     for r0, r1 in rows]
+            merge_q = on_caller(lambda acc: dequant_finish(
+                acc, qw, act_scale=act_scale, bias=bias,
+                activation=activation, out_dtype=final_dtype))
+            return self._submit_jobs(jobset, units, merge_q, affinity,
+                                     stealable=True, int8_ok=True, qos=qos)
+
+        def make_fn(r0: int, r1: int):
+            def compute(eng: Engine):
+                ex = getattr(eng, "execute_weight_only", eng.execute)
+                return ex(a[r0:r1], b, bias=bias, activation=activation,
+                          tile=tile, out_dtype=torch.float32)
+            return on_worker(compute)
+
+        units = [(make_fn(r0, r1), gn, j.macs, j.bytes_moved)
+                 for r0, r1 in rows]
+        merge = on_caller(lambda y: y.to(final_dtype))
 
         # the mixed check and the enqueue must be one atomic step: a
         # hotplug between them would enqueue stealable panels into a
@@ -1382,6 +1434,31 @@ class SynergyRuntime:
                                      None if mixed else affinity,
                                      stealable=not mixed, int8_ok=int8_ok,
                                      qos=qos)
+
+    def _plan_int8_split(self, a, b, observe: bool = True):
+        """Plan the shared quantization of an opted-in GEMM: observe the
+        live activations into the pool's quantized engine (unless the
+        caller feeds the calibrator itself — ``observe=False``), and —
+        once a scale is published for this (k, n) shape — quantize
+        activations and weights ONCE for the whole split.  Returns
+        ``(qw, act_scale, a_q)`` or None (no quantized engine in the pool,
+        or the shape still warming up)."""
+        with self._lock:
+            engs = [w.engine for w in self._workers.values()]
+        qengs = [e for e in engs
+                 if CAP_INT8 in e.capabilities
+                 and hasattr(e, "execute_int8")
+                 and hasattr(e, "act_scale_for")]
+        if not qengs:
+            return None
+        qeng = qengs[0]
+        k, n = b.shape
+        if observe:
+            qeng.observe_activations(a, k, n)  # decode feeds the calibrator
+        scale = qeng.act_scale_for(k, n)
+        if scale is None:
+            return None
+        return qeng.quantized(b), scale, quantize_activations(a, scale)
 
     def _mixed_precision_pool(self) -> bool:
         """True when the live pool mixes int8 and full-precision engines

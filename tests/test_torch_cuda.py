@@ -2,7 +2,10 @@
 their plain versions, row panels bit-stable, K3 bitwise equal to K1 and
 free of tensor-core instructions, the dispatcher routing CUDA tensors onto
 K1, and the work-stealing runtime splitting GEMMs over both kernels with
-results bitwise equal to the unsplit K1 GEMM.
+results bitwise equal to the unsplit K1 GEMM.  K2 (qmm) against its plain
+version (raw int32 bitwise, fused epilogue bitwise for none/relu), one
+build for every activation scale, quantization on the card bitwise the
+CPU's, and the runtime's int32 split bitwise a one-worker split.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -19,10 +22,14 @@ import torch.nn.functional as F
 from repro_torch.configs import PAPER_CNNS
 from repro_torch.core.job import JobSet
 from repro_torch.core.synergy_mm import SynergyTrace, synergy_matmul
+from repro_torch.engines import get_engine
 from repro_torch.kernels.common.build import sass_opcodes
+from repro_torch.kernels.qmm import qmm_matmul, qmm_ref
 from repro_torch.kernels.tiled_mm import tiled_matmul, tiled_mm_ref
 from repro_torch.kernels.vpu_mm import vpu_matmul, vpu_mm_library, vpu_mm_ref
 from repro_torch.models.cnn import cnn_forward, init_cnn
+from repro_torch.quant import (QuantizedEngine, quantize_weights, rel_err)
+from repro_torch.quant.act import one_shot_act_scale, quantize_activations
 from repro_torch.soc import SynergyRuntime
 
 POOL = ["cuda-tiled", "neon-vpu"]
@@ -181,3 +188,114 @@ def test_cnn_forward_through_the_runtime_is_bitwise_the_k1_forward(cuda):
     assert (tiled_matmul.launches - launches[0]
             + vpu_matmul.launches - launches[1]) == panels
     assert set(tr.engine_stats) <= set(POOL)
+
+
+# ------------------------------------------------------------ K2: qmm
+
+def _int8(g, *shape):
+    return torch.randint(-128, 128, shape, device="cuda", generator=g,
+                         dtype=torch.int8)
+
+
+@pytest.mark.parametrize("shape", [(70, 45, 33), (1, 257, 129),
+                                   (130, 10, 75), (32, 64, 1600),
+                                   (256, 128, 2048)])
+def test_qmm_raw_accumulator_is_bitwise_the_plain_version(cuda, shape):
+    m, n, k = shape
+    g = torch.Generator(device=cuda).manual_seed(10)
+    a, w = _int8(g, m, k), _int8(g, k, n)
+    scale = torch.rand(1, n, device=cuda, generator=g)
+    before = qmm_matmul.launches
+    acc = qmm_matmul(a, w, scale, fuse_dequant=False)
+    torch.cuda.synchronize()
+    assert qmm_matmul.launches == before + 1
+    assert acc.dtype == torch.int32 and acc.shape == (m, n)
+    assert torch.equal(acc, qmm_ref(a, w, scale, fuse_dequant=False))
+
+
+@pytest.mark.parametrize("act", [None, torch.relu, F.silu, torch.tanh],
+                         ids=["none", "relu", "silu", "unfused-tanh"])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+def test_qmm_fused_epilogue_matches_the_plain_version(cuda, act, out_dtype,
+                                                      with_bias):
+    """Bitwise for none/relu (one rounding of acc * scale + bias on both
+    sides); SiLU's expf differs from torch's: 2 ulp."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    m, n, k = 130, 70, 300
+    a, w = _int8(g, m, k), _int8(g, k, n)
+    w_scale = torch.rand(1, n, device=cuda, generator=g) * 1e-3
+    bias = torch.randn(n, device=cuda, generator=g) if with_bias else None
+    y = qmm_matmul(a, w, w_scale, act_scale=0.037, bias=bias, activation=act,
+                   out_dtype=out_dtype)
+    scale = w_scale * 0.037
+    want = qmm_ref(a, w, scale, bias=bias, activation=act,
+                   out_dtype=out_dtype)
+    assert y.dtype == out_dtype
+    if act in (None, torch.relu):
+        assert torch.equal(y, want)
+    else:
+        ulp = torch.finfo(out_dtype).eps * want.float().abs().clamp_min(1e-30)
+        assert bool(((y.float() - want.float()).abs() <= 2 * ulp).all())
+
+
+def test_one_qmm_build_serves_every_scale(cuda):
+    """Scales are operands: four activation scales, one library."""
+    from repro_torch.kernels.common import build
+    g = torch.Generator(device=cuda).manual_seed(12)
+    a, w = _int8(g, 64, 96), _int8(g, 96, 40)
+    w_scale = torch.rand(1, 40, device=cuda, generator=g)
+    qmm_matmul(a, w, w_scale)                       # built and bound here
+    lib, built = build._libs["qmm"], sorted(build._BUILD_DIR.glob("qmm-*.so"))
+    for s in (0.011, 0.012, 0.013, 0.014):
+        y = qmm_matmul(a, w, w_scale, act_scale=s)
+        assert torch.equal(y, qmm_ref(a, w, w_scale * s))
+    assert build._libs["qmm"] is lib
+    assert sorted(build._BUILD_DIR.glob("qmm-*.so")) == built
+
+
+def test_quantization_on_the_card_is_bitwise_the_cpu(cuda):
+    g = torch.Generator().manual_seed(13)
+    for shape, wscale in (((75, 64), 0.05), ((1600, 128), 0.03),
+                          ((2048, 128), 0.02), ((128, 10), 0.1)):
+        w = torch.randn(*shape, generator=g) * wscale
+        q_cpu, q_card = quantize_weights(w), quantize_weights(w.to(cuda))
+        assert torch.equal(q_card.q.cpu(), q_cpu.q)
+        assert torch.equal(q_card.scale.cpu(), q_cpu.scale)
+    a = torch.randn(4096, 1600, generator=g) * 3
+    s = one_shot_act_scale(a)
+    assert one_shot_act_scale(a.to(cuda)) == s
+    for scale in (s, s / 3, 0.01):
+        assert torch.equal(quantize_activations(a.to(cuda), scale).cpu(),
+                           quantize_activations(a, scale))
+
+
+@pytest.mark.parametrize("affinity", ["cuda-tiled", "cuda-tiled-int8"])
+def test_runtime_int8_split_is_bitwise_the_one_worker_split(cuda, affinity):
+    """All panels seeded onto one engine, the other steals: the merged
+    int8 GEMM is bitwise a one-worker split from the same calibrator
+    state, and every panel ran on K2 (K1 launched none)."""
+    g = torch.Generator(device=cuda).manual_seed(14)
+    m, n, k = 40 * 32 + 7, 64, 300
+    a = torch.randn(m, k, device=cuda, generator=g)
+    b = torch.randn(k, n, device=cuda, generator=g) * 0.05
+    bias = torch.randn(n, device=cuda, generator=g)
+    js = JobSet.for_gemm(0, m, n, k, 32)
+    q = QuantizedEngine(get_engine("cuda-tiled"), name="cuda-tiled-int8")
+    outs = []
+    for pool in (["cuda-tiled", q], [q]):
+        q.calibrator.reset()
+        before = (tiled_matmul.launches, qmm_matmul.launches)
+        with SynergyRuntime(pool, device=cuda) as rt:
+            fut = rt.submit_gemm(a, b, jobset=js, bias=bias,
+                                 activation=torch.relu, tile=(32, 32, 32),
+                                 affinity=affinity if len(pool) == 2
+                                 else None, job_class="decode")
+            outs.append(fut.result(60))
+        assert tiled_matmul.launches == before[0]
+        assert qmm_matmul.launches - before[1] == js.grid[0]
+        if len(pool) == 2:
+            assert set(fut.accounting) == {"cuda-tiled", "cuda-tiled-int8"}
+    assert torch.equal(outs[0], outs[1])
+    want = a @ b + bias
+    assert rel_err(outs[0], torch.relu(want)) <= 0.05

@@ -1,5 +1,6 @@
-"""The port stands alone: no module of src/repro_torch, and not
-chip_smoke.py, imports JAX or anything of the reference package repro."""
+"""The port stands alone: no module of src/repro_torch, and neither
+chip_smoke.py nor scripts/runtime_breakdown.py, imports JAX or anything of
+the reference package repro."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "runtime_breakdown.py"]
 
 
 def _imported(tree):
