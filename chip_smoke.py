@@ -6,8 +6,8 @@
 Phases, in order; each raises on failure and nothing is caught:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
-2. Build: compiles the hand-written kernels from ``src/repro_torch``, one
-   ``nvcc`` per source, all started together (set-up time, printed).
+2. Build: compiles the five hand-written kernels from ``src/repro_torch``,
+   one ``nvcc`` per source, all started together (set-up time, printed).
 3. Kernels against their plain PyTorch versions, on the card, at every GEMM
    shape of CIFAR_Alex+ at 256 frames, at ragged shapes, for fp32 and bf16
    inputs and every fused epilogue.  TF32 is off for both matmul and cuDNN.
@@ -16,7 +16,14 @@ Phases, in order; each raises on failure and nothing is caught:
    tensor-core instruction.  ``qmm`` (slice 3) at the Alex+ GEMMs, their
    panels, the ragged shapes and k = 75 with n = 10: raw int32 bitwise,
    fused fp32/bf16 none/relu bitwise and silu within 2 ulp; one build
-   serves four activation scales.
+   serves four activation scales.  Slice 4: ``flash_attention`` (K4)
+   against ``attention_ref`` at zamba2's prefill call (bf16 and fp32),
+   GQA 32/8 D 64, 40/10 D 128, 64/8 D 112, 16/16 D 256, whisper's
+   non-causal encoder (S = Sk = 1500) and cross attention (16 / 1500), and
+   a ragged S = 200; ``ssd`` (K5) against the chunked torch path at
+   zamba2's prefill call (fp32, the main path's type, and bf16),
+   mamba2-130m's N = 128, L = 1000 (padded) and chunk 64, y and state.
+   Tolerances relative to max|ref|: fp32 2e-5·sqrt(Sk or L), bf16 3e-2.
 4. Main path, dispatcher (slice 1): ``cnn_forward`` of CIFAR_Alex+ at its
    published widths on 256 frames, with launch counts set to 0 just before
    and read just after; logits are held against the same forward with
@@ -37,6 +44,17 @@ Phases, in order; each raises on failure and nothing is caught:
    calibrator state); fp32 through that pool launches K2 never and is
    bitwise the dispatcher forward.  The other six CNNs run both decode
    paths at 16 frames.
+   LM serving (slice 4): zamba2-2.7b at its published widths and all 54
+   layers (param fp32, compute bf16, random weights from a seed, on the
+   card): 4 x 1,024-token prompts through ``prefill_fn`` (counts set to 0
+   just before and read just after: K4 9, K5 54, K1 55), then 32 greedy
+   ``decode_fn`` steps from a cache of max_len 1,057 (each: K4 0, K5 0,
+   K1 55); against the same prefill with ``impl="ref"``, within
+   ``rel_err`` 3e-2: the logits in fp32 compute, and the bf16 prefill
+   block by block (a bf16 logit comparison is printed, not held: at 54
+   layers any last-bit difference grows past 3e-2); at full width in
+   fp32, 16 decode steps from an empty cache reproduce ``lm_forward``
+   (which runs K4 and K5) within 2e-3.
 5. Times (CUDA events, warm-up, median of 25): per Alex+ GEMM, each kernel,
    its plain version, ``torch.addmm`` + ReLU as the library yardstick, and
    the bound; both kernels also at the runtime's panel shapes, weighted by
@@ -46,13 +64,18 @@ Phases, in order; each raises on failure and nothing is caught:
    the card's busy share.  Slice 3: K2 per whole GEMM (fused) and per panel
    (raw) beside its plain version, its bound and ``torch._int_mm``; the
    quantization pass per GEMM; frames/s of both decode forwards beside
-   both fp32 forwards; one profiled runtime decode forward.
+   both fp32 forwards; one profiled runtime decode forward.  Slice 4:
+   prefill ms and tokens/s (median of 3), decode ms per step and tokens/s
+   (median of 32); K4 and K5 at the main path's call beside their plain
+   versions, the bound and (K4) ``F.scaled_dot_product_attention``; one
+   prefill and one decode step under ``torch.profiler``.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's top-level numbers are the
    runtime path's (this slice's main path): launches in phase 4's runtime
    forward, and times of the panels it ran there (``qmm``: the runtime
    decode forward's); ``by_path`` gives each path's launches and times on
-   its own basis.
+   its own basis.  K4's and K5's are the LM prefill's: launches in it, and
+   per-call medians times the calls one prefill makes.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -60,6 +83,7 @@ outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -75,19 +99,26 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import PAPER_CNNS  # noqa: E402
+from repro_torch.configs import ARCHS, PAPER_CNNS  # noqa: E402
 from repro_torch.core.im2col import im2col  # noqa: E402
 from repro_torch.core.synergy_mm import SynergyTrace  # noqa: E402
 from repro_torch.engines import (CostModel, Engine, get_engine,  # noqa: E402
                                  list_engines)
 from repro_torch.kernels.common import build as kernel_build  # noqa: E402
 from repro_torch.kernels.common.build import sass_opcodes  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_ref, flash_attention_cuda, load_flash_attention)
 from repro_torch.kernels.qmm import load_qmm, qmm_matmul, qmm_ref  # noqa: E402
+from repro_torch.kernels.ssd import (load_ssd, ssd, ssd_chunked,  # noqa: E402
+                                     ssd_cuda)
+from repro_torch.kernels.ssd.ops import _prescale  # noqa: E402
 from repro_torch.kernels.tiled_mm import (load_tiled_mm,  # noqa: E402
                                           tiled_matmul, tiled_mm_ref)
 from repro_torch.kernels.vpu_mm import (load_vpu_mm,  # noqa: E402
                                         vpu_matmul, vpu_mm_library,
                                         vpu_mm_ref)
+from repro_torch.models import (decode_fn, init_cache,  # noqa: E402
+                                init_model, lm_forward, prefill_fn)
 from repro_torch.models.cnn import cnn_forward, init_cnn  # noqa: E402
 from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
                                quantize_activations, quantize_weights,
@@ -126,6 +157,47 @@ QPOOL = ["cuda-tiled", "cuda-tiled-int8"]
 QMM_EDGE = (130, 10, 75)
 LOGIT_TOL = 1e-4     # fp32 logits, five GEMMs summed in another order
 BF16_TOL = 3e-2
+
+#: bf16 dense on the tensor cores (data sheet): the card's least time for
+#: bf16 products, whatever K4 runs them on
+BF16_PEAK_FLOPS = 989e12
+BF16_NOTE = "bf16 dense 989 TFLOP/s, HBM 3.35 TB/s (H100 SXM data sheet)"
+
+#: slice 4's main path: zamba2-2.7b at its published widths and depth, 4
+#: requests of 1,024-token prompts, then 32 greedy decode steps from a cache
+#: of max_len 1,057 (examples/serve_pipeline.py drives repro the same way)
+LM_ARCH = "zamba2-2.7b"
+LM_BATCH = 4
+LM_PROMPT = 1024
+LM_DECODE = 32
+LM_MAX_LEN = LM_PROMPT + LM_DECODE + 1
+LM_CHECK_TOKENS = 16
+LM_REF_TOL = 3e-2      # prefill vs the same prefill with impl="ref"
+LM_DECODE_TOL = 2e-3   # fp32 decode vs forward (tests/test_models.py:104)
+#: K4 against its plain version: (label, B, Hq, Hkv, S, Sk, D, causal,
+#: dtype); the first is the main path's call (zamba2's prefill, bf16)
+FA_CASES = [
+    ("zamba2 prefill", 4, 32, 32, 1024, 1024, 80, True, torch.bfloat16),
+    ("zamba2 prefill", 4, 32, 32, 1024, 1024, 80, True, torch.float32),
+    ("granite GQA 32/8", 2, 32, 8, 1024, 1024, 64, True, torch.bfloat16),
+    ("phi3 GQA 40/10", 1, 40, 10, 1024, 1024, 128, True, torch.bfloat16),
+    ("kimi GQA 64/8", 1, 64, 8, 1024, 1024, 112, True, torch.bfloat16),
+    ("gemma D 256", 1, 16, 16, 1024, 1024, 256, True, torch.bfloat16),
+    ("whisper encoder", 2, 12, 12, 1500, 1500, 64, False, torch.bfloat16),
+    ("whisper cross", 2, 12, 12, 16, 1500, 64, False, torch.bfloat16),
+    ("ragged S 200", 2, 32, 8, 200, 200, 64, True, torch.float32),
+]
+#: K5 against its plain version: (label, B, L, H, P, N, chunk, dtype); the
+#: first is the main path's call (zamba2's prefill hands K5 fp32: the conv
+#: weights are fp32 and promote x, as in repro)
+SSD_CASES = [
+    ("zamba2 prefill", 4, 1024, 80, 64, 64, 128, torch.float32),
+    ("zamba2 prefill", 4, 1024, 80, 64, 64, 128, torch.bfloat16),
+    ("mamba2-130m", 4, 1024, 24, 64, 128, 128, torch.float32),
+    ("mamba2-130m", 4, 1024, 24, 64, 128, 128, torch.bfloat16),
+    ("L 1000, padded", 2, 1000, 80, 64, 64, 128, torch.float32),
+    ("chunk 64", 2, 1024, 80, 64, 64, 64, torch.float32),
+]
 
 
 def fp32_tol(k: int) -> float:
@@ -594,11 +666,19 @@ def reset_launches() -> None:
     tiled_matmul.launches = 0
     vpu_matmul.launches = 0
     qmm_matmul.launches = 0
+    flash_attention_cuda.launches = 0
+    ssd_cuda.launches = 0
+
+
+#: the CNN paths launch neither of the LM slice's kernels
+NO_LM_KERNELS = {"flash_attention": 0, "ssd": 0}
 
 
 def launch_counts() -> dict:
     return {"tiled_mm": tiled_matmul.launches, "vpu_mm": vpu_matmul.launches,
-            "qmm": qmm_matmul.launches}
+            "qmm": qmm_matmul.launches,
+            "flash_attention": flash_attention_cuda.launches,
+            "ssd": ssd_cuda.launches}
 
 
 def phase_decode_paths(main: tuple) -> dict:
@@ -631,7 +711,8 @@ def phase_decode_paths(main: tuple) -> dict:
                                device=DEVICE)
     torch.cuda.synchronize()
     disp = launch_counts()
-    if disp != {"tiled_mm": 0, "vpu_mm": 0, "qmm": len(ALEX_GEMMS)}:
+    if disp != {**NO_LM_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
+                 "qmm": len(ALEX_GEMMS)}:
         raise AssertionError(f"dispatcher decode forward launched {disp}")
     if set(tr.engine_stats) != {"cuda-tiled-int8"}:
         raise AssertionError(f"decode GEMMs went to {sorted(tr.engine_stats)}")
@@ -663,7 +744,8 @@ def phase_decode_paths(main: tuple) -> dict:
     panels_per_gemm = [js.grid[0] for js in tr.jobsets]
     panels = sum(panels_per_gemm)
     per = stats["engines"]
-    if run != {"tiled_mm": 0, "vpu_mm": 0, "qmm": panels}:
+    if run != {**NO_LM_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
+                "qmm": panels}:
         raise AssertionError(f"runtime decode forward launched {run}, "
                              f"{panels} panels")
     if min(per[e]["jobs"] for e in QPOOL) == 0 or stats["total_steals"] == 0:
@@ -702,7 +784,8 @@ def phase_decode_paths(main: tuple) -> dict:
         fp = cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
     torch.cuda.synchronize()
     fp_run = launch_counts()
-    if fp_run != {"tiled_mm": panels, "vpu_mm": 0, "qmm": 0}:
+    if fp_run != {**NO_LM_KERNELS, "tiled_mm": panels, "vpu_mm": 0,
+                   "qmm": 0}:
         raise AssertionError(f"fp32 forward through the int8 pool launched "
                              f"{fp_run}, {panels} panels")
     if not torch.equal(fp, logits):
@@ -1057,6 +1140,14 @@ def union_us(intervals) -> float:
     return total
 
 
+def kernel_name(event: str) -> str:
+    """The port's kernel a profiler event belongs to, or "other"."""
+    for name in ("tiled_mm", "vpu_mm", "qmm", "flash_attention", "ssd"):
+        if f"{name}_kernel" in event:
+            return name
+    return "other"
+
+
 def phase_runtime_profile(card: str, main: tuple, pool: list = POOL,
                           job_class: str | None = None,
                           label: str = "two-kernel pool") -> dict:
@@ -1081,9 +1172,7 @@ def phase_runtime_profile(card: str, main: tuple, pool: list = POOL,
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = ("tiled_mm" if "tiled_mm_kernel" in ev.name else
-                "vpu_mm" if "vpu_mm_kernel" in ev.name else
-                "qmm" if "qmm_kernel" in ev.name else "other")
+        name = kernel_name(ev.name)
         k = kernels.setdefault(name, {"count": 0, "device_ms": 0.0})
         k["count"] += 1
         k["device_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
@@ -1095,6 +1184,399 @@ def phase_runtime_profile(card: str, main: tuple, pool: list = POOL,
           "device_busy_share": None if busy_ms is None
           else busy_ms / (1e3 * wall), "card": card})
     return kernels
+
+
+def fa_tol(sk: int, dtype: torch.dtype) -> float:
+    """K4 vs its plain version, relative to max|ref|: fp32 2e-5·sqrt(Sk)
+    (tests/test_flash_attention.py's 2e-5, scaled by the Sk products each
+    output sums in another order), bf16 3e-2 (p is rounded to bf16 before
+    the PV product in the kernel, not in the plain version)."""
+    return 2e-5 * math.sqrt(sk) if dtype == torch.float32 else BF16_TOL
+
+
+def fa_inputs(g: torch.Generator, b: int, hq: int, hkv: int, s: int,
+              sk: int, d: int, dtype: torch.dtype) -> tuple:
+    return (torch.randn(b, hq, s, d, device=DEVICE, generator=g).to(dtype),
+            torch.randn(b, hkv, sk, d, device=DEVICE, generator=g).to(dtype),
+            torch.randn(b, hkv, sk, d, device=DEVICE, generator=g).to(dtype))
+
+
+def ssd_inputs(g: torch.Generator, b: int, l: int, h: int, p: int, n: int,
+               dtype: torch.dtype) -> tuple:
+    """x (B,L,H,P), dt (B,L,H) post-softplus, a (H,), bm/cm (B,L,N), as
+    tests/test_ssd.py draws them."""
+    x = (torch.randn(b, l, h, p, device=DEVICE, generator=g) * 0.5)
+    dt = F.softplus(torch.randn(b, l, h, device=DEVICE, generator=g) - 1.0)
+    a = -torch.exp(torch.randn(h, device=DEVICE, generator=g) * 0.5)
+    bm = torch.randn(b, l, n, device=DEVICE, generator=g) * 0.3
+    cm = torch.randn(b, l, n, device=DEVICE, generator=g) * 0.3
+    return x.to(dtype), dt, a, bm.to(dtype), cm.to(dtype)
+
+
+def phase_flash_kernel() -> float:
+    """Phase 3, K4: ``flash_attention`` against its plain version
+    (``attention_ref``) at every FA_CASES shape.  Returns the largest abs
+    error at the main path's case (the first)."""
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    errs = []
+    for label, b, hq, hkv, s, sk, d, causal, dtype in FA_CASES:
+        q, k, v = fa_inputs(g, b, hq, hkv, s, sk, d, dtype)
+        o = flash_attention_cuda(q, k, v, causal=causal)
+        r = attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        if o.dtype != dtype or o.shape != q.shape:
+            raise AssertionError(f"flash_attention {label}: got {o.dtype} "
+                                 f"{tuple(o.shape)}")
+        err, tol = rel_err(o, r), fa_tol(sk, dtype)
+        if not err <= tol:
+            raise AssertionError(f"flash_attention {label} {dtype}: rel_err "
+                                 f"{err:.3g} > {tol:.3g}")
+        errs.append((o.float() - r.float()).abs().max().item())
+        emit({"kernel_check": "flash_attention", "case": label,
+              "shape": [b, hq, hkv, s, sk, d], "causal": causal,
+              "dtype": str(dtype), "rel_err": err, "tol": tol,
+              "max_abs_err": errs[-1]})
+    print(f"flash_attention: {len(FA_CASES)} cases agree with the plain "
+          f"version (fp32 2e-5*sqrt(Sk), bf16 {BF16_TOL}, relative to "
+          f"max|ref|)", flush=True)
+    return errs[0]
+
+
+def phase_ssd_kernel() -> float:
+    """Phase 3, K5: ``ssd`` through the kernel against its plain version
+    (the chunked torch path) at every SSD_CASES shape, y and the final
+    state.  Returns the largest abs error of y at the main path's case."""
+    g = torch.Generator(device=DEVICE).manual_seed(12)
+    errs = []
+    for label, b, l, h, p, n, chunk, dtype in SSD_CASES:
+        inp = ssd_inputs(g, b, l, h, p, n, dtype)
+        y, st = ssd(*inp, chunk=chunk, impl="cuda")
+        ry, rst = ssd(*inp, chunk=chunk, impl="torch")
+        torch.cuda.synchronize()
+        if y.dtype != dtype or y.shape != inp[0].shape \
+                or st.shape != (b, h, p, n):
+            raise AssertionError(f"ssd {label}: got {y.dtype} "
+                                 f"{tuple(y.shape)}, {tuple(st.shape)}")
+        tol = 2e-5 * math.sqrt(l) if dtype == torch.float32 else BF16_TOL
+        err_y, err_s = rel_err(y, ry), rel_err(st, rst)
+        if not (err_y <= tol and err_s <= tol):
+            raise AssertionError(f"ssd {label} {dtype}: rel_err y "
+                                 f"{err_y:.3g}, state {err_s:.3g} > "
+                                 f"{tol:.3g}")
+        errs.append((y.float() - ry.float()).abs().max().item())
+        emit({"kernel_check": "ssd", "case": label,
+              "shape": [b, l, h, p, n], "chunk": chunk, "dtype": str(dtype),
+              "rel_err_y": err_y, "rel_err_state": err_s, "tol": tol,
+              "max_abs_err": errs[-1]})
+    print(f"ssd: {len(SSD_CASES)} cases agree with the plain version, y and "
+          f"state (fp32 2e-5*sqrt(L), bf16 {BF16_TOL}, relative to "
+          f"max|ref|)", flush=True)
+    return errs[0]
+
+
+def expect_counts(stage: str, want: dict) -> dict:
+    """The launch counts since the last reset; raises unless each kernel
+    of ``want`` ran exactly that often."""
+    got = launch_counts()
+    bad = {k: (got[k], v) for k, v in want.items() if got[k] != v}
+    if bad:
+        raise AssertionError(f"{stage}: launches (got, want) {bad}")
+    return {k: got[k] for k in want}
+
+
+def timed(fn) -> tuple:
+    """(fn(), seconds) on the host clock, between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_lm(card: str) -> dict:
+    """Phase 4, slice 4: LM serving of zamba2-2.7b at its published widths
+    and all 54 layers (param fp32, compute bf16, random weights from a
+    seed, made on the card).  4 x 1,024-token prompts through
+    ``prefill_fn`` (counts set to 0 just before and read just after: K4 9,
+    K5 54, K1 55), then 32 greedy ``decode_fn`` steps (each: K4 0, K5 0,
+    K1 55).  Against ``impl="ref"`` (both oracles), within ``rel_err``
+    LM_REF_TOL: the prefill logits in fp32 compute at the same shapes, and
+    the bf16 prefill block by block (each mixer on the kernels and on the
+    oracles from the same input); the bf16 logits' ``rel_err`` is printed
+    beside the bf16-vs-fp32 one.  At full width with compute fp32, 16
+    decode steps from an empty cache reproduce ``lm_forward`` within
+    LM_DECODE_TOL."""
+    cfg = ARCHS[LM_ARCH]
+    groups = cfg.n_layers // cfg.attn_every
+    per_prefill = {"flash_attention": groups, "ssd": cfg.n_layers,
+                   "tiled_mm": 6 * groups + 1}
+    per_step = {"flash_attention": 0, "ssd": 0, "tiled_mm": 6 * groups + 1}
+    params, init_s = timed(lambda: init_model(cfg, 0, device=DEVICE))
+    n_params = sum(t.numel() for t in leaves(params))
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           device=DEVICE, generator=g)
+
+    # the main path: one prefill, then the decode steps
+    reset_launches()
+    logits, first_prefill_s = timed(
+        lambda: prefill_fn(cfg, params, tokens=tokens))
+    prefill_counts = expect_counts("prefill", per_prefill)
+    if logits.shape != (LM_BATCH, 1, cfg.padded_vocab) \
+            or logits.dtype != torch.float32 \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {logits.dtype} "
+                             f"{tuple(logits.shape)} or not finite")
+    tok = logits[:, -1].argmax(dim=-1, keepdim=True)
+    cache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=DEVICE)
+    generated, step_s = [tok], []
+    for i in range(LM_DECODE):
+        reset_launches()
+        (step_logits, cache), s = timed(
+            lambda: decode_fn(cfg, params, cache, tok, LM_PROMPT + i))
+        expect_counts(f"decode step {i}", per_step)
+        if not bool(torch.isfinite(step_logits).all()):
+            raise AssertionError(f"decode step {i}: logits not finite")
+        tok = step_logits[:, -1].argmax(dim=-1, keepdim=True)
+        generated.append(tok)
+        step_s.append(s)
+    print(f"lm: {LM_ARCH} ({n_params:,} params) prefill {LM_BATCH} x "
+          f"{LM_PROMPT} tokens: launches {prefill_counts}; {LM_DECODE} "
+          f"decode steps: launches per step {per_step}", flush=True)
+
+    # the prefill against impl="ref" (both oracles).  In bf16 every block
+    # re-rounds the 54-layer residual stream, and a last-bit difference
+    # anywhere grows to a few per cent of the logits whichever engines run
+    # (PERF.md §6), so the logits are held to LM_REF_TOL in fp32 compute
+    # at the same shapes, and the bf16 prefill block by block
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    logits32 = prefill_fn(cfg32, params, tokens=tokens)
+    ref_err = rel_err(logits32, prefill_fn(cfg32, params, tokens=tokens,
+                                           impl="ref"))
+    if not ref_err <= LM_REF_TOL:
+        raise AssertionError(f"fp32 prefill vs impl='ref': rel_err "
+                             f"{ref_err:.4g} > {LM_REF_TOL}")
+    mixer_errs = mixer_errors(cfg, params, tokens)
+    worst = max(max(errs) for errs in mixer_errs.values())
+    if not worst <= LM_REF_TOL:
+        raise AssertionError(f"bf16 prefill, a block's mixer vs impl='ref': "
+                             f"rel_err {worst:.4g} > {LM_REF_TOL}")
+    bf16_ref_err = rel_err(logits, prefill_fn(cfg, params, tokens=tokens,
+                                              impl="ref"))
+    bf16_vs_fp32 = rel_err(logits, logits32)
+    prefill_s = statistics.median(
+        timed(lambda: prefill_fn(cfg, params, tokens=tokens))[1]
+        for _ in range(3))
+
+    # decode reproduces the forward, at full width in fp32
+    check = tokens[:1, :LM_CHECK_TOKENS]
+    reset_launches()
+    with torch.inference_mode():
+        full = lm_forward(cfg32, params, tokens=check)
+    forward_counts = expect_counts("fp32 forward", per_prefill)
+    cache32 = init_cache(cfg32, 1, LM_CHECK_TOKENS, device=DEVICE)
+    outs = []
+    reset_launches()
+    for i in range(LM_CHECK_TOKENS):
+        step_logits, cache32 = decode_fn(cfg32, params, cache32,
+                                         check[:, i:i + 1], i)
+        outs.append(step_logits[:, 0])
+    expect_counts("fp32 decode", {k: v * LM_CHECK_TOKENS
+                                  for k, v in per_step.items()})
+    inc = torch.stack(outs, dim=1)
+    torch.testing.assert_close(inc, full, rtol=LM_DECODE_TOL,
+                               atol=LM_DECODE_TOL)
+    consistency = (inc - full).abs().max().item()
+
+    decode_step_s = statistics.median(step_s)
+    result = {
+        "lm": LM_ARCH, "params": n_params, "param_dtype": cfg.param_dtype,
+        "compute_dtype": cfg.compute_dtype, "init_s": init_s,
+        "prefill": {"requests": LM_BATCH, "prompt": LM_PROMPT,
+                    "launches": prefill_counts,
+                    "first_ms": 1e3 * first_prefill_s,
+                    "ms": 1e3 * prefill_s,
+                    "tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
+                    "fp32_rel_err_vs_ref": ref_err,
+                    "bf16_mixer_rel_err_vs_ref": {
+                        "mamba_max": max(mixer_errs["mamba"]),
+                        "attention": mixer_errs["attention"]},
+                    "tol": LM_REF_TOL,
+                    "bf16_rel_err_vs_ref_not_held": bf16_ref_err,
+                    "bf16_rel_err_vs_fp32_not_held": bf16_vs_fp32},
+        "decode": {"steps": LM_DECODE, "max_len": LM_MAX_LEN,
+                   "launches_per_step": per_step,
+                   "ms_per_step": 1e3 * decode_step_s,
+                   "ms_per_step_max": 1e3 * max(step_s),
+                   "tokens_per_s": LM_BATCH / decode_step_s,
+                   "tokens": torch.cat(generated, dim=1)[0].tolist()},
+        "fp32_decode_vs_forward": {"tokens": LM_CHECK_TOKENS,
+                                   "forward_launches": forward_counts,
+                                   "max_abs_diff": consistency,
+                                   "tol": LM_DECODE_TOL},
+        "timer": "host clock around synchronize; prefill median of 3 "
+                 "after the first, decode median of the 32 steps",
+        "card": card}
+    emit(result)
+    return {"cfg": cfg, "params": params, "tokens": tokens,
+            "prefill": result["prefill"], "decode": result["decode"],
+            "per_prefill": per_prefill}
+
+
+def mixer_errors(cfg, params: dict, tokens: torch.Tensor) -> dict:
+    """The bf16 prefill block by block, on the kernels' path: one
+    ``prefill_fn(impl="cuda")`` with ``transformer.mixer_probe`` set, which
+    recomputes each Mamba2 mixer (K5) and each application of the shared
+    block's attention (K4) on the oracles (``impl="ref"``) from the same
+    input; ``rel_err`` of each pair, by kind, in the order the backbone
+    runs them."""
+    from repro_torch.models import transformer as tf
+    errs = {"mamba": [], "attention": []}
+    tf.mixer_probe = lambda kind, out, rerun: errs[kind].append(
+        rel_err(out, rerun("ref")))
+    try:
+        prefill_fn(cfg, params, tokens=tokens, impl="cuda")
+    finally:
+        tf.mixer_probe = None
+    want = {"mamba": cfg.n_layers,
+            "attention": cfg.n_layers // cfg.attn_every}
+    got = {kind: len(e) for kind, e in errs.items()}
+    if got != want:
+        raise AssertionError(f"mixer probe: mixers (got, want) {got}, "
+                             f"{want}")
+    return errs
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from leaves(v)
+    else:
+        yield tree
+
+
+def flash_bound(b: int, hq: int, hkv: int, s: int, sk: int, d: int,
+                causal: bool, itemsize: int) -> tuple[float, str]:
+    """Least ms for one K4 call: q, k, v read once and o written once at
+    the HBM rate, or the QK and PV products this run needs (the causal
+    triangle: row i sees i + 1 keys) at the tensor-core peak of the inputs'
+    type (bf16 989 TFLOP/s; fp32 inputs count at the 67 TFLOP/s of fp32)."""
+    pairs = s * (s + 1) // 2 if causal else s * sk
+    t_ops = 4.0 * b * hq * d * pairs / (
+        BF16_PEAK_FLOPS if itemsize == 2 else FP32_PEAK_FLOPS)
+    t_bytes = itemsize * (2 * b * hq * s * d + 2 * b * hkv * sk * d) \
+        / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ssd_bound(b: int, l: int, h: int, p: int, n: int,
+              itemsize: int) -> tuple[float, str]:
+    """Least ms for one K5 call: xdt, dta, B, C read once and y, the state
+    written once at the HBM rate, or the least work of the function, the
+    recurrence's 2·P·N multiply-adds per token and head (the state update
+    and its product with C), at the fp32 67 TFLOP/s (bf16 inputs at the
+    bf16 tensor-core peak).  The chunked algorithm the kernel runs does
+    more: per chunk and head the causal half of C·Bᵀ's product with xdt
+    besides C·Sᵀ and the state update, and C·Bᵀ once per (batch, chunk),
+    since B and C have no head index."""
+    macs = 2 * b * h * l * p * n
+    t_ops = 2.0 * macs / (BF16_PEAK_FLOPS if itemsize == 2
+                          else FP32_PEAK_FLOPS)
+    t_bytes = (itemsize * (2 * b * h * l * p + 2 * b * l * n)
+               + 4 * (b * h * l + b * h * p * n)) / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_lm_kernel_times(card: str, lm: dict) -> dict:
+    """Phase 5, slice 4: K4 and K5 at the main path's shapes (CUDA events,
+    median of REPS): the kernel, its plain version, the library yardstick
+    (K4: ``F.scaled_dot_product_attention(is_causal=True,
+    enable_gqa=True)``; K5: none, no single PyTorch call computes SSD) and
+    the bound; per call and per prefill (times the calls one prefill
+    makes)."""
+    cfg = lm["cfg"]
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    out = {}
+    _, b, hq, hkv, s, sk, d, causal, dtype = FA_CASES[0]
+    q, k, v = fa_inputs(g, b, hq, hkv, s, sk, d, dtype)
+    per_call = {
+        "ms": median_ms(lambda: flash_attention_cuda(q, k, v,
+                                                     causal=causal)),
+        "plain_ms": median_ms(lambda: attention_ref(q, k, v,
+                                                    causal=causal)),
+        "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True))}
+    per_call["bound_ms"], bound_by = flash_bound(b, hq, hkv, s, sk, d,
+                                                 causal, q.element_size())
+    out["flash_attention"] = (per_call, bound_by, [b, hq, hkv, s, sk, d],
+                              str(dtype), "F.scaled_dot_product_attention")
+    _, b, l, h, p, n, chunk, dtype = SSD_CASES[0]
+    x, dt, a, bm, cm = ssd_inputs(g, b, l, h, p, n, dtype)
+    xdt, dta = (t.contiguous() for t in _prescale(x, dt, a))
+    per_call = {
+        "ms": median_ms(lambda: ssd_cuda(xdt, dta, bm, cm, chunk=chunk)),
+        "plain_ms": median_ms(lambda: ssd_chunked(xdt, dta, bm, cm,
+                                                  chunk=chunk)),
+        "library_ms": None}
+    per_call["bound_ms"], bound_by = ssd_bound(b, l, h, p, n,
+                                               x.element_size())
+    out["ssd"] = (per_call, bound_by, [b, l, h, p, n], str(dtype), None)
+    totals = {}
+    for name, (per_call, bound_by, shape, dt_name, library) in out.items():
+        calls = lm["per_prefill"][name]
+        totals[name] = {key: None if val is None else calls * val
+                        for key, val in per_call.items()}
+        totals[name]["bound_by"] = bound_by
+        emit({"lm_kernel": name, "shape": shape, "dtype": dt_name,
+              "per_call": per_call, "bound_by": bound_by,
+              "calls_per_prefill": calls,
+              "peak": BF16_NOTE if dt_name == "torch.bfloat16" else PEAK_NOTE,
+              "library": library, "card": card})
+    return totals
+
+
+def phase_lm_profile(card: str, lm: dict) -> dict:
+    """Phase 5, slice 4: one prefill and one decode step (after the main
+    path's) under ``torch.profiler``: each kernel's device time and
+    launches, and the share of the wall time in which any kernel ran.
+    Returns the prefill's ``{kernel: {"count", "device_ms"}}``."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
+    cache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=DEVICE)
+    tok = tokens[:, -1:]
+    stages = {
+        "prefill": lambda: prefill_fn(cfg, params, tokens=tokens),
+        "decode step": lambda: decode_fn(cfg, params, cache, tok, LM_PROMPT)}
+    found = {}
+    for stage, fn in stages.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = timed(fn)
+        kernels, others, intervals = {}, {}, []
+        for ev in prof.events():
+            if ev.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            ms = (ev.time_range.end - ev.time_range.start) / 1e3
+            name = kernel_name(ev.name)
+            for table, key in ((kernels, name),) + (
+                    ((others, ev.name[:80]),) if name == "other" else ()):
+                k = table.setdefault(key, {"count": 0, "device_ms": 0.0})
+                k["count"] += 1
+                k["device_ms"] += ms
+            intervals.append((ev.time_range.start, ev.time_range.end))
+        busy_ms = union_us(intervals) / 1e3 if intervals else None
+        top = sorted(others.items(), key=lambda kv: -kv[1]["device_ms"])[:8]
+        emit({"profile": f"one {LM_ARCH} {stage}, {LM_BATCH} requests",
+              "wall_ms_under_profiler": 1e3 * wall, "kernels": kernels,
+              "other_top": dict(top),
+              "device_busy_ms": busy_ms,
+              "device_busy_share": None if busy_ms is None
+              else busy_ms / (1e3 * wall), "card": card})
+        found[stage] = kernels
+    return found["prefill"]
 
 
 def summary(t: dict) -> dict:
@@ -1128,27 +1610,31 @@ def main() -> int:
             errors.append(e)
 
     threads = [threading.Thread(target=build, args=(load,))
-               for load in (load_tiled_mm, load_vpu_mm, load_qmm)]
+               for load in (load_tiled_mm, load_vpu_mm, load_qmm,
+                            load_flash_attention, load_ssd)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print(f"set-up: tiled_mm, vpu_mm and qmm built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"set-up: tiled_mm, vpu_mm, qmm, flash_attention and ssd built "
+          f"and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernels against their plain versions
     main_err = phase_kernels()
     vpu_err = phase_vpu_kernel()
     phase_sass()
     qmm_err = phase_qmm_kernel()
+    flash_err = phase_flash_kernel()
+    ssd_err = phase_ssd_kernel()
 
     # phase 4: the main paths (fp32, then int8)
     main = phase_main_path()
     run = phase_runtime_path(main)
     phase_quantization(card, main)
     decode = phase_decode_paths(main)
+    lm = phase_lm(card)
 
     # phase 5: times
     totals, dispatcher_s = phase_times(card, main)
@@ -1159,6 +1645,8 @@ def main() -> int:
     phase_decode_times(card, main, decode, dispatcher_s, runtime_fp32)
     q_profiled = phase_runtime_profile(card, main, QPOOL, "decode",
                                        "int8 pool, decode")
+    lm_totals = phase_lm_kernel_times(card, lm)
+    lm_profiled = phase_lm_profile(card, lm)
 
     # phase 6: the kernels line, the card, the result
     on_runtime = (f"one CIFAR_Alex+ forward at {FRAMES} frames through the "
@@ -1182,6 +1670,15 @@ def main() -> int:
                        "torch.profiler")}}
         by_path = {"dispatcher": {"launches": main[3][name]},
                    "runtime": runtime}
+        if name == "tiled_mm":
+            by_path["lm_prefill"] = {
+                "launches": lm["prefill"]["launches"]["tiled_mm"],
+                "profiled": {**lm_profiled.get("tiled_mm", {}),
+                             "per": f"device time of one {LM_ARCH} prefill "
+                                    f"under torch.profiler"}}
+            by_path["lm_decode"] = {
+                "launches_per_step":
+                    lm["decode"]["launches_per_step"]["tiled_mm"]}
         if dispatcher is not None:
             by_path["dispatcher"].update(summary(dispatcher), per=whole)
         entry = {"name": name, "route": "cuda", "source": source,
@@ -1210,6 +1707,29 @@ def main() -> int:
                                    **summary(qmm_dispatcher),
                                    "per": whole + ", fused epilogue"},
                     "runtime": q_runtime}})
+    lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
+              f"the per-call median (CUDA events) times the calls it makes")
+    for name, source, replaces, err in (
+            ("flash_attention",
+             "src/repro_torch/kernels/flash_attention/csrc/"
+             "flash_attention.cu",
+             "src/repro/kernels/flash_attention/flash_attention.py:96",
+             flash_err),
+            ("ssd", "src/repro_torch/kernels/ssd/csrc/ssd.cu",
+             "src/repro/kernels/ssd/ssd.py:88", ssd_err)):
+        entries.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": lm["prefill"]["launches"][name],
+            "max_abs_err": err, **lm_totals[name], "per": lm_per,
+            "by_path": {
+                "lm_prefill": {"launches": lm["prefill"]["launches"][name],
+                               "profiled": {**lm_profiled.get(name, {}),
+                                            "per": "device time of another "
+                                                   "prefill under "
+                                                   "torch.profiler"}},
+                "lm_decode": {"launches_per_step":
+                              lm["decode"]["launches_per_step"][name]}}})
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

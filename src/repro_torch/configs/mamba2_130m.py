@@ -1,0 +1,10 @@
+"""mamba2-130m — attention-free SSD (state-space duality) [arXiv:2405.21060; unverified]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mamba2-130m", family="ssm",
+    n_layers=24, d_model=768, n_heads=0, n_kv_heads=0,
+    d_ff=0, vocab_size=50280,
+    ssm_state=128, ssm_head_dim=64, ssm_expand=2,
+    tie_embeddings=True,
+    source="arXiv:2405.21060; unverified")

@@ -1,7 +1,8 @@
 // Shared by the port's GEMM kernels (tiled_mm.cu, vpu_mm.cu): the element
 // conversions and the fused epilogue act(acc + bias), as ONE device
-// function.  Each kernel sums an output's k products from 0.0f with one
-// fmaf per k in increasing k; with the same epilogue on top, a row panel
+// function (flash_attention.cu and ssd.cu use the conversions).  Each
+// kernel sums an output's k products from 0.0f with one fmaf per k in
+// increasing k; with the same epilogue on top, a row panel
 // gives the same bits whichever kernel ran it, which is what lets the
 // runtime split one GEMM across both and merge bitwise.  Both sources are
 // compiled with the same nvcc flags and never with --use_fast_math.
@@ -21,6 +22,16 @@ enum DType { DT_F32 = 0, DT_BF16 = 1 };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// x rounded to T's precision and back: what a float becomes once stored in T
+template <typename T>
+__device__ __forceinline__ float round_as(float x);
+template <>
+__device__ __forceinline__ float round_as<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float round_as<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16(x));
 }
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }

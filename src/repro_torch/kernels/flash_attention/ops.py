@@ -1,0 +1,122 @@
+"""Checked wrapper of the CUDA ``flash_attention`` kernel (K4) and the
+``flash_attention`` op, dispatched through the op-variant registry
+(:mod:`repro_torch.engines`): variant ``cuda`` (the kernel's wrapper) and
+``torch`` (the plain version), the counterparts of ``repro``'s ``pallas``
+and ``xla``.
+
+A CPU tensor takes the plain version (:func:`attention_ref`); a CUDA tensor
+launches the kernel or raises.  ``cuda`` is registered as always
+available and routes on the operands' device, so ``"auto"`` resolves to
+it on every machine.  ``flash_attention_cuda.launches`` counts kernel
+launches and nothing else, under the lock the other kernels' counts use."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.engines import register_op_impl, resolve_op
+from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
+                                             count_launch)
+
+from .flash_attention import HEAD_DIMS, load_flash_attention
+from .ref import attention_ref
+
+__all__ = ["flash_attention", "flash_attention_cuda"]
+
+
+def _check(q, k, v, causal: bool) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: need q (B, Hq, S, D) and k/v "
+                         f"(B, Hkv, Sk, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, s, d = q.shape
+    if k.shape[0] != b or k.shape[3] != d or k.shape[1] == 0 \
+            or hq % k.shape[1]:
+        raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
+                         f"match q {tuple(q.shape)} (Hq % Hkv must be 0)")
+    if causal and s != k.shape[2]:
+        # the kernel aligns the mask top-left (row >= col), as repro's
+        # Pallas kernel does; the plain version bottom-right, as
+        # attention_ref does.  They agree only when S == Sk.
+        raise ValueError(f"flash_attention: causal needs S == Sk, got "
+                         f"{s} and {k.shape[2]}")
+    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q, k, v must share a dtype in "
+                        f"{list(_DTYPE_CODES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    devices = {t.device for t in (q, k, v)}
+    if len(devices) != 1:
+        raise ValueError(f"flash_attention: operands on several devices "
+                         f"{sorted(map(str, devices))}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k, v must be contiguous")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: float | None = None) -> torch.Tensor:
+    """softmax(Q Kᵀ · scale) V per (batch, q-head), fp32 accumulation,
+    output in q's dtype; q-head h reads kv head ``h // (Hq // Hkv)``, so
+    K/V are never repeated.  Any S and Sk: the ragged edges are masked in
+    the kernel."""
+    _check(q, k, v, causal)
+    b, hq, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if max(b, hq) > 65535 or max(s, sk) > _INT_MAX:
+        raise ValueError(f"flash_attention: B {b} or Hq {hq} exceeds the "
+                         f"grid's 65535, or S/Sk exceeds 2**31 - 1")
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    if sk == 0:
+        raise ValueError("flash_attention: no keys (Sk == 0)")
+    entry = load_flash_attention().flash_attention
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   b, hq, hkv, s, sk, d, float(scale), int(causal),
+                   _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
+                           f"error {rc} for q {tuple(q.shape)}, k "
+                           f"{tuple(k.shape)}")
+    count_launch(flash_attention_cuda)
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+register_op_impl(
+    "flash_attention", "torch",
+    lambda q, k, v, *, causal, scale: attention_ref(
+        q, k, v, causal=causal, scale=scale),
+    priority=0)
+register_op_impl(
+    "flash_attention", "cuda",
+    lambda q, k, v, *, causal, scale: flash_attention_cuda(
+        q, k, v, causal=causal, scale=scale),
+    priority=10)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None,
+                    impl: str = "auto") -> torch.Tensor:
+    """q (B, Hq, S, D); k/v (B, Hkv, Sk, D) -> (B, Hq, S, D).
+
+    impl: a registered ``flash_attention`` variant name, or 'auto'.  The
+    CUDA kernel keeps its own 64 x 64 tiling, so ``repro``'s Pallas block
+    sizes have no counterpart here."""
+    fn = resolve_op("flash_attention", impl)
+    return fn(q, k, v, causal=causal, scale=scale)

@@ -23,6 +23,7 @@ from repro_torch.core.job import JobSet
 from repro_torch.core.scheduler import SimLayer, SimNet
 from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
+from repro_torch.models.params import tensor_from_numpy
 from repro_torch.soc.runtime import runtime_scope
 
 __all__ = ["CNNConfig", "init_cnn", "params_from_jax", "cnn_forward",
@@ -107,8 +108,7 @@ def params_from_jax(np_params: dict[str, np.ndarray],
     """Parameters of ``repro.models.cnn.init_cnn``, handed over as numpy
     arrays, as tensors on ``device`` with the same keys and layouts."""
     dev = resolve_device(device)
-    return {name: torch.tensor(np.asarray(v), device=dev)
-            for name, v in np_params.items()}
+    return {name: tensor_from_numpy(v, dev) for name, v in np_params.items()}
 
 
 def _conv_via_jobs(x, w, b, stride, pad, tile, name, engine=None,

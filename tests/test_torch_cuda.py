@@ -5,7 +5,11 @@ K1, and the work-stealing runtime splitting GEMMs over both kernels with
 results bitwise equal to the unsplit K1 GEMM.  K2 (qmm) against its plain
 version (raw int32 bitwise, fused epilogue bitwise for none/relu), one
 build for every activation scale, quantization on the card bitwise the
-CPU's, and the runtime's int32 split bitwise a one-worker split.
+CPU's, and the runtime's int32 split bitwise a one-worker split.  K4
+(flash_attention) and K5 (ssd) against their plain versions at the zoo's
+head dims, GQA, ragged and cross shapes; a narrow zamba2 whose prefill on
+the card launches both and matches the CPU, and whose decode launches
+neither and reproduces the forward.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -13,20 +17,26 @@ one.  On a machine with a card, and without JAX, run them as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
 
 import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs import PAPER_CNNS
+from repro_torch.configs import ARCHS, PAPER_CNNS, reduced
 from repro_torch.core.job import JobSet
 from repro_torch.core.synergy_mm import SynergyTrace, synergy_matmul
 from repro_torch.engines import get_engine
 from repro_torch.kernels.common.build import sass_opcodes
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.qmm import qmm_matmul, qmm_ref
+from repro_torch.kernels.ssd import ssd, ssd_cuda
 from repro_torch.kernels.tiled_mm import tiled_matmul, tiled_mm_ref
 from repro_torch.kernels.vpu_mm import vpu_matmul, vpu_mm_library, vpu_mm_ref
+from repro_torch.models import (decode_fn, init_cache, init_model,
+                                lm_forward, prefill_fn)
 from repro_torch.models.cnn import cnn_forward, init_cnn
 from repro_torch.quant import (QuantizedEngine, quantize_weights, rel_err)
 from repro_torch.quant.act import one_shot_act_scale, quantize_activations
@@ -299,3 +309,114 @@ def test_runtime_int8_split_is_bitwise_the_one_worker_split(cuda, affinity):
     assert torch.equal(outs[0], outs[1])
     want = a @ b + bias
     assert rel_err(outs[0], torch.relu(want)) <= 0.05
+
+
+# ------------------------------------------------ K4: flash_attention
+
+def _fa_tol(sk, dtype):
+    """fp32: 2e-5·sqrt(Sk) relative to max|ref| (the two sum Sk products
+    in different orders); bf16: 3e-2."""
+    return 2e-5 * math.sqrt(sk) if dtype == torch.float32 else 3e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 4, 4, 128, 128, 80, True), (2, 8, 2, 200, 200, 64, True),
+    (1, 10, 5, 96, 96, 128, True), (1, 8, 1, 64, 64, 112, True),
+    (1, 4, 4, 130, 130, 256, True), (2, 4, 4, 150, 150, 64, False),
+    (2, 4, 4, 16, 150, 64, False), (1, 2, 2, 1, 1, 64, True)],
+    ids=lambda c: "x".join(map(str, c[:6])) + ("-causal" if c[6] else ""))
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    b, hq, hkv, s, sk, d, causal = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = _rand(g, b, hq, s, d, dtype=dtype)
+    k = _rand(g, b, hkv, sk, d, dtype=dtype)
+    v = _rand(g, b, hkv, sk, d, dtype=dtype)
+    before = flash_attention_cuda.launches
+    o = flash_attention_cuda(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert o.dtype == dtype and o.shape == q.shape
+    r = attention_ref(q, k, v, causal=causal).float()
+    assert rel_err(o, r) <= _fa_tol(sk, dtype)
+
+
+# ------------------------------------------------------------ K5: ssd
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 3, 256, 64, 64, 128),
+                                  (1, 2, 256, 64, 128, 128),
+                                  (2, 2, 1000, 64, 64, 128),
+                                  (1, 3, 192, 64, 64, 64),
+                                  (1, 2, 16, 64, 64, 16)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    b, h, l, p, n, chunk = case
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = (_rand(g, b, l, h, p) * 0.5).to(dtype)
+    dt = F.softplus(_rand(g, b, l, h) - 1.0)
+    a = -torch.exp(_rand(g, h) * 0.5)
+    bm = (_rand(g, b, l, n) * 0.3).to(dtype)
+    cm = (_rand(g, b, l, n) * 0.3).to(dtype)
+    before = ssd_cuda.launches
+    y, s = ssd(x, dt, a, bm, cm, chunk=chunk, impl="cuda")
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape and s.dtype == torch.float32
+    ry, rs = ssd(x, dt, a, bm, cm, chunk=chunk, impl="torch")
+    tol = 2e-5 * math.sqrt(l) if dtype == torch.float32 else 3e-2
+    assert rel_err(y, ry) <= tol
+    assert rel_err(s, rs) <= tol
+
+
+# ------------------------------------------------------ the LM zoo
+
+def _small_hybrid():
+    """A narrow zamba2 the kernels take: head dims 64 (attention and SSD),
+    state 64, four layers in two groups."""
+    return dataclasses.replace(
+        reduced(ARCHS["zamba2-2.7b"], n_layers=4, d_model=128, n_heads=2),
+        ssm_head_dim=64, ssm_state=64, ssm_chunk=32)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_hybrid_prefill_on_the_card_matches_the_cpu(cuda):
+    cfg = _small_hybrid()
+    params = init_model(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70),
+                           generator=torch.Generator().manual_seed(9))
+    want = prefill_fn(cfg, params, tokens=tokens)
+    dev_params = _to(params, cuda)
+    counts = (flash_attention_cuda.launches, ssd_cuda.launches,
+              tiled_matmul.launches)
+    got = prefill_fn(cfg, dev_params, tokens=tokens.to(cuda))
+    torch.cuda.synchronize()
+    groups = cfg.n_layers // cfg.attn_every
+    assert (flash_attention_cuda.launches - counts[0],
+            ssd_cuda.launches - counts[1],
+            tiled_matmul.launches - counts[2]) == (groups, cfg.n_layers,
+                                                   6 * groups + 1)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_hybrid_decode_on_the_card_matches_the_forward(cuda):
+    cfg = _small_hybrid()
+    params = init_model(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(10))
+    with torch.inference_mode():
+        full = lm_forward(cfg, params, tokens=tokens)
+    cache = init_cache(cfg, 1, 8, dtype=torch.float32, device=cuda)
+    before = (flash_attention_cuda.launches, ssd_cuda.launches)
+    outs = []
+    for i in range(8):
+        logits, cache = decode_fn(cfg, params, cache, tokens[:, i:i + 1], i)
+        outs.append(logits[:, 0])
+    assert (flash_attention_cuda.launches, ssd_cuda.launches) == before
+    torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-3,
+                               atol=2e-3)

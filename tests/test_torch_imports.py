@@ -1,6 +1,6 @@
-"""The port stands alone: no module of src/repro_torch, and neither
-chip_smoke.py nor scripts/runtime_breakdown.py, imports JAX or anything of
-the reference package repro."""
+"""The port stands alone: no module of src/repro_torch, and none of
+chip_smoke.py, scripts/runtime_breakdown.py and scripts/lm_bf16_divergence.py,
+imports JAX or anything of the reference package repro."""
 
 import ast
 from pathlib import Path
@@ -9,7 +9,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "runtime_breakdown.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "runtime_breakdown.py",
+    ROOT / "scripts" / "lm_bf16_divergence.py"]
 
 
 def _imported(tree):

@@ -1,0 +1,144 @@
+"""The SSD scan (K5) in the port against repro, on the CPU: the kernel's
+wrapper (its plain version, the chunked torch path, on CPU tensors), the
+'torch' and 'ref' variants and the pre-scaling, each on the same numpy
+inputs as repro's Pallas kernel (interpret mode), its chunked XLA path and
+its recurrence oracle.  Tolerance 2e-5 (tests/test_ssd.py).  Chunks 16-64,
+L padded to a chunk multiple, the zoo's state sizes, gradients."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ssd import ssd as j_ssd
+from repro.kernels.ssd import ssd_ref as j_ssd_ref
+from repro.kernels.ssd.ops import _prescale as j_prescale
+from repro.kernels.ssd.ops import ssd_chunked_xla
+from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_cuda, ssd_ref
+from repro_torch.kernels.ssd.ops import _prescale
+
+TOL = 2e-5
+
+
+def _inputs(b, l, h, p, n, seed=0):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, l, h, p)) * 0.5).astype(np.float32)
+    dt = np.logaddexp(rng.standard_normal((b, l, h)) - 1.0,
+                      0.0).astype(np.float32)
+    a = (-np.exp(rng.standard_normal(h) * 0.5)).astype(np.float32)
+    bm = (rng.standard_normal((b, l, n)) * 0.3).astype(np.float32)
+    cm = (rng.standard_normal((b, l, n)) * 0.3).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+def _t(*arrays):
+    return [torch.tensor(a) for a in arrays]
+
+
+def _close(port, ref, tol=TOL):
+    np.testing.assert_allclose(port.to(torch.float32).numpy(),
+                               np.asarray(ref, np.float32), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 64])
+def test_cuda_variant_matches_pallas(chunk):
+    inp = _inputs(2, 128, 3, 16, 8)
+    before = ssd_cuda.launches
+    y, s = ssd(*_t(*inp), chunk=chunk, impl="cuda")
+    assert ssd_cuda.launches == before       # CPU: the plain version
+    jy, js = j_ssd(*inp, chunk=chunk, impl="pallas")
+    _close(y, jy)
+    _close(s, js)
+    xdt, dta = j_prescale(*inp[:3])
+    ry, rs = j_ssd_ref(xdt, dta, *map(jnp.asarray, inp[3:]))
+    _close(y, np.swapaxes(np.asarray(ry), 1, 2))
+    _close(s, rs)
+
+
+@pytest.mark.parametrize("impl,j_impl", [("cuda", "pallas"),
+                                         ("torch", "xla"), ("ref", "ref")])
+def test_variants_match_repro(impl, j_impl):
+    inp = _inputs(1, 64, 2, 8, 4, seed=3)
+    y, s = ssd(*_t(*inp), chunk=16, impl=impl)
+    jy, js = j_ssd(*inp, chunk=16, impl=j_impl)
+    _close(y, jy)
+    _close(s, js)
+
+
+def test_prescale_matches_repro():
+    x, dt, a, _, _ = _inputs(2, 24, 3, 8, 4, seed=4)
+    xdt, dta = _prescale(*_t(x, dt, a))
+    j_xdt, j_dta = j_prescale(x, dt, a)
+    _close(xdt, j_xdt, tol=0)
+    _close(dta, j_dta, tol=0)
+
+
+def test_chunked_matches_xla_and_ref():
+    x, dt, a, bm, cm = _inputs(1, 96, 2, 8, 4, seed=1)
+    xdt, dta = j_prescale(x, dt, a)
+    args = _t(np.asarray(xdt), np.asarray(dta), bm, cm)
+    y, s = ssd_chunked(*args, chunk=32)
+    jy, js = ssd_chunked_xla(xdt, dta, bm, cm, chunk=32)
+    _close(y, jy)
+    _close(s, js)
+    ry, rs = ssd_ref(*args)
+    jry, jrs = j_ssd_ref(xdt, dta, jnp.asarray(bm), jnp.asarray(cm))
+    _close(ry, jry)
+    _close(rs, jrs)
+
+
+@pytest.mark.parametrize("l,chunk", [(100, 32), (1000, 128), (5, 128)])
+def test_padding_to_a_chunk_multiple(l, chunk):
+    """L padded with zeros inside ``ssd`` (exact: a zero step is the
+    identity); L < chunk shrinks the chunk to L, as repro does."""
+    inp = _inputs(2, l, 2, 16, 8, seed=l)
+    y, s = ssd(*_t(*inp), chunk=chunk, impl="cuda")
+    assert y.shape == (2, l, 2, 16)
+    jy, js = j_ssd(*inp, chunk=chunk, impl="pallas")
+    _close(y, jy)
+    _close(s, js)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_zoo_state_sizes(n):
+    """P = 64 with zamba2's N = 64 and mamba2-130m's N = 128."""
+    inp = _inputs(1, 64, 2, 64, n, seed=n)
+    y, s = ssd(*_t(*inp), chunk=32, impl="cuda")
+    jy, js = j_ssd(*inp, chunk=32, impl="xla")
+    _close(y, jy)
+    _close(s, js)
+
+
+@pytest.mark.parametrize("nc", [1, 2, 4])
+def test_chunk_invariance(nc):
+    inp = _t(*_inputs(2, 32 * nc, 3, 8, 4, seed=nc))
+    y1, s1 = ssd(*inp, chunk=32, impl="torch")
+    y2, s2 = ssd(*inp, chunk=16, impl="torch")
+    torch.testing.assert_close(y1, y2, rtol=3e-5, atol=3e-5)
+    torch.testing.assert_close(s1, s2, rtol=3e-5, atol=3e-5)
+
+
+def test_gradients_finite():
+    x, dt, a, bm, cm = _t(*_inputs(1, 64, 2, 8, 4, seed=2))
+    x.requires_grad_(True)
+    y, _ = ssd(x, dt, a, bm, cm, chunk=16, impl="torch")
+    torch.sum(y ** 2).backward()
+    assert torch.isfinite(x.grad).all()
+
+
+def test_wrapper_checks():
+    x, dt, a, bm, cm = _t(*_inputs(1, 32, 2, 8, 4))
+    xdt, dta = _prescale(x, dt, a)
+    xdt, dta = xdt.contiguous(), dta.contiguous()
+    with pytest.raises(ValueError, match="multiple"):
+        ssd_cuda(xdt, dta, bm, cm, chunk=24)
+    with pytest.raises(TypeError):
+        ssd_cuda(xdt, dta, bm.double(), cm, chunk=16)
+    with pytest.raises(TypeError):
+        ssd_cuda(xdt, dta.double(), bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_cuda(xdt.transpose(2, 3).contiguous().transpose(2, 3), dta, bm,
+                 cm, chunk=16)
+    with pytest.raises(ValueError):
+        ssd_cuda(xdt, dta[:, :1], bm, cm, chunk=16)
