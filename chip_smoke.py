@@ -24,6 +24,12 @@ Phases, in order; each raises on failure and nothing is caught:
    zamba2's prefill call (fp32, the main path's type, and bf16),
    mamba2-130m's N = 128, L = 1000 (padded) and chunk 64, y and state.
    Tolerances relative to max|ref|: fp32 2e-5·sqrt(Sk or L), bf16 3e-2.
+   Slice 5: K1's bf16 paths at zamba2's GEMMs and the ragged shapes,
+   each on the path its (n, k) picks (wgmma for n, k % 8 == 0, else mma:
+   the per-path launch counts show it), row panels, m = 1 vs m = 4 and
+   an unaligned view bitwise the whole GEMM; K1's SASS holds HGMMA, HMMA
+   and FFMA, K4's HMMA; K4 and K5 also at the reduced configs' shapes
+   (head dim 16; P 16, N 16, chunk 16).
 4. Main path, dispatcher (slice 1): ``cnn_forward`` of CIFAR_Alex+ at its
    published widths on 256 frames, with launch counts set to 0 just before
    and read just after; logits are held against the same forward with
@@ -54,7 +60,12 @@ Phases, in order; each raises on failure and nothing is caught:
    block by block (a bf16 logit comparison is printed, not held: at 54
    layers any last-bit difference grows past 3e-2); at full width in
    fp32, 16 decode steps from an empty cache reproduce ``lm_forward``
-   (which runs K4 and K5) within 2e-3.
+   (which runs K4 and K5) within 2e-3.  Every K1 launch of the prefill
+   and of each decode step takes the wgmma path, every one of the fp32
+   CNN forward the ffma path.  Slice 5: the reduced zamba2-2.7b (4
+   layers) and mamba2-130m (2 layers) prefill 2 x 70 tokens on the card
+   through K4 and K5 (counts set to 0 just before, read just after),
+   within 1e-4 of the same prefill on the CPU.
 5. Times (CUDA events, warm-up, median of 25): per Alex+ GEMM, each kernel,
    its plain version, ``torch.addmm`` + ReLU as the library yardstick, and
    the bound; both kernels also at the runtime's panel shapes, weighted by
@@ -68,14 +79,20 @@ Phases, in order; each raises on failure and nothing is caught:
    prefill ms and tokens/s (median of 3), decode ms per step and tokens/s
    (median of 32); K4 and K5 at the main path's call beside their plain
    versions, the bound and (K4) ``F.scaled_dot_product_attention``; one
-   prefill and one decode step under ``torch.profiler``.
+   prefill and one decode step under ``torch.profiler``.  Slice 5: K1 at
+   every GEMM of one prefill and one decode step (recorded by an engine
+   pinned with ``engine_scope``), beside its plain version, one bf16
+   ``torch.matmul`` per GEMM and the bound at the bf16 peak, and K1's
+   TFLOP/s on the prefill.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's top-level numbers are the
    runtime path's (this slice's main path): launches in phase 4's runtime
    forward, and times of the panels it ran there (``qmm``: the runtime
    decode forward's); ``by_path`` gives each path's launches and times on
    its own basis.  K4's and K5's are the LM prefill's: launches in it, and
-   per-call medians times the calls one prefill makes.
+   per-call medians times the calls one prefill makes.  K1's ``by_path``
+   also gives ``lm_prefill`` and ``lm_decode`` (per step): launches by
+   path, times, bound and library time over the LM GEMMs.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -83,9 +100,11 @@ outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -99,21 +118,23 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import ARCHS, PAPER_CNNS  # noqa: E402
+from repro_torch.configs import ARCHS, PAPER_CNNS, reduced  # noqa: E402
 from repro_torch.core.im2col import im2col  # noqa: E402
 from repro_torch.core.synergy_mm import SynergyTrace  # noqa: E402
-from repro_torch.engines import (CostModel, Engine, get_engine,  # noqa: E402
-                                 list_engines)
+from repro_torch.engines import (CostModel, Engine,  # noqa: E402
+                                 engine_scope, get_engine, list_engines)
 from repro_torch.kernels.common import build as kernel_build  # noqa: E402
 from repro_torch.kernels.common.build import sass_opcodes  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_ref, flash_attention_cuda, load_flash_attention)
+    attention_ref, flash_attention_cuda, flash_attention_library,
+    load_flash_attention)
 from repro_torch.kernels.qmm import load_qmm, qmm_matmul, qmm_ref  # noqa: E402
 from repro_torch.kernels.ssd import (load_ssd, ssd, ssd_chunked,  # noqa: E402
                                      ssd_cuda)
 from repro_torch.kernels.ssd.ops import _prescale  # noqa: E402
-from repro_torch.kernels.tiled_mm import (load_tiled_mm,  # noqa: E402
-                                          tiled_matmul, tiled_mm_ref)
+from repro_torch.kernels.tiled_mm import (PATHS,  # noqa: E402
+                                          load_tiled_mm, tiled_matmul,
+                                          tiled_mm_library, tiled_mm_ref)
 from repro_torch.kernels.vpu_mm import (load_vpu_mm,  # noqa: E402
                                         vpu_matmul, vpu_mm_library,
                                         vpu_mm_ref)
@@ -186,6 +207,8 @@ FA_CASES = [
     ("whisper encoder", 2, 12, 12, 1500, 1500, 64, False, torch.bfloat16),
     ("whisper cross", 2, 12, 12, 16, 1500, 64, False, torch.bfloat16),
     ("ragged S 200", 2, 32, 8, 200, 200, 64, True, torch.float32),
+    ("reduced D 16", 2, 4, 4, 70, 70, 16, True, torch.bfloat16),
+    ("reduced D 16", 2, 4, 4, 70, 70, 16, True, torch.float32),
 ]
 #: K5 against its plain version: (label, B, L, H, P, N, chunk, dtype); the
 #: first is the main path's call (zamba2's prefill hands K5 fp32: the conv
@@ -197,7 +220,18 @@ SSD_CASES = [
     ("mamba2-130m", 4, 1024, 24, 64, 128, 128, torch.bfloat16),
     ("L 1000, padded", 2, 1000, 80, 64, 64, 128, torch.float32),
     ("chunk 64", 2, 1024, 80, 64, 64, 64, torch.float32),
+    ("reduced P 16 N 16", 2, 96, 8, 16, 16, 16, torch.float32),
 ]
+#: slice 5: the reduced configs (configs/base.py::reduced) prefill on the
+#: card through K4 and K5 at P = 16, N = 16, head dim 16, chunk 16, held
+#: within REDUCED_TOL of the same prefill on the CPU: (arch, n_layers)
+REDUCED_ARCHS = [("zamba2-2.7b", 4), ("mamba2-130m", 2)]
+REDUCED_TOL = 1e-4
+#: K1's bf16 GEMMs at zamba2's published widths, against the plain version
+#: (m, n, k): the shared block's attention projections and MLP at 4 x 1,024
+#: tokens, and one decode-step GEMM
+LM_GEMMS = [(4096, 2560, 2560), (4096, 20480, 2560), (4096, 2560, 10240),
+            (4, 2560, 10240)]
 
 
 def fp32_tol(k: int) -> float:
@@ -296,6 +330,59 @@ def phase_kernels() -> float:
     return main_err
 
 
+def phase_k1_bf16() -> None:
+    """Phase 3, slice 5: K1's bf16 paths.  The LM GEMMs of zamba2
+    (LM_GEMMS) and the ragged shapes against the plain version within
+    BF16_TOL for every fused epilogue, each on the path its (n, k) picks:
+    wgmma when n % 8 == 0 and k % 8 == 0, else mma, as the per-path launch
+    counts must show.  On both paths a row panel, and m = 1 against m = 4,
+    gives the whole GEMM's bits, and a view off a 16-byte boundary (which
+    the wrapper copies for TMA) gives the aligned tensor's bits."""
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    acts = {"none": None, "relu": torch.relu, "silu": F.silu}
+    cases = 0
+    for m, n, k in LM_GEMMS + RAGGED:
+        a = torch.randn(m, k, device=DEVICE, generator=g).to(torch.bfloat16)
+        b = torch.randn(k, n, device=DEVICE, generator=g).to(torch.bfloat16)
+        bias = torch.randn(n, device=DEVICE, generator=g)
+        path = "wgmma" if n % 8 == 0 and k % 8 == 0 else "mma"
+        before = dict(tiled_matmul.launches_by_path)
+        for act_name, act in acts.items():
+            y = tiled_matmul(a, b, bias=bias, activation=act)
+            r = tiled_mm_ref(a, b, bias=bias, activation=act)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                y.float(), r.float(), rtol=BF16_TOL, atol=BF16_TOL,
+                msg=lambda s: f"bf16 {m}x{n}x{k} {act_name}: {s}")
+            cases += 1
+        ran = {p: c - before[p] for p, c in tiled_matmul.launches_by_path.items()}
+        if ran != {p: len(acts) * (p == path) for p in PATHS}:
+            raise AssertionError(f"bf16 {m}x{n}x{k}: launches by path {ran}, "
+                                 f"expected all {len(acts)} on {path}")
+    for m, n, k in ((1000, 256, 320), (300, 45, 33)):
+        a = torch.randn(m, k, device=DEVICE, generator=g).to(torch.bfloat16)
+        b = torch.randn(k, n, device=DEVICE, generator=g).to(torch.bfloat16)
+        bias = torch.randn(n, device=DEVICE, generator=g)
+        whole = tiled_matmul(a, b, bias=bias, activation=torch.relu)
+        for lo, hi in ((0, 1), (0, 4), (3, 67), (m // 2, m)):
+            panel = tiled_matmul(a[lo:hi].contiguous(), b, bias=bias,
+                                 activation=torch.relu)
+            if not torch.equal(panel, whole[lo:hi]):
+                raise AssertionError(f"bf16 {m}x{n}x{k}: rows {lo}:{hi} "
+                                     f"alone differ from the whole GEMM")
+        flat = torch.empty(m * k + 3, device=DEVICE, dtype=torch.bfloat16)
+        view = flat[3:].view(m, k)
+        view.copy_(a)
+        if not torch.equal(tiled_matmul(view, b, bias=bias,
+                                         activation=torch.relu), whole):
+            raise AssertionError(f"bf16 {m}x{n}x{k}: an unaligned view of A "
+                                 f"differs from A")
+    print(f"tiled_mm bf16: {cases} cases agree with the plain version (tol "
+          f"{BF16_TOL}), each on its path (wgmma for n, k % 8 == 0, else "
+          f"mma); row panels, m = 1 vs m = 4 and an unaligned view bitwise "
+          f"the whole GEMM on both paths", flush=True)
+
+
 def phase_vpu_kernel() -> float:
     """Phase 3, K3: ``vpu_mm`` against its plain version at the runtime's
     panel shapes, the whole Alex+ GEMMs and the ragged shapes, and bitwise
@@ -355,8 +442,10 @@ def phase_vpu_kernel() -> float:
 
 
 def phase_sass() -> None:
-    """Phase 3, K3: the built library runs CUDA-core FMAs and no
-    tensor-core instruction (HMMA, HGMMA, IMMA, ...: any *MMA opcode)."""
+    """Phase 3: what the built libraries run.  K3 runs CUDA-core FMAs and
+    no tensor-core instruction (HMMA, HGMMA, IMMA, ...: any *MMA opcode);
+    K1 (slice 5) holds HGMMA (its wgmma path), HMMA (its mma path) and
+    FFMA (its fp32 path); K4 holds HMMA (its bf16 path)."""
     ops = sass_opcodes(vpu_mm_library())
     mma = sorted(op for op in ops if "MMA" in op)
     if mma:
@@ -365,6 +454,16 @@ def phase_sass() -> None:
         raise AssertionError(f"vpu_mm SASS holds no FFMA: {dict(ops)}")
     print(f"vpu_mm SASS: {sum(ops.values())} instructions, {ops['FFMA']} "
           f"FFMA, no *MMA opcode; opcodes {sorted(ops)}", flush=True)
+    for name, library, want in (
+            ("tiled_mm", tiled_mm_library(), ("HGMMA", "HMMA", "FFMA")),
+            ("flash_attention", flash_attention_library(), ("HMMA",))):
+        ops = sass_opcodes(library)
+        missing = [op for op in want if ops[op] == 0]
+        if missing:
+            raise AssertionError(f"{name} SASS holds no {missing}: "
+                                 f"{sorted(ops)}")
+        print(f"{name} SASS: " + ", ".join(f"{ops[op]} {op}" for op in want),
+              flush=True)
 
 
 def rand_int8(g: torch.Generator, *shape: int) -> torch.Tensor:
@@ -533,6 +632,10 @@ def phase_main_path() -> tuple:
     if launches != len(ALEX_GEMMS):
         raise AssertionError(f"tiled_mm launched {launches} times in the "
                              f"forward, expected {len(ALEX_GEMMS)}")
+    if tiled_matmul.launches_by_path["ffma"] != launches:
+        raise AssertionError(f"tiled_mm launches by path "
+                             f"{tiled_matmul.launches_by_path} in the fp32 "
+                             f"forward, expected all on ffma")
     if k3_launches != 0:
         raise AssertionError(f"vpu_mm launched {k3_launches} times in the "
                              f"dispatcher forward, expected 0")
@@ -664,6 +767,7 @@ def phase_runtime_path(main: tuple) -> dict:
 
 def reset_launches() -> None:
     tiled_matmul.launches = 0
+    tiled_matmul.launches_by_path.update(dict.fromkeys(PATHS, 0))
     vpu_matmul.launches = 0
     qmm_matmul.launches = 0
     flash_attention_cuda.launches = 0
@@ -1141,9 +1245,11 @@ def union_us(intervals) -> float:
 
 
 def kernel_name(event: str) -> str:
-    """The port's kernel a profiler event belongs to, or "other"."""
+    """The port's kernel a profiler event belongs to, or "other": its
+    device functions are ``<name>_kernel`` or, for a kernel with several
+    paths, ``<name>_<path>_kernel``."""
     for name in ("tiled_mm", "vpu_mm", "qmm", "flash_attention", "ssd"):
-        if f"{name}_kernel" in event:
+        if re.search(rf"\b{name}_(?:[a-z0-9]+_)?kernel\b", event):
             return name
     return "other"
 
@@ -1284,6 +1390,17 @@ def expect_counts(stage: str, want: dict) -> dict:
     return {k: got[k] for k in want}
 
 
+def expect_paths(stage: str, gemms: int) -> dict:
+    """K1's launches by path since the last reset; raises unless all
+    ``gemms`` of them (the LM zoo's bf16 GEMMs, every one aligned) took the
+    wgmma path."""
+    got = dict(tiled_matmul.launches_by_path)
+    if got != {p: gemms * (p == "wgmma") for p in PATHS}:
+        raise AssertionError(f"{stage}: tiled_mm launches by path {got}, "
+                             f"expected all {gemms} on wgmma")
+    return got
+
+
 def timed(fn) -> tuple:
     """(fn(), seconds) on the host clock, between two synchronizes."""
     torch.cuda.synchronize()
@@ -1322,6 +1439,7 @@ def phase_lm(card: str) -> dict:
     logits, first_prefill_s = timed(
         lambda: prefill_fn(cfg, params, tokens=tokens))
     prefill_counts = expect_counts("prefill", per_prefill)
+    prefill_paths = expect_paths("prefill", per_prefill["tiled_mm"])
     if logits.shape != (LM_BATCH, 1, cfg.padded_vocab) \
             or logits.dtype != torch.float32 \
             or not bool(torch.isfinite(logits).all()):
@@ -1335,14 +1453,16 @@ def phase_lm(card: str) -> dict:
         (step_logits, cache), s = timed(
             lambda: decode_fn(cfg, params, cache, tok, LM_PROMPT + i))
         expect_counts(f"decode step {i}", per_step)
+        step_paths = expect_paths(f"decode step {i}", per_step["tiled_mm"])
         if not bool(torch.isfinite(step_logits).all()):
             raise AssertionError(f"decode step {i}: logits not finite")
         tok = step_logits[:, -1].argmax(dim=-1, keepdim=True)
         generated.append(tok)
         step_s.append(s)
     print(f"lm: {LM_ARCH} ({n_params:,} params) prefill {LM_BATCH} x "
-          f"{LM_PROMPT} tokens: launches {prefill_counts}; {LM_DECODE} "
-          f"decode steps: launches per step {per_step}", flush=True)
+          f"{LM_PROMPT} tokens: launches {prefill_counts}, tiled_mm by path "
+          f"{prefill_paths}; {LM_DECODE} decode steps: launches per step "
+          f"{per_step}, tiled_mm by path {step_paths}", flush=True)
 
     # the prefill against impl="ref" (both oracles).  In bf16 every block
     # re-rounds the 54-layer residual stream, and a last-bit difference
@@ -1394,6 +1514,7 @@ def phase_lm(card: str) -> dict:
         "compute_dtype": cfg.compute_dtype, "init_s": init_s,
         "prefill": {"requests": LM_BATCH, "prompt": LM_PROMPT,
                     "launches": prefill_counts,
+                    "tiled_mm_launches_by_path": prefill_paths,
                     "first_ms": 1e3 * first_prefill_s,
                     "ms": 1e3 * prefill_s,
                     "tokens_per_s": LM_BATCH * LM_PROMPT / prefill_s,
@@ -1406,6 +1527,7 @@ def phase_lm(card: str) -> dict:
                     "bf16_rel_err_vs_fp32_not_held": bf16_vs_fp32},
         "decode": {"steps": LM_DECODE, "max_len": LM_MAX_LEN,
                    "launches_per_step": per_step,
+                   "tiled_mm_launches_by_path_per_step": step_paths,
                    "ms_per_step": 1e3 * decode_step_s,
                    "ms_per_step_max": 1e3 * max(step_s),
                    "tokens_per_s": LM_BATCH / decode_step_s,
@@ -1537,6 +1659,163 @@ def phase_lm_kernel_times(card: str, lm: dict) -> dict:
     return totals
 
 
+class ShapeEngine(Engine):
+    """Runs K1 (through the ``cuda-tiled`` engine) and records each GEMM's
+    shape, types and epilogue: the LM path's GEMMs, to time K1 beside its
+    yardsticks at the same shapes."""
+
+    def __init__(self):
+        super().__init__("shapes", {"gemm", "epilogue"},
+                         cost=CostModel(1e12))
+        self.calls: list[tuple] = []
+
+    def execute(self, a, b, *, bias=None, activation=None, tile=None,
+                out_dtype=None):
+        self.calls.append((a.shape[0], b.shape[1], a.shape[1], a.dtype,
+                           activation, bias is not None,
+                           out_dtype or a.dtype))
+        return get_engine("cuda-tiled").execute(
+            a, b, bias=bias, activation=activation, tile=tile,
+            out_dtype=out_dtype)
+
+
+def gemm_bound(m: int, n: int, k: int, itemsize: int, out_itemsize: int,
+               peak: float) -> tuple[float, str]:
+    """Least ms for act(A @ B + bias) with inputs of ``itemsize`` bytes:
+    each input read once and the output written once at the HBM rate, or
+    the products at ``peak``, whichever is larger."""
+    t_ops = 2.0 * m * n * k / peak
+    t_bytes = (itemsize * (m * k + k * n) + out_itemsize * m * n
+               + 4 * n) / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def lm_gemm_times(calls: list, g: torch.Generator) -> dict:
+    """K1 over the recorded GEMMs (CUDA events, median of REPS per distinct
+    GEMM, times the calls of it): the kernel, its plain version, one
+    PyTorch call in the same types as the yardstick (``torch.matmul``, then
+    the bias and the activation), and the bound at the bf16 tensor-core
+    peak; also the FLOP the calls do."""
+    totals = {**new_totals(), "flop": 0.0}
+    for (m, n, k, dtype, act, has_bias, out_dtype), count in \
+            collections.Counter(calls).items():
+        a = torch.randn(m, k, device=DEVICE, generator=g).to(dtype)
+        b = torch.randn(k, n, device=DEVICE, generator=g).to(dtype)
+        bias = torch.randn(n, device=DEVICE, generator=g) if has_bias \
+            else None
+        kw = dict(bias=bias, activation=act, out_dtype=out_dtype)
+
+        def library():
+            y = torch.matmul(a, b)
+            if bias is not None:
+                y = y + bias
+            return (y if act is None else act(y)).to(out_dtype)
+
+        bound_ms, bound_by = gemm_bound(
+            m, n, k, a.element_size(),
+            torch.empty((), dtype=out_dtype).element_size(), BF16_PEAK_FLOPS)
+        add_times(totals, {
+            "ms": median_ms(lambda: tiled_matmul(a, b, **kw)),
+            "plain_ms": median_ms(lambda: tiled_mm_ref(a, b, **kw)),
+            "library_ms": median_ms(library), "bound_ms": bound_ms,
+            "bound_by": bound_by}, count)
+        totals["flop"] += 2.0 * m * n * k * count
+    return totals
+
+
+def phase_lm_gemm_times(card: str, lm: dict) -> dict:
+    """Phase 5, slice 5: K1 on the LM paths.  One more prefill and one
+    more decode step run on K1 through a ShapeEngine pinned with
+    ``engine_scope`` (their launches are not the main path's); each
+    recorded GEMM is then timed by :func:`lm_gemm_times`.  Per prefill and
+    per decode step: K1, its plain version, ``torch.matmul`` and the bound
+    (prefill: the bf16 products; decode: the bytes of the weights), and
+    K1's achieved TFLOP/s."""
+    cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    cache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=DEVICE)
+    stages = {
+        "lm_prefill": lambda: prefill_fn(cfg, params, tokens=tokens),
+        "lm_decode": lambda: decode_fn(cfg, params, cache, tokens[:, -1:],
+                                       LM_PROMPT)}
+    calls = {"lm_prefill": lm["per_prefill"]["tiled_mm"],
+             "lm_decode": lm["decode"]["launches_per_step"]["tiled_mm"]}
+    out = {}
+    for stage, fn in stages.items():
+        rec = ShapeEngine()
+        with engine_scope(rec):
+            fn()
+        want = calls[stage]
+        if len(rec.calls) != want:
+            raise AssertionError(f"{stage}: recorded {len(rec.calls)} GEMMs, "
+                                 f"expected {want}")
+        t = lm_gemm_times(rec.calls, g)
+        out[stage] = {**summary(t), "tflops": 1e-9 * t["flop"] / t["ms"],
+                      "gemms": len(rec.calls),
+                      "shapes": sorted({c[:3] for c in rec.calls})}
+        label = "prefill" if stage == "lm_prefill" else "decode step"
+        emit({"lm_gemms": stage, **out[stage], "peak": BF16_NOTE,
+              "library": "torch.matmul (+ bias, activation)",
+              "per": f"one {LM_ARCH} {label} of {LM_BATCH} requests: "
+                     f"per-GEMM medians (CUDA events) times the calls",
+              "card": card})
+        print(f"tiled_mm on the {stage}: {t['ms']:.3f} ms over "
+              f"{len(rec.calls)} GEMMs, {out[stage]['tflops']:.1f} TFLOP/s; "
+              f"torch.matmul {t['library_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms ({out[stage]['bound_by']})",
+              flush=True)
+    return out
+
+
+def to_device(tree):
+    """A parameter tree of tensors, moved to the card."""
+    if isinstance(tree, dict):
+        return {k: to_device(v) for k, v in tree.items()}
+    return tree.to(DEVICE)
+
+
+def phase_reduced_lm() -> list:
+    """Phase 4, slice 5: each REDUCED_ARCHS config (``reduced()``: head dim
+    16, SSM head dim 16, state 16, chunk 16; fp32) prefills 2 x 70 tokens
+    on the card, counts set to 0 just before and read just after: K4 once
+    per attention application, K5 once per SSM layer.  The logits must
+    come within REDUCED_TOL of the same prefill on the CPU."""
+    results = []
+    for arch, n_layers in REDUCED_ARCHS:
+        cfg = reduced(ARCHS[arch], n_layers=n_layers)
+        params = init_model(cfg, 0, device="cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 70),
+                               generator=torch.Generator().manual_seed(16))
+        want = prefill_fn(cfg, params, tokens=tokens)
+        dev_params = to_device(params)
+        reset_launches()
+        got = prefill_fn(cfg, dev_params, tokens=tokens.to(DEVICE))
+        torch.cuda.synchronize()
+        groups = n_layers // cfg.attn_every if cfg.attn_every else 0
+        counts = expect_counts(f"reduced {arch} prefill",
+                               {"flash_attention": groups, "ssd": n_layers})
+        counts["tiled_mm"] = tiled_matmul.launches
+        if counts["tiled_mm"] == 0:
+            raise AssertionError(f"reduced {arch} prefill launched no K1")
+        torch.testing.assert_close(got.cpu(), want, rtol=REDUCED_TOL,
+                                   atol=REDUCED_TOL)
+        err = (got.cpu() - want).abs().max().item()
+        results.append({"arch": arch, "n_layers": n_layers,
+                        "head_dim": cfg.resolved_head_dim,
+                        "ssm": [cfg.ssm_head_dim, cfg.ssm_state,
+                                cfg.ssm_chunk],
+                        "launches": counts, "max_abs_diff_vs_cpu": err,
+                        "tol": REDUCED_TOL})
+        print(f"reduced {arch} ({n_layers} layers, head dim "
+              f"{cfg.resolved_head_dim}, SSM P/N/chunk {cfg.ssm_head_dim}/"
+              f"{cfg.ssm_state}/{cfg.ssm_chunk}) prefill on the card: "
+              f"launches {counts}, logits max |diff| vs the CPU {err:.3g}",
+              flush=True)
+    emit({"reduced_prefill": results})
+    return results
+
+
 def phase_lm_profile(card: str, lm: dict) -> dict:
     """Phase 5, slice 4: one prefill and one decode step (after the main
     path's) under ``torch.profiler``: each kernel's device time and
@@ -1623,6 +1902,7 @@ def main() -> int:
 
     # phase 3: kernels against their plain versions
     main_err = phase_kernels()
+    phase_k1_bf16()
     vpu_err = phase_vpu_kernel()
     phase_sass()
     qmm_err = phase_qmm_kernel()
@@ -1635,6 +1915,7 @@ def main() -> int:
     phase_quantization(card, main)
     decode = phase_decode_paths(main)
     lm = phase_lm(card)
+    phase_reduced_lm()
 
     # phase 5: times
     totals, dispatcher_s = phase_times(card, main)
@@ -1646,6 +1927,7 @@ def main() -> int:
     q_profiled = phase_runtime_profile(card, main, QPOOL, "decode",
                                        "int8 pool, decode")
     lm_totals = phase_lm_kernel_times(card, lm)
+    lm_gemms = phase_lm_gemm_times(card, lm)
     lm_profiled = phase_lm_profile(card, lm)
 
     # phase 6: the kernels line, the card, the result
@@ -1671,14 +1953,23 @@ def main() -> int:
         by_path = {"dispatcher": {"launches": main[3][name]},
                    "runtime": runtime}
         if name == "tiled_mm":
+            lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
+                      f"medians (CUDA events) times the calls; library: "
+                      f"torch.matmul in bf16; bound at the bf16 peak")
             by_path["lm_prefill"] = {
                 "launches": lm["prefill"]["launches"]["tiled_mm"],
+                "launches_by_path":
+                    lm["prefill"]["tiled_mm_launches_by_path"],
+                **lm_gemms["lm_prefill"], "per": lm_per.format("prefill"),
                 "profiled": {**lm_profiled.get("tiled_mm", {}),
                              "per": f"device time of one {LM_ARCH} prefill "
                                     f"under torch.profiler"}}
             by_path["lm_decode"] = {
                 "launches_per_step":
-                    lm["decode"]["launches_per_step"]["tiled_mm"]}
+                    lm["decode"]["launches_per_step"]["tiled_mm"],
+                "launches_by_path_per_step":
+                    lm["decode"]["tiled_mm_launches_by_path_per_step"],
+                **lm_gemms["lm_decode"], "per": lm_per.format("decode step")}
         if dispatcher is not None:
             by_path["dispatcher"].update(summary(dispatcher), per=whole)
         entry = {"name": name, "route": "cuda", "source": source,

@@ -2,11 +2,12 @@
 
 Each source is compiled for ``sm_90a`` at first use, into
 ``build/kernels/`` at the root of the checkout, under a name that hashes
-the source, the shared headers of this directory and the flags, and bound
-with ``ctypes`` through its plain C entry point.  Nothing here runs at
-import time: the CPU tests import this module on machines with no CUDA
-toolkit.  Builds of different sources may run at once (one lock per
-source), so a caller can start every ``nvcc`` together.
+the source, the headers beside it, the shared headers of this directory
+and the flags, and bound with ``ctypes`` through its plain C entry point.
+Nothing here runs at import time: the CPU tests import this module on
+machines with no CUDA toolkit.  Builds of different sources may run at
+once (one lock per source), so a caller can start every ``nvcc``
+together.
 """
 
 from __future__ import annotations
@@ -54,11 +55,12 @@ def cuda_tool(name: str) -> str:
 
 
 def build_library(name: str, source: Path) -> Path:
-    """Compile ``source`` unless a library for this exact source, these
-    headers and these flags exists; the compiler's report (``-Xptxas -v``:
+    """Compile ``source`` unless a library for this exact source, the
+    headers beside it and here, and these flags exists; the compiler's report (``-Xptxas -v``:
     registers, shared memory, spills) is kept beside it as ``.log``."""
     h = hashlib.sha256(source.read_bytes())
-    for header in sorted(_COMMON.glob("*.cuh")):
+    for header in sorted([*_COMMON.glob("*.cuh"),
+                          *source.parent.glob("*.cuh")]):
         h.update(header.read_bytes())
     h.update(" ".join(_NVCC_FLAGS[:-1]).encode())
     so = _BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

@@ -1,10 +1,12 @@
 // Shared by the port's GEMM kernels (tiled_mm.cu, vpu_mm.cu): the element
 // conversions and the fused epilogue act(acc + bias), as ONE device
-// function (flash_attention.cu and ssd.cu use the conversions).  Each
-// kernel sums an output's k products from 0.0f with one fmaf per k in
-// increasing k; with the same epilogue on top, a row panel
-// gives the same bits whichever kernel ran it, which is what lets the
-// runtime split one GEMM across both and merge bitwise.  Both sources are
+// function (flash_attention.cu and ssd.cu use the conversions).  In fp32
+// each kernel sums an output's k products from 0.0f with one fmaf per k
+// in increasing k; with the same epilogue on top, a row panel gives the
+// same bits whichever kernel ran it, which is what lets the runtime split
+// one GEMM across both and merge bitwise.  (tiled_mm's bf16 paths run on
+// the tensor cores and keep that promise among their own row panels
+// only.)  Both sources are
 // compiled with the same nvcc flags and never with --use_fast_math.
 
 #pragma once
@@ -57,6 +59,23 @@ template <int ACT, typename TOut>
 __device__ __forceinline__ void epilogue_store(TOut* p, float acc,
                                                float bias_col) {
   store(p, activate<ACT>(acc + bias_col));
+}
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// the same for two neighbouring columns of one row, as the tensor-core
+// kernels hold them in one thread's accumulator registers (p aligned to
+// two elements): one vector store, the same bits as two epilogue_store
+template <int ACT, typename TOut>
+__device__ __forceinline__ void epilogue_store2(TOut* p, float acc0,
+                                                float acc1, float bias0,
+                                                float bias1) {
+  store2(p, activate<ACT>(acc0 + bias0), activate<ACT>(acc1 + bias1));
 }
 
 // The C entry points' argument check (m, n >= 1, k >= 0, known codes).

@@ -6,7 +6,9 @@ launch on the caller's current stream, the error check after it, and the
 launch count.  The count is a plain integer attribute on the wrapper
 function, raised under one process-wide lock: the runtime's worker
 threads launch both kernels at once, and an unlocked ``+= 1`` would lose
-increments."""
+increments.  A wrapper whose kernel has several paths (``tiled_matmul``)
+also keeps ``launches_by_path``, a dict of counts raised under the same
+lock."""
 
 from __future__ import annotations
 
@@ -27,10 +29,13 @@ _INT_MAX = 2**31 - 1
 _launch_lock = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
-    """``wrapper.launches += 1``, atomically."""
+def count_launch(wrapper, path: str | None = None) -> None:
+    """``wrapper.launches += 1`` and, given the kernel path that ran,
+    ``wrapper.launches_by_path[path] += 1``, atomically."""
     with _launch_lock:
         wrapper.launches += 1
+        if path is not None:
+            wrapper.launches_by_path[path] += 1
 
 
 def check_gemm(name: str, a, b, bias, out_dtype) -> None:
@@ -61,10 +66,12 @@ def check_gemm(name: str, a, b, bias, out_dtype) -> None:
 
 def launch_gemm(wrapper, load: Callable, a: torch.Tensor, b: torch.Tensor,
                 bias: torch.Tensor | None, activation: Callable | None,
-                out_dtype: torch.dtype) -> torch.Tensor:
+                out_dtype: torch.dtype,
+                path: str | None = None) -> torch.Tensor:
     """act(A @ B + bias) by the kernel that ``load()`` binds, launched on
-    the current stream of A's card; counts the launch on ``wrapper``.
-    The operands have passed :func:`check_gemm`."""
+    the current stream of A's card; counts the launch on ``wrapper`` (and
+    under ``path``, the kernel path it takes, when given).  The operands
+    have passed :func:`check_gemm`."""
     name = wrapper.__name__
     if a.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {a.device}")
@@ -88,7 +95,7 @@ def launch_gemm(wrapper, load: Callable, a: torch.Tensor, b: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{rc} for m={m} n={n} k={k}")
-    count_launch(wrapper)
+    count_launch(wrapper, path)
     if act is None:
         out = activation(out).to(out_dtype)
     return out

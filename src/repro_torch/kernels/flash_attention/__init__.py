@@ -2,9 +2,10 @@
 (K4), the score engine of the LM zoo's prefill, encoder and
 cross-attention."""
 
-from .flash_attention import HEAD_DIMS, load_flash_attention
+from .flash_attention import (HEAD_DIMS, flash_attention_library,
+                              load_flash_attention)
 from .ops import flash_attention, flash_attention_cuda
 from .ref import attention_ref
 
 __all__ = ["flash_attention", "flash_attention_cuda", "attention_ref",
-           "load_flash_attention", "HEAD_DIMS"]
+           "flash_attention_library", "load_flash_attention", "HEAD_DIMS"]

@@ -12,9 +12,10 @@ from __future__ import annotations
 import ctypes
 from pathlib import Path
 
-from repro_torch.kernels.common.build import load_library
+from repro_torch.kernels.common.build import build_library, load_library
 
-__all__ = ["FLASH_ATTENTION_ARGTYPES", "HEAD_DIMS", "load_flash_attention"]
+__all__ = ["FLASH_ATTENTION_ARGTYPES", "HEAD_DIMS", "flash_attention_library",
+           "load_flash_attention"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 
@@ -27,8 +28,14 @@ FLASH_ATTENTION_ARGTYPES = [
     ctypes.c_void_p]
 
 #: the head dims the kernel is instantiated for: those of the zoo's ten
-#: configs (64, 80 zamba2, 112 kimi, 128, 256 gemma)
-HEAD_DIMS = (64, 80, 112, 128, 256)
+#: configs (64, 80 zamba2, 112 kimi, 128, 256 gemma) and of their
+#: ``reduced()`` versions (16)
+HEAD_DIMS = (16, 64, 80, 112, 128, 256)
+
+
+def flash_attention_library() -> Path:
+    """The built shared library (compiled on the first call)."""
+    return build_library("flash_attention", _SOURCE)
 
 
 def load_flash_attention() -> ctypes.CDLL:

@@ -23,7 +23,7 @@ from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
 from .flash_attention import HEAD_DIMS, load_flash_attention
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "flash_attention_cuda"]
+__all__ = ["check_kernel_shape", "flash_attention", "flash_attention_cuda"]
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -55,6 +55,16 @@ def _check(q, k, v, causal: bool) -> None:
         raise ValueError("flash_attention: q, k, v must be contiguous")
 
 
+def check_kernel_shape(b: int, hq: int, s: int, sk: int, d: int) -> None:
+    """Raise unless the kernel is built for this shape: head dim in
+    :data:`~.flash_attention.HEAD_DIMS`, B and Hq within the grid."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if max(b, hq) > 65535 or max(s, sk) > _INT_MAX:
+        raise ValueError(f"flash_attention: B {b} or Hq {hq} exceeds the "
+                         f"grid's 65535, or S/Sk exceeds 2**31 - 1")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          scale: float | None = None) -> torch.Tensor:
@@ -70,16 +80,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
-    if max(b, hq) > 65535 or max(s, sk) > _INT_MAX:
-        raise ValueError(f"flash_attention: B {b} or Hq {hq} exceeds the "
-                         f"grid's 65535, or S/Sk exceeds 2**31 - 1")
+    check_kernel_shape(b, hq, s, sk, d)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     if sk == 0:
         raise ValueError("flash_attention: no keys (Sk == 0)")
+    # the kernels stage rows by 16-byte copies: a contiguous view that
+    # starts elsewhere is copied (same values)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     entry = load_flash_attention().flash_attention
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -116,7 +125,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (B, Hq, S, D); k/v (B, Hkv, Sk, D) -> (B, Hq, S, D).
 
     impl: a registered ``flash_attention`` variant name, or 'auto'.  The
-    CUDA kernel keeps its own 64 x 64 tiling, so ``repro``'s Pallas block
-    sizes have no counterpart here."""
+    CUDA kernel keeps its own tiling (64 query rows, 64 or 32 keys), so
+    ``repro``'s Pallas block sizes have no counterpart here."""
     fn = resolve_op("flash_attention", impl)
     return fn(q, k, v, causal=causal, scale=scale)

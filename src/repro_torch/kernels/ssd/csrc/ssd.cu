@@ -32,7 +32,9 @@
 // words, so the 32 rows a warp reads at one column fall in 32 banks.  The
 // chunk's cumsum runs on one warp (four steps a lane, then a shuffle scan).
 // Tensor cores, TMA and sharing CB across the heads of a batch row are
-// later work.
+// later work.  The reduced configs' P = 16 and N = 16 (chunk 16) take the
+// same kernel: y's columns tx + 32 c past P are idle lanes, and P N = 256
+// state elements are one per thread.
 //
 // Interface: plain C, bound with ctypes.  The launch goes on the caller's
 // stream, allocates nothing and does not synchronise; the function returns
@@ -66,9 +68,10 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
            T* __restrict__ y, float* __restrict__ state, int h, int l,
            int q) {
   constexpr int NLD = N + 1;
-  constexpr int PC = P / 32;        // y columns per thread
+  constexpr int PC = (P + 31) / 32; // y columns per thread (P < 32: one)
   constexpr int SE = P * N / THREADS;   // state elements per thread
-  static_assert(P % 32 == 0 && (P * N) % THREADS == 0, "tile shape");
+  static_assert((P % 32 == 0 || P < 32) && (P * N) % THREADS == 0,
+                "tile shape");
   extern __shared__ float smem[];
   float* S = smem;                  // P x NLD, the carried state
   float* X = S + P * NLD;           // q x P, this chunk's xdt
@@ -82,6 +85,9 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
   const int tid = threadIdx.x;
   const int ty = tid / 32;          // rows 4 ty .. 4 ty + 3 of a row block
   const int tx = tid % 32;          // cols tx + 32 j
+  // a y column this lane reads (an idle lane past P reads column 0 and
+  // stores nothing)
+  auto ycol = [&](int c) { return tx + 32 * c < P ? tx + 32 * c : 0; };
   const int hh = blockIdx.x;
   const int b = blockIdx.y;
   const int64_t bh = (int64_t)b * h + hh;
@@ -190,7 +196,7 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
 #pragma unroll
         for (int i = 0; i < 4; ++i) ga[i] = G[(4 * ty + i) * q + j];
 #pragma unroll
-        for (int c = 0; c < PC; ++c) xv[c] = X[j * P + tx + 32 * c];
+        for (int c = 0; c < PC; ++c) xv[c] = X[j * P + ycol(c)];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -202,7 +208,7 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
 #pragma unroll
         for (int i = 0; i < 4; ++i) ca[i] = Cs[(4 * ty + i) * NLD + n];
 #pragma unroll
-        for (int c = 0; c < PC; ++c) sv[c] = S[(tx + 32 * c) * NLD + n];
+        for (int c = 0; c < PC; ++c) sv[c] = S[ycol(c) * NLD + n];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -215,7 +221,9 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
         T* yrow = yp + (int64_t)(c0 + gi) * P;
 #pragma unroll
         for (int c = 0; c < PC; ++c) {
-          store(&yrow[tx + 32 * c], ya[i][c] + eseg[gi] * yi[i][c]);
+          if (tx + 32 * c < P) {
+            store(&yrow[tx + 32 * c], ya[i][c] + eseg[gi] * yi[i][c]);
+          }
         }
       }
     }
@@ -266,6 +274,9 @@ template <typename T>
 int launch_n(int p, int n, const void* xdt, const void* dta, const void* bm,
              const void* cm, void* y, void* state, int b, int h, int l,
              int q, cudaStream_t st) {
+  if (p == 16 && n == 16) {
+    return launch<T, 16, 16>(xdt, dta, bm, cm, y, state, b, h, l, q, st);
+  }
   if (p != 64) return (int)cudaErrorInvalidValue;
   switch (n) {
     case 64: return launch<T, 64, 64>(xdt, dta, bm, cm, y, state, b, h, l, q, st);
@@ -278,7 +289,8 @@ int launch_n(int p, int n, const void* xdt, const void* dta, const void* bm,
 
 // xdt: (b, h, l, p) of dtype; dta: (b, h, l) fp32; bm, cm: (b, l, n) of
 // dtype; y: like xdt; state: (b, h, p, n) fp32; all contiguous.  l is a
-// multiple of the chunk q (1 <= q <= 128); p == 64, n in {64, 128}.
+// multiple of the chunk q (1 <= q <= 128); (p, n) one of (64, 64),
+// (64, 128), (16, 16).
 extern "C" int ssd(const void* xdt, const void* dta, const void* bm,
                    const void* cm, void* y, void* state, int b, int h, int l,
                    int p, int n, int q, int dtype, void* stream) {

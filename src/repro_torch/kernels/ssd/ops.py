@@ -21,9 +21,9 @@ from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
                                              count_launch)
 
 from .ref import ssd_ref
-from .ssd import SSD_HEAD_DIMS, SSD_MAX_CHUNK, SSD_STATES, load_ssd
+from .ssd import SSD_MAX_CHUNK, SSD_SHAPES, load_ssd
 
-__all__ = ["ssd", "ssd_chunked", "ssd_cuda"]
+__all__ = ["check_kernel_shape", "ssd", "ssd_chunked", "ssd_cuda"]
 
 
 def _prescale(x, dt, a):
@@ -104,6 +104,19 @@ def _check(xdt, dta, bm, cm, chunk: int) -> None:
         raise ValueError("ssd: xdt, dta, bm and cm must be contiguous")
 
 
+def check_kernel_shape(b: int, h: int, l: int, p: int, n: int,
+                       chunk: int) -> None:
+    """Raise unless the kernel is built for this shape: (P, N) in
+    :data:`~.ssd.SSD_SHAPES`, a chunk of at most SSD_MAX_CHUNK, B and H
+    within the grid."""
+    if (p, n) not in SSD_SHAPES or chunk > SSD_MAX_CHUNK:
+        raise ValueError(f"ssd: the kernel takes (P, N) in {SSD_SHAPES} and "
+                         f"chunks up to {SSD_MAX_CHUNK}, got P={p} N={n} "
+                         f"chunk={chunk}")
+    if b > 65535 or h > _INT_MAX or l > _INT_MAX:
+        raise ValueError("ssd: a dimension exceeds the grid")
+
+
 def ssd_cuda(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
              cm: torch.Tensor, *, chunk: int = 128
              ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -117,13 +130,7 @@ def ssd_cuda(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
         raise ValueError(f"ssd: no kernel for device {xdt.device}")
     b, h, l, p = xdt.shape
     n = bm.shape[-1]
-    if p not in SSD_HEAD_DIMS or n not in SSD_STATES \
-            or chunk > SSD_MAX_CHUNK:
-        raise ValueError(f"ssd: the kernel takes P in {SSD_HEAD_DIMS}, N in "
-                         f"{SSD_STATES} and chunks up to {SSD_MAX_CHUNK}, got "
-                         f"P={p} N={n} chunk={chunk}")
-    if b > 65535 or h > _INT_MAX or l > _INT_MAX:
-        raise ValueError("ssd: a dimension exceeds the grid")
+    check_kernel_shape(b, h, l, p, n, chunk)
     y = torch.empty_like(xdt)
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
     if xdt.numel() == 0:

@@ -14,8 +14,7 @@ from pathlib import Path
 
 from repro_torch.kernels.common.build import load_library
 
-__all__ = ["SSD_ARGTYPES", "SSD_HEAD_DIMS", "SSD_STATES", "SSD_MAX_CHUNK",
-           "load_ssd"]
+__all__ = ["SSD_ARGTYPES", "SSD_SHAPES", "SSD_MAX_CHUNK", "load_ssd"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 
@@ -23,10 +22,10 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 #: -> cudaError
 SSD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
-#: the shapes the kernel is instantiated for: head dim P (every SSM config
-#: of the zoo has 64) and state size N (zamba2 64, mamba2-130m 128)
-SSD_HEAD_DIMS = (64,)
-SSD_STATES = (64, 128)
+#: the (head dim P, state size N) pairs the kernel is instantiated for:
+#: the zoo's SSM configs (P 64; N 64 zamba2, 128 mamba2-130m) and their
+#: ``reduced()`` versions (P 16, N 16)
+SSD_SHAPES = ((64, 64), (64, 128), (16, 16))
 SSD_MAX_CHUNK = 128
 
 

@@ -3,66 +3,138 @@
 // Replaces the TPU kernel src/repro/kernels/tiled_mm/tiled_mm.py::
 // tiled_mm_pallas, the Synergy processing engine: a tiled matrix product
 // with an fp32 accumulator and bias + activation fused into the epilogue.
+// Three paths, chosen by (n, k, input type) only and never by m, so that a
+// row panel computed alone takes the whole GEMM's path (tiled_mm_path):
 //
-// What bounds it on an H100: the kernel runs in full fp32 on the CUDA cores
-// (FFMA, 67 TFLOP/s dense on the SXM part), because the reference holds
-// fp32 GEMMs to 1e-5 and TF32 tensor cores keep about three decimal digits.
-// Wide-k GEMMs (the paper CNNs' conv2..conv4, k = 1600) are bound by that
-// FMA rate; thin-k GEMMs (conv1 after im2col, k = 75) do ~2 FLOP per byte
-// and are bound by device-memory bytes (3.35 TB/s).
+// fp32 inputs -> "ffma", on the CUDA cores.  The reference holds fp32
+// GEMMs to 1e-5 and TF32 keeps about three decimal digits, so the bound is
+// the fp32 FMA rate (67 TFLOP/s dense on the SXM part) for wide k (the
+// paper CNNs' conv2..conv4, k = 1600) and device-memory bytes (3.35 TB/s)
+// for thin k (conv1 after im2col, k = 75, ~2 FLOP per byte).  A block owns
+// a 128 x 128 tile (128 x 64 when n <= 64, the paper CNNs' first convs), a
+// thread an 8 x 8 register micro-tile; GEMMs too short to fill half the
+// card with such tiles (the FC layers, the runtime's 32-row panels) take
+// 32 x 64 tiles of 4 x 4.  k walks in steps of 16 staged by cp.async
+// through four shared-memory buffers, so three steps load while one
+// multiplies.  Every output sums its k products from 0.0f with one fmaf
+// per k in increasing k, as vpu_mm.cu does, whatever the tile: a row panel
+// gives the whole GEMM's bits, and the runtime merges panels of both
+// kernels bitwise.
 //
-// What the design does about it: each 256-thread block owns a 64 x 64
-// output tile and walks k in steps of 16, staging the A and B slices through
-// shared memory so that every element read from device memory feeds 64
-// FMAs; each thread keeps a 4 x 4 register micro-tile, read from shared
-// memory as float4 pairs (8 shared loads per 16 FMAs).  The epilogue (the
-// device function shared with vpu_mm.cu, common/epilogue.cuh) runs on the
-// register tile, so C is written to device memory once, in its final type.
-// Ragged edges are masked in the loads and stores; nothing is padded in
-// device memory.  Making it fast (wgmma, TMA, a multi-stage ring) is later
-// work.
+// bf16 inputs, k % 8 == 0 and n % 8 == 0 -> "wgmma", on the tensor cores
+// (989 TFLOP/s dense): warpgroup MMA fed by TMA through a four-stage ring,
+// wgmma_gemm.cuh.  Every GEMM of the LM zoo at published widths is aligned.
+// At m = 4096 they are bound by the tensor cores; at decode's m = 4, by the
+// bytes of B.
 //
-// Determinism: every output element sums its k products in increasing k
-// order with one fmaf per step, independent of which block or row panel
-// it lies in, so a row panel computed alone gives the same bits as the
-// whole GEMM.  The job tile of the Python API does not reach the kernel.
+// other bf16 shapes -> "mma": rows of A or B are not 16-byte aligned, so
+// TMA cannot read them.  A block owns a 64 x 64 tile, staged by plain
+// masked loads, and four warps run mma.sync m16n8k16 over k steps of 32.
+// Only ragged shapes take it (no GEMM of the zoo or the paper CNNs in bf16).
+//
+// On both bf16 paths the k steps run in one order for every row, whichever
+// tile holds it, so a row panel gives the whole GEMM's bits on its path.
+// The epilogue (common/epilogue.cuh) runs on the accumulator registers and
+// writes C once, in its final type; ragged edges are masked, nothing is
+// padded in device memory.
 //
 // Interface: plain C, bound with ctypes.  The launch goes on the caller's
 // stream, allocates nothing and does not synchronise; the function returns
-// cudaGetLastError() so that a refused launch is reported.
+// the CUDA error of the launch so that a refused launch is reported.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "epilogue.cuh"
+#include "ptx.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
 using namespace synergy;
 
-constexpr int BM = 64;              // block tile rows
-constexpr int BN = 64;              // block tile cols
-constexpr int BK = 16;              // k step staged in shared memory
-constexpr int TM = 4;               // register micro-tile rows per thread
-constexpr int TN = 4;               // register micro-tile cols per thread
-constexpr int THREADS = (BM / TM) * (BN / TN);   // 256
-constexpr int A_PAD = 4;            // keeps float4 alignment, spreads banks
+enum Path { PATH_FFMA = 0, PATH_MMA = 1, PATH_WGMMA = 2 };
 
-template <typename TIn, typename TOut, int ACT>
-__global__ void __launch_bounds__(THREADS)
-tiled_mm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
-                const float* __restrict__ bias, TOut* __restrict__ c,
-                int m, int n, int k) {
-  // A is stored k-major so that a thread's TM rows are one float4.
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN];
+int choose_path(int n, int k, int in_dtype) {
+  if (in_dtype == DT_F32) return PATH_FFMA;
+  return (k > 0 && k % 8 == 0 && n % 8 == 0) ? PATH_WGMMA : PATH_MMA;
+}
+
+// ---------------------------------------------------------------- ffma
+
+namespace ffma {
+
+constexpr int BK = 16;              // k step per shared-memory buffer
+constexpr int STAGES = 4;           // k steps in the ring, 3 in flight
+
+// A block owns a BM x BN tile; thread (ty, tx) an RM x RN grid of 4 x 4
+// quads: rows q (BM / RM) + 4 ty + i and cols q' (BN / RN) + 4 tx + j
+// (i, j < 4), so neighbouring threads read neighbouring 16 bytes and the
+// float4 reads of shared memory meet no bank conflict.
+template <int BM_, int BN_, int RM_, int RN_>
+struct Tile {
+  static constexpr int BM = BM_, BN = BN_, RM = RM_, RN = RN_;
+  static constexpr int TM = 4 * RM, TN = 4 * RN;
+  static constexpr int TX = BN / TN;
+  static constexpr int THREADS = (BM / TM) * TX;
+  static constexpr int ALD = BM + 4;        // keeps float4 alignment
+  static constexpr int A_FLOATS = BK * ALD;
+  static constexpr int B_FLOATS = BK * BN;
+  static constexpr size_t SMEM =
+      sizeof(float) * STAGES * (size_t)(A_FLOATS + B_FLOATS);
+};
+
+// A is stored k-major so that a thread's rows are float4 reads.
+template <typename T, typename TOut, int ACT>
+__global__ void __launch_bounds__(T::THREADS)
+tiled_mm_ffma_kernel(const float* __restrict__ a,
+                     const float* __restrict__ b,
+                     const float* __restrict__ bias, TOut* __restrict__ c,
+                     int m, int n, int k) {
+  constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN;
+  constexpr int THREADS = T::THREADS;
+  extern __shared__ __align__(16) float ffma_smem[];
+  float* As = ffma_smem;                          // STAGES x BK x ALD
+  float* Bs = ffma_smem + STAGES * T::A_FLOATS;   // STAGES x BK x BN
 
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);   // which TN-column group
-  const int ty = tid / (BN / TN);   // which TM-row group
+  const int tx = tid % T::TX;
+  const int ty = tid / T::TX;
   const int64_t row0 = (int64_t)blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
+  const int steps = (k + BK - 1) / BK;
+
+  // k step `st` into its buffer (nothing past the last step: an empty
+  // group keeps the count of groups in flight); what lies outside (m, k)
+  // or (k, n) arrives as zeros, which add nothing to the sums
+  auto stage = [&](int st) {
+    if (st < steps) {
+      const int k0 = st * BK;
+      float* as = As + (st % STAGES) * T::A_FLOATS;
+      float* bs = Bs + (st % STAGES) * T::B_FLOATS;
+#pragma unroll
+      for (int l = 0; l < BM * BK / THREADS; ++l) {
+        const int idx = tid + l * THREADS;
+        const int r = idx / BK, kk = idx % BK;
+        const bool in = row0 + r < m && k0 + kk < k;
+        cp_async4(&as[kk * T::ALD + r], in ? a + (row0 + r) * k + k0 + kk : a,
+                  in ? 4 : 0);
+      }
+#pragma unroll
+      for (int l = 0; l < BK * BN / THREADS; ++l) {
+        const int idx = tid + l * THREADS;
+        const int kk = idx / BN, cc = idx % BN;
+        const bool in = k0 + kk < k && col0 + cc < n;
+        cp_async4(&bs[kk * BN + cc],
+                  in ? b + (int64_t)(k0 + kk) * n + col0 + cc : b,
+                  in ? 4 : 0);
+      }
+    }
+    cp_async_commit();
+  };
 
   float acc[TM][TN];
 #pragma unroll
@@ -70,75 +142,238 @@ tiled_mm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    // A slice: BM x BK, consecutive threads read consecutive k of one row.
 #pragma unroll
-    for (int l = 0; l < (BM * BK) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int r = idx / BK;
-      const int kk = idx % BK;
-      const int64_t gr = row0 + r;
-      const int gk = k0 + kk;
-      As[kk][r] = (gr < m && gk < k) ? to_f32(a[gr * k + gk]) : 0.0f;
-    }
-    // B slice: BK x BN, consecutive threads read consecutive columns.
-#pragma unroll
-    for (int l = 0; l < (BK * BN) / THREADS; ++l) {
-      const int idx = tid + l * THREADS;
-      const int kk = idx / BN;
-      const int cc = idx % BN;
-      const int gk = k0 + kk;
-      const int gc = col0 + cc;
-      Bs[kk][cc] = (gk < k && gc < n) ? to_f32(b[(int64_t)gk * n + gc])
-                                      : 0.0f;
-    }
-    __syncthreads();
-
+  for (int st = 0; st < STAGES - 1; ++st) stage(st);
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<STAGES - 2>();    // step st has landed
+    __syncthreads();                // and step st - 1's buffer is free
+    stage(st + STAGES - 1);
+    const float* as = As + (st % STAGES) * T::A_FLOATS;
+    const float* bs = Bs + (st % STAGES) * T::B_FLOATS;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      const float4 av = *reinterpret_cast<const float4*>(&As[kk][ty * TM]);
-      const float4 bv = *reinterpret_cast<const float4*>(&Bs[kk][tx * TN]);
-      const float ar[TM] = {av.x, av.y, av.z, av.w};
-      const float br[TN] = {bv.x, bv.y, bv.z, bv.w};
+      float ar[TM], br[TN];
+#pragma unroll
+      for (int q = 0; q < T::RM; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &as[kk * T::ALD + q * (BM / T::RM) + 4 * ty]);
+        ar[4 * q] = v.x, ar[4 * q + 1] = v.y, ar[4 * q + 2] = v.z,
+        ar[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < T::RN; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            &bs[kk * BN + q * (BN / T::RN) + 4 * tx]);
+        br[4 * q] = v.x, br[4 * q + 1] = v.y, br[4 * q + 2] = v.z,
+        br[4 * q + 3] = v.w;
+      }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
-    __syncthreads();
   }
 
 #pragma unroll
   for (int j = 0; j < TN; ++j) {
-    const int gc = col0 + tx * TN + j;
+    const int gc = col0 + (j / 4) * (BN / T::RN) + 4 * tx + j % 4;
     if (gc >= n) continue;
     const float bj = bias_at(bias, gc);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
-      const int64_t gr = row0 + ty * TM + i;
+      const int64_t gr = row0 + (i / 4) * (BM / T::RM) + 4 * ty + i % 4;
       if (gr < m) epilogue_store<ACT>(&c[gr * n + gc], acc[i][j], bj);
     }
   }
 }
 
+template <typename T, typename TOut, int ACT>
+int launch_tile(const float* a, const float* b, const float* bias, TOut* c,
+                int m, int n, int k, cudaStream_t s) {
+  auto kernel = tiled_mm_ffma_kernel<T, TOut, ACT>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((m + T::BM - 1) / T::BM, (n + T::BN - 1) / T::BN);
+  kernel<<<grid, T::THREADS, T::SMEM, s>>>(a, b, bias, c, m, n, k);
+  return (int)cudaSuccess;
+}
+
+using Wide = Tile<128, 128, 2, 2>;   // 256 threads, 8 x 8 each
+using Narrow = Tile<128, 64, 2, 2>;  // 128 threads, 8 x 8 each
+using Small = Tile<32, 64, 1, 1>;    // 128 threads, 4 x 4 each
+
+// The tile never changes an output's bits (one fmaf per k in increasing
+// k, whatever the tile), so it may follow m: a 128-row tile while its grid
+// still reaches half the SMs, else 32 rows (the FC layers and the
+// runtime's 32-row panels, which a 128-row tile would leave 3/4 idle).
+template <typename TOut, int ACT>
+int launch(const float* a, const float* b, const float* bias, TOut* c,
+           int m, int n, int k, cudaStream_t s) {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  const int bn = n <= 64 ? Narrow::BN : Wide::BN;
+  const int64_t big_blocks = (int64_t)((m + 127) / 128) * ((n + bn - 1) / bn);
+  if (2 * big_blocks < sms) {
+    return launch_tile<Small, TOut, ACT>(a, b, bias, c, m, n, k, s);
+  }
+  if (n <= 64) return launch_tile<Narrow, TOut, ACT>(a, b, bias, c, m, n, k, s);
+  return launch_tile<Wide, TOut, ACT>(a, b, bias, c, m, n, k, s);
+}
+
+}  // namespace ffma
+
+// ----------------------------------------------------------------- mma
+
+namespace mma {
+
+constexpr int BM = 64;
+constexpr int BN = 64;
+constexpr int BK = 32;
+constexpr int LD = BK + 8;          // row stride in bf16: 4-byte aligned
+constexpr int THREADS = 128;        // 2 x 2 warps of 32 x 32
+
+// B is stored transposed ([n][k]), so both operands' fragments are pairs
+// of neighbouring k in one 32-bit word.
+template <typename TOut, int ACT>
+__global__ void __launch_bounds__(THREADS)
+tiled_mm_mma_kernel(const __nv_bfloat16* __restrict__ a,
+                    const __nv_bfloat16* __restrict__ b,
+                    const float* __restrict__ bias, TOut* __restrict__ c,
+                    int m, int n, int k) {
+  __shared__ __align__(16) __nv_bfloat16 As[BM][LD];
+  __shared__ __align__(16) __nv_bfloat16 Bt[BN][LD];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (tid / 32) / 2, wn = (tid / 32) % 2;
+  const int64_t row0 = (int64_t)blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.0f;
+
+  for (int k0 = 0; k0 < k; k0 += BK) {
+#pragma unroll
+    for (int l = 0; l < BM * BK / THREADS; ++l) {
+      const int idx = tid + l * THREADS;
+      const int r = idx / BK, kk = idx % BK;
+      As[r][kk] = (row0 + r < m && k0 + kk < k)
+                      ? a[(row0 + r) * k + k0 + kk]
+                      : zero;
+    }
+#pragma unroll
+    for (int l = 0; l < BK * BN / THREADS; ++l) {
+      const int idx = tid + l * THREADS;
+      const int kk = idx / BN, cc = idx % BN;
+      Bt[cc][kk] = (k0 + kk < k && col0 + cc < n)
+                       ? b[(int64_t)(k0 + kk) * n + col0 + cc]
+                       : zero;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int r = 32 * wm + 16 * mi + g;
+        af[mi][0] = *reinterpret_cast<const uint32_t*>(&As[r][ks + 2 * t]);
+        af[mi][1] = *reinterpret_cast<const uint32_t*>(&As[r + 8][ks + 2 * t]);
+        af[mi][2] = *reinterpret_cast<const uint32_t*>(&As[r][ks + 2 * t + 8]);
+        af[mi][3] =
+            *reinterpret_cast<const uint32_t*>(&As[r + 8][ks + 2 * t + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int cn = 32 * wn + 8 * ni + g;
+        const uint32_t b0 =
+            *reinterpret_cast<const uint32_t*>(&Bt[cn][ks + 2 * t]);
+        const uint32_t b1 =
+            *reinterpret_cast<const uint32_t*>(&Bt[cn][ks + 2 * t + 8]);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          mma_bf16_16816(acc[mi][ni], af[mi], b0, b1);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int gc = col0 + 32 * wn + 8 * ni + 2 * t + (e % 2);
+      if (gc >= n) continue;
+      const float bc = bias_at(bias, gc);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int64_t gr = row0 + 32 * wm + 16 * mi + g + 8 * (e / 2);
+        if (gr < m) epilogue_store<ACT>(&c[gr * n + gc], acc[mi][ni][e], bc);
+      }
+    }
+  }
+}
+
+template <typename TOut, int ACT>
+void launch(const __nv_bfloat16* a, const __nv_bfloat16* b,
+            const float* bias, TOut* c, int m, int n, int k,
+            cudaStream_t s) {
+  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
+  tiled_mm_mma_kernel<TOut, ACT><<<grid, THREADS, 0, s>>>(a, b, bias, c, m,
+                                                           n, k);
+}
+
+}  // namespace mma
+
 }  // namespace
 
+// Which path a GEMM of this (n, k, input dtype) takes: 0 ffma, 1 mma,
+// 2 wgmma.  m plays no part.
+extern "C" int tiled_mm_path(int n, int k, int in_dtype) {
+  return choose_path(n, k, in_dtype);
+}
+
 // a, b: row-major (m, k) and (k, n), both of in_dtype; bias: fp32 (n,) or
-// null; c: row-major (m, n) of out_dtype.  m, n >= 1, k >= 0.
+// null; c: row-major (m, n) of out_dtype.  m, n >= 1, k >= 0.  The wgmma
+// path needs a and b on 16-byte boundaries.
 extern "C" int tiled_mm(const void* a, const void* b, const void* bias,
                         void* c, int m, int n, int k, int in_dtype,
                         int out_dtype, int act, void* stream) {
   if (!gemm_args_ok(m, n, k, in_dtype, out_dtype, act)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* fbias = static_cast<const float*>(bias);
+  int rc = (int)cudaSuccess;
   dispatch_gemm(in_dtype, out_dtype, act, [&](auto in, auto out, auto fused) {
     using TIn = decltype(in);
     using TOut = decltype(out);
-    tiled_mm_kernel<TIn, TOut, decltype(fused)::value><<<grid, THREADS, 0, s>>>(
-        static_cast<const TIn*>(a), static_cast<const TIn*>(b),
-        static_cast<const float*>(bias), static_cast<TOut*>(c), m, n, k);
+    constexpr int ACT = decltype(fused)::value;
+    TOut* cc = static_cast<TOut*>(c);
+    if constexpr (std::is_same<TIn, float>::value) {
+      rc = ffma::launch<TOut, ACT>(static_cast<const float*>(a),
+                                   static_cast<const float*>(b), fbias, cc,
+                                   m, n, k, s);
+    } else if (choose_path(n, k, in_dtype) == PATH_WGMMA) {
+      rc = wgmma_gemm::launch<TOut, ACT>(a, b, fbias, cc, m, n, k, s);
+    } else {
+      mma::launch<TOut, ACT>(static_cast<const __nv_bfloat16*>(a),
+                             static_cast<const __nv_bfloat16*>(b), fbias, cc,
+                             m, n, k, s);
+    }
   });
+  if (rc != (int)cudaSuccess) return rc;
   return (int)cudaGetLastError();
 }

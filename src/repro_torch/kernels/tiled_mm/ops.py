@@ -6,7 +6,8 @@ directly.
 A CPU tensor takes the plain version (:func:`tiled_mm_ref`); a CUDA tensor
 launches the kernel or raises.  ``tiled_matmul.launches`` counts kernel
 launches and nothing else, so a run can show that it went through the
-kernel."""
+kernel; ``tiled_matmul.launches_by_path`` splits them by the kernel's path
+(``ffma``, ``mma``, ``wgmma``: :data:`~.tiled_mm.PATHS`)."""
 
 from __future__ import annotations
 
@@ -14,10 +15,11 @@ from typing import Callable
 
 import torch
 
-from repro_torch.kernels.common.gemm import check_gemm, launch_gemm
+from repro_torch.kernels.common.gemm import (_DTYPE_CODES, check_gemm,
+                                             launch_gemm)
 
 from .ref import tiled_mm_ref
-from .tiled_mm import load_tiled_mm
+from .tiled_mm import PATHS, load_tiled_mm, tiled_mm_path
 
 __all__ = ["tiled_matmul"]
 
@@ -34,8 +36,17 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
     if a.device.type == "cpu":
         return tiled_mm_ref(a, b, bias=bias, activation=activation,
                             out_dtype=out_dtype)
+    path = None
+    if a.device.type == "cuda":
+        path = tiled_mm_path(b.shape[1], a.shape[1], _DTYPE_CODES[a.dtype])
+        if path == "wgmma":
+            # TMA reads from 16-byte boundaries; a contiguous view that
+            # starts elsewhere is copied (same values, same path)
+            a, b = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (a, b))
     return launch_gemm(tiled_matmul, lambda: load_tiled_mm().tiled_mm,
-                       a, b, bias, activation, out_dtype)
+                       a, b, bias, activation, out_dtype, path)
 
 
 tiled_matmul.launches = 0
+tiled_matmul.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -1,5 +1,7 @@
 """The CUDA kernels on the card: tiled_mm (K1) and vpu_mm (K3) against
-their plain versions, row panels bit-stable, K3 bitwise equal to K1 and
+their plain versions, K1's three paths (fp32 FFMA, bf16 wgmma + TMA, bf16
+mma.sync for shapes TMA cannot read) each counted and present in its
+SASS, row panels bit-stable on every path, K3 bitwise equal to K1 and
 free of tensor-core instructions, the dispatcher routing CUDA tensors onto
 K1, and the work-stealing runtime splitting GEMMs over both kernels with
 results bitwise equal to the unsplit K1 GEMM.  K2 (qmm) against its plain
@@ -7,9 +9,10 @@ version (raw int32 bitwise, fused epilogue bitwise for none/relu), one
 build for every activation scale, quantization on the card bitwise the
 CPU's, and the runtime's int32 split bitwise a one-worker split.  K4
 (flash_attention) and K5 (ssd) against their plain versions at the zoo's
-head dims, GQA, ragged and cross shapes; a narrow zamba2 whose prefill on
-the card launches both and matches the CPU, and whose decode launches
-neither and reproduces the forward.
+head dims (and the reduced configs' 16), GQA, ragged and cross shapes;
+a narrow zamba2 whose prefill on the card launches both and matches the
+CPU, and whose decode launches neither and reproduces the forward; the
+reduced zamba2 and mamba2-130m prefilling on the card.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -30,10 +33,12 @@ from repro_torch.core.synergy_mm import SynergyTrace, synergy_matmul
 from repro_torch.engines import get_engine
 from repro_torch.kernels.common.build import sass_opcodes
 from repro_torch.kernels.flash_attention import (attention_ref,
-                                                 flash_attention_cuda)
+                                                 flash_attention_cuda,
+                                                 flash_attention_library)
 from repro_torch.kernels.qmm import qmm_matmul, qmm_ref
 from repro_torch.kernels.ssd import ssd, ssd_cuda
-from repro_torch.kernels.tiled_mm import tiled_matmul, tiled_mm_ref
+from repro_torch.kernels.tiled_mm import (PATHS, tiled_matmul,
+                                          tiled_mm_library, tiled_mm_ref)
 from repro_torch.kernels.vpu_mm import vpu_matmul, vpu_mm_library, vpu_mm_ref
 from repro_torch.models import (decode_fn, init_cache, init_model,
                                 lm_forward, prefill_fn)
@@ -89,6 +94,79 @@ def test_row_panel_is_bitwise_equal_to_the_whole_gemm(cuda):
         panel = tiled_matmul(a[lo:hi].contiguous(), b, bias=bias,
                              activation=torch.relu)
         assert torch.equal(panel, whole[lo:hi])
+
+
+@pytest.mark.parametrize("act", [None, torch.relu, F.silu],
+                         ids=["none", "relu", "silu"])
+@pytest.mark.parametrize("shape", [(4096, 2560, 2560), (4096, 20480, 2560),
+                                   (4, 2560, 10240), (70, 45, 33),
+                                   (1, 257, 129), (130, 1, 31)])
+def test_bf16_gemm_takes_its_path_and_matches_plain(cuda, shape, act):
+    """zamba2's GEMMs (aligned: wgmma + TMA) and the ragged shapes
+    (mma.sync) within 3e-2 of the plain version, each counted on its
+    path."""
+    m, n, k = shape
+    path = "wgmma" if n % 8 == 0 and k % 8 == 0 else "mma"
+    g = torch.Generator(device=cuda).manual_seed(16)
+    a = _rand(g, m, k, dtype=torch.bfloat16)
+    b = _rand(g, k, n, dtype=torch.bfloat16)
+    bias = _rand(g, n)
+    before = dict(tiled_matmul.launches_by_path)
+    y = tiled_matmul(a, b, bias=bias, activation=act)
+    torch.cuda.synchronize()
+    assert {p: c - before[p] for p, c in tiled_matmul.launches_by_path.items()} \
+        == {p: int(p == path) for p in PATHS}
+    assert y.dtype == torch.bfloat16 and y.shape == (m, n)
+    torch.testing.assert_close(
+        y.float(), tiled_mm_ref(a, b, bias=bias, activation=act).float(),
+        rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("shape", [(1000, 256, 320), (300, 45, 33)],
+                         ids=["wgmma", "mma"])
+def test_bf16_row_panel_is_bitwise_equal_to_the_whole_gemm(cuda, shape):
+    """An output's bits depend on its row of A, on B and on k, never on m
+    or on where the row sits in a tile: row panels, m = 1 against m = 4,
+    and an A that starts off a 16-byte boundary (copied for TMA)."""
+    m, n, k = shape
+    g = torch.Generator(device=cuda).manual_seed(17)
+    a = _rand(g, m, k, dtype=torch.bfloat16)
+    b = _rand(g, k, n, dtype=torch.bfloat16)
+    bias = _rand(g, n)
+    whole = tiled_matmul(a, b, bias=bias, activation=torch.relu)
+    for lo, hi in ((0, 1), (0, 4), (3, 67), (m // 2, m)):
+        panel = tiled_matmul(a[lo:hi].contiguous(), b, bias=bias,
+                             activation=torch.relu)
+        assert torch.equal(panel, whole[lo:hi])
+    one = tiled_matmul(a[1:2].contiguous(), b)
+    four = tiled_matmul(a[1:5].contiguous(), b)
+    assert torch.equal(one, four[:1])
+    flat = torch.empty(m * k + 3, device=cuda, dtype=torch.bfloat16)
+    view = flat[3:].view(m, k)
+    view.copy_(a)
+    assert view.data_ptr() % 16 != 0
+    assert torch.equal(tiled_matmul(view, b, bias=bias,
+                                    activation=torch.relu), whole)
+
+
+def test_fp32_gemms_take_the_ffma_path(cuda):
+    g = torch.Generator(device=cuda).manual_seed(18)
+    before = dict(tiled_matmul.launches_by_path)
+    for m, n, k in ((256, 128, 2048), (70, 45, 33), (2048, 64, 75)):
+        tiled_matmul(_rand(g, m, k), _rand(g, k, n))
+    assert {p: c - before[p] for p, c in tiled_matmul.launches_by_path.items()} \
+        == {"ffma": 3, "mma": 0, "wgmma": 0}
+
+
+def test_tiled_mm_sass_holds_its_three_paths(cuda):
+    ops = sass_opcodes(tiled_mm_library())
+    assert ops["HGMMA"] > 0 and ops["HMMA"] > 0 and ops["FFMA"] > 0, \
+        sorted(ops)
+
+
+def test_flash_attention_sass_holds_tensor_core_products(cuda):
+    ops = sass_opcodes(flash_attention_library())
+    assert ops["HMMA"] > 0, sorted(ops)
 
 
 def test_dispatcher_puts_cuda_gemms_on_the_kernel(cuda):
@@ -324,7 +402,8 @@ def _fa_tol(sk, dtype):
     (2, 4, 4, 128, 128, 80, True), (2, 8, 2, 200, 200, 64, True),
     (1, 10, 5, 96, 96, 128, True), (1, 8, 1, 64, 64, 112, True),
     (1, 4, 4, 130, 130, 256, True), (2, 4, 4, 150, 150, 64, False),
-    (2, 4, 4, 16, 150, 64, False), (1, 2, 2, 1, 1, 64, True)],
+    (2, 4, 4, 16, 150, 64, False), (1, 2, 2, 1, 1, 64, True),
+    (2, 4, 4, 70, 70, 16, True), (2, 4, 2, 40, 90, 16, False)],
     ids=lambda c: "x".join(map(str, c[:6])) + ("-causal" if c[6] else ""))
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     b, hq, hkv, s, sk, d, causal = case
@@ -348,7 +427,8 @@ def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
                                   (1, 2, 256, 64, 128, 128),
                                   (2, 2, 1000, 64, 64, 128),
                                   (1, 3, 192, 64, 64, 64),
-                                  (1, 2, 16, 64, 64, 16)],
+                                  (1, 2, 16, 64, 64, 16),
+                                  (2, 3, 48, 16, 16, 16)],
                          ids=lambda c: "x".join(map(str, c)))
 def test_ssd_kernel_matches_plain(cuda, case, dtype):
     b, h, l, p, n, chunk = case
@@ -420,3 +500,24 @@ def test_hybrid_decode_on_the_card_matches_the_forward(cuda):
     assert (flash_attention_cuda.launches, ssd_cuda.launches) == before
     torch.testing.assert_close(torch.stack(outs, dim=1), full, rtol=2e-3,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("zamba2-2.7b", 4),
+                                           ("mamba2-130m", 2)])
+def test_reduced_config_prefills_on_the_card(cuda, arch, n_layers):
+    """``reduced()`` configs (head dim 16, SSM P 16, N 16, chunk 16) run
+    K4 and K5 on the card, within 1e-4 of the same prefill on the CPU."""
+    cfg = reduced(ARCHS[arch], n_layers=n_layers)
+    params = init_model(cfg, 0, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70),
+                           generator=torch.Generator().manual_seed(19))
+    want = prefill_fn(cfg, params, tokens=tokens)
+    counts = (flash_attention_cuda.launches, ssd_cuda.launches,
+              tiled_matmul.launches)
+    got = prefill_fn(cfg, _to(params, cuda), tokens=tokens.to(cuda))
+    torch.cuda.synchronize()
+    groups = n_layers // cfg.attn_every if cfg.attn_every else 0
+    assert flash_attention_cuda.launches - counts[0] == groups
+    assert ssd_cuda.launches - counts[1] == n_layers
+    assert tiled_matmul.launches - counts[2] > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)

@@ -17,9 +17,11 @@ from repro.kernels.flash_attention import (attention_ref as j_attention_ref,
                                            flash_attention_pallas)
 from repro.models.attention import _scores_engine as j_scores
 from repro.models.attention import flash_attention_xla
-from repro_torch.kernels.flash_attention import (attention_ref,
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, attention_ref,
                                                  flash_attention,
                                                  flash_attention_cuda)
+from repro_torch.kernels.flash_attention.ops import check_kernel_shape
 from repro_torch.models.attention import _scores_engine, flash_attention_torch
 
 TOL = 2e-5
@@ -54,7 +56,7 @@ def test_kernel_wrapper_matches_pallas(hq, hkv, causal):
     _close(o, j_attention_ref(q, k, v, causal=causal))
 
 
-@pytest.mark.parametrize("d", [64, 80, 112, 128, 256])
+@pytest.mark.parametrize("d", [64, 80, 112, 128, 256, 16])
 def test_zoo_head_dims(d):
     q, k, v = _qkv(1, 4, 2, 64, 64, d, seed=d)
     _close(attention_ref(*_t(q, k, v)),
@@ -171,3 +173,30 @@ def test_decode_attention_matches_repro(pos):
     y, k, v = decode_attention(tp, *_t(x, kc, vc), pos, **kw)
     for port, ref in ((y, jy), (k, jk), (v, jv)):
         _close(port, ref)
+
+
+def _zoo_head_dims():
+    """Head dims of the attention archs at published widths and reduced."""
+    cfgs = [c for c in ARCHS.values() if not c.is_attention_free]
+    return sorted({c.resolved_head_dim for c in cfgs}
+                  | {reduced(c).resolved_head_dim for c in cfgs})
+
+
+@pytest.mark.parametrize("d", _zoo_head_dims())
+def test_kernel_is_built_for_every_zoo_head_dim(d):
+    """The card's kernel takes the head dim of every attention arch, at
+    published widths and ``reduced()`` (16): the check the CUDA path runs
+    before it launches passes."""
+    assert d in HEAD_DIMS
+    check_kernel_shape(2, 4, 64, 64, d)
+
+
+@pytest.mark.parametrize("d", [8, 32, 48, 96, 100, 512])
+def test_kernel_shape_check_refuses_other_head_dims(d):
+    with pytest.raises(ValueError, match="head dim"):
+        check_kernel_shape(2, 4, 64, 64, d)
+
+
+def test_kernel_shape_check_refuses_a_grid_overflow():
+    with pytest.raises(ValueError, match="grid"):
+        check_kernel_shape(70000, 4, 64, 64, 16)

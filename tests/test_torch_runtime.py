@@ -251,16 +251,40 @@ def test_scope_splits_synergy_matmul_and_keeps_grad_off_the_pool():
 
 # --------------------------------------------------------------- faults
 
+class _AfterFault(Engine):
+    """Runs ``inner``'s panels once ``plan`` has injected a fault: a
+    survivor that cannot finish the whole GEMM before the doomed worker
+    takes its first panel, however the host schedules the two threads."""
+
+    def __init__(self, inner, plan):
+        super().__init__(inner.name, set(inner.capabilities),
+                         cost=inner._cost)
+        self.inner, self.plan = inner, plan
+        self.telemetry = inner.telemetry
+
+    def cost_on(self, device):
+        return self.inner.cost_on(device)
+
+    def execute(self, a, b, **kw):
+        deadline = time.monotonic() + TIMEOUT
+        while not self.plan.injected and time.monotonic() < deadline:
+            time.sleep(0.001)
+        return self.inner.execute(a, b, **kw)
+
+
 def test_worker_death_reseeds_orphans_exactly_once():
     """The neon-vpu worker dies holding its first panel: the heartbeat
     monitor (timeout 1 s) retires it, and its in-flight and queued panels
-    re-seed onto the survivor; the merge equals the fault-free run."""
+    re-seed onto the survivor; the merge equals the fault-free run.  The
+    survivor starts its first panel only after the death, so it cannot
+    steal all twelve panels first when the host starves the doomed
+    worker's thread."""
     a, b, bias = (torch.from_numpy(x) for x in _ab(12 * 16, 40, 24, seed=11))
     kw = dict(bias=bias, activation=torch.relu)
     ref, _, _ = _split(["cuda-tiled", "neon-vpu"], a, b, 16, **kw)
     plan = FaultPlan((FaultSpec("neon-vpu", "die", at_call=0),), seed=0)
-    pool = wrap_pool([get_engine("cuda-tiled"), get_engine("neon-vpu")],
-                     plan)
+    pool = wrap_pool([_AfterFault(get_engine("cuda-tiled"), plan),
+                      get_engine("neon-vpu")], plan)
     retry = RetryPolicy(heartbeat_timeout_s=1.0, monitor_interval_s=0.05)
     js = JobSet.for_gemm(0, a.shape[0], 24, 40, 16)
     with SynergyRuntime(pool, device="cpu", retry=retry) as rt:

@@ -14,8 +14,10 @@ from repro.kernels.ssd import ssd as j_ssd
 from repro.kernels.ssd import ssd_ref as j_ssd_ref
 from repro.kernels.ssd.ops import _prescale as j_prescale
 from repro.kernels.ssd.ops import ssd_chunked_xla
+from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_cuda, ssd_ref
-from repro_torch.kernels.ssd.ops import _prescale
+from repro_torch.kernels.ssd.ops import _prescale, check_kernel_shape
+from repro_torch.kernels.ssd.ssd import SSD_MAX_CHUNK, SSD_SHAPES
 
 TOL = 2e-5
 
@@ -108,6 +110,36 @@ def test_zoo_state_sizes(n):
     jy, js = j_ssd(*inp, chunk=32, impl="xla")
     _close(y, jy)
     _close(s, js)
+
+
+def test_reduced_shape_matches_pallas():
+    """P = 16, N = 16, chunk 16: what ``reduced()`` gives every SSM arch."""
+    inp = _inputs(2, 48, 3, 16, 16, seed=16)
+    y, s = ssd(*_t(*inp), chunk=16, impl="cuda")
+    jy, js = j_ssd(*inp, chunk=16, impl="pallas")
+    _close(y, jy)
+    _close(s, js)
+
+
+def _zoo_ssd_shapes():
+    """(P, N, chunk) of the SSM and hybrid archs, published and reduced."""
+    cfgs = [c for c in ARCHS.values() if c.family in ("ssm", "hybrid")]
+    return sorted({(c.ssm_head_dim, c.ssm_state, c.ssm_chunk)
+                   for c in cfgs + [reduced(c) for c in cfgs]})
+
+
+@pytest.mark.parametrize("p,n,chunk", _zoo_ssd_shapes())
+def test_kernel_is_built_for_every_zoo_ssd_shape(p, n, chunk):
+    assert (p, n) in SSD_SHAPES and chunk <= SSD_MAX_CHUNK
+    check_kernel_shape(2, 8, 4 * chunk, p, n, chunk)
+
+
+@pytest.mark.parametrize("p,n,chunk", [(16, 64, 16), (64, 16, 16),
+                                       (32, 32, 32), (16, 16, 256),
+                                       (128, 128, 64)])
+def test_kernel_shape_check_refuses_other_shapes(p, n, chunk):
+    with pytest.raises(ValueError, match="the kernel takes"):
+        check_kernel_shape(2, 8, 4 * chunk, p, n, chunk)
 
 
 @pytest.mark.parametrize("nc", [1, 2, 4])

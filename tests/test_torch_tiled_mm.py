@@ -14,7 +14,9 @@ import torch.nn.functional as F
 
 from repro.kernels.tiled_mm import tiled_matmul as jax_tiled_matmul
 from repro.kernels.tiled_mm import tiled_mm_ref as jax_tiled_mm_ref
-from repro_torch.kernels.tiled_mm import ops, tiled_matmul, tiled_mm_ref
+from repro_torch.kernels.common.gemm import count_launch
+from repro_torch.kernels.tiled_mm import (PATHS, ops, tiled_matmul,
+                                          tiled_mm_ref)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
@@ -137,3 +139,18 @@ def test_cuda_tensor_launches_or_raises_never_plain(monkeypatch):
         with pytest.raises(RuntimeError):
             tiled_matmul(a, b)
     assert tiled_matmul.launches == before
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_launches_are_counted_by_path(path):
+    """``count_launch`` with the path raises the total and that path's
+    count, and no other path's."""
+    before = (tiled_matmul.launches, dict(tiled_matmul.launches_by_path))
+    try:
+        count_launch(tiled_matmul, path)
+        assert tiled_matmul.launches == before[0] + 1
+        assert tiled_matmul.launches_by_path == {
+            p: n + (p == path) for p, n in before[1].items()}
+    finally:
+        tiled_matmul.launches = before[0]
+        tiled_matmul.launches_by_path.update(before[1])
