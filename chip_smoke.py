@@ -29,7 +29,12 @@ Phases, in order; each raises on failure and nothing is caught:
    the per-path launch counts show it), row panels, m = 1 vs m = 4 and
    an unaligned view bitwise the whole GEMM; K1's SASS holds HGMMA, HMMA
    and FFMA, K4's HMMA; K4 and K5 also at the reduced configs' shapes
-   (head dim 16; P 16, N 16, chunk 16).
+   (head dim 16; P 16, N 16, chunk 16).  Slice 6: K2 and K3 also at the
+   tile borders of their redesigns: every (m, n, k) with m in {1, 31, 32,
+   33, 127, 129}, n in {1, 10, 63, 65}, k in {1, 31, 33, 75}; K2 with
+   every operand at -128 or 127, and both kernels on a row panel cut from a
+   k = 75 GEMM (a base off every 16-byte boundary) bitwise the whole GEMM's
+   rows; K2's SASS holds IMMA and no IDP (dp4a), K3's FFMA and no *MMA.
 4. Main path, dispatcher (slice 1): ``cnn_forward`` of CIFAR_Alex+ at its
    published widths on 256 frames, with launch counts set to 0 just before
    and read just after; logits are held against the same forward with
@@ -89,7 +94,8 @@ Phases, in order; each raises on failure and nothing is caught:
    runtime path's (this slice's main path): launches in phase 4's runtime
    forward, and times of the panels it ran there (``qmm``: the runtime
    decode forward's); ``by_path`` gives each path's launches and times on
-   its own basis.  K4's and K5's are the LM prefill's: launches in it, and
+   its own basis (``qmm``: with its launches by path, ``async`` and
+   ``shift``).  K4's and K5's are the LM prefill's: launches in it, and
    per-call medians times the calls one prefill makes.  K1's ``by_path``
    also gives ``lm_prefill`` and ``lm_decode`` (per step): launches by
    path, times, bound and library time over the LM GEMMs.
@@ -128,7 +134,9 @@ from repro_torch.kernels.common.build import sass_opcodes  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention_cuda, flash_attention_library,
     load_flash_attention)
-from repro_torch.kernels.qmm import load_qmm, qmm_matmul, qmm_ref  # noqa: E402
+from repro_torch.kernels.qmm import (load_qmm, qmm_library,  # noqa: E402
+                                    qmm_matmul, qmm_ref)
+from repro_torch.kernels.qmm.qmm import PATHS as QMM_PATHS  # noqa: E402
 from repro_torch.kernels.ssd import (load_ssd, ssd, ssd_chunked,  # noqa: E402
                                      ssd_cuda)
 from repro_torch.kernels.ssd.ops import _prescale  # noqa: E402
@@ -176,6 +184,10 @@ RAGGED = [(70, 45, 33), (1, 257, 129), (130, 1, 31)]
 QPOOL = ["cuda-tiled", "cuda-tiled-int8"]
 #: conv0's k with fc7's n: ragged in k and in n at once (m, n, k)
 QMM_EDGE = (130, 10, 75)
+#: slice 6: the borders of K2's and K3's tiles (32-row panels, 16 x 8 and
+#: 32 x 32 block tiles, k steps of 32 and 64), crossed (m, n, k)
+EDGES = [(m, n, k) for m in (1, 31, 32, 33, 127, 129) for n in (1, 10, 63, 65)
+         for k in (1, 31, 33, 75)]
 LOGIT_TOL = 1e-4     # fp32 logits, five GEMMs summed in another order
 BF16_TOL = 3e-2
 
@@ -391,7 +403,8 @@ def phase_vpu_kernel() -> float:
     g = torch.Generator(device=DEVICE).manual_seed(2)
     acts = {"none": None, "relu": torch.relu, "silu": F.silu}
     main_shapes = set(PANELS) | {(m, n, k) for _, m, n, k, _ in ALEX_GEMMS}
-    shapes = PANELS + [(m, n, k) for _, m, n, k, _ in ALEX_GEMMS] + RAGGED
+    shapes = (PANELS + [(m, n, k) for _, m, n, k, _ in ALEX_GEMMS] + RAGGED
+              + EDGES)
     main_err, bitwise, bf16_bitwise = 0.0, 0, 0
     for m, n, k in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -433,11 +446,23 @@ def phase_vpu_kernel() -> float:
     torch.testing.assert_close(vpu_matmul(a, b, activation=torch.tanh),
                                vpu_mm_ref(a, b, activation=torch.tanh),
                                rtol=fp32_tol(33), atol=fp32_tol(33))
+    # row panels of a k = 75 GEMM, one of them off every 16-byte boundary
+    a = torch.randn(4096, 75, device=DEVICE, generator=g)
+    b = torch.randn(75, 64, device=DEVICE, generator=g)
+    whole = vpu_matmul(a, b, activation=torch.relu)
+    for lo, hi in ((32, 64), (33, 66), (4095, 4096)):
+        panel = a[lo:hi]
+        if not torch.equal(vpu_matmul(panel, b, activation=torch.relu),
+                           whole[lo:hi]):
+            raise AssertionError(f"vpu_mm: rows {lo}:{hi} of a k = 75 GEMM "
+                                 f"(base at byte {panel.data_ptr() % 16} "
+                                 f"mod 16) differ from the whole GEMM")
     n_cases = len(shapes) * 6 + 2
     print(f"vpu_mm: {n_cases} cases agree with the plain version (fp32 tol "
-          f"1e-5*sqrt(k), bf16 tol {BF16_TOL}); {bitwise} fp32 cases "
-          f"bitwise equal to tiled_mm ({bf16_bitwise} of "
-          f"{len(shapes) * 3} bf16 cases too)", flush=True)
+          f"1e-5*sqrt(k), bf16 tol {BF16_TOL}), {len(EDGES)} of them tile "
+          f"borders; {bitwise} fp32 cases bitwise equal to tiled_mm "
+          f"({bf16_bitwise} of {len(shapes) * 3} bf16 cases too); unaligned "
+          f"row panels bitwise the whole GEMM", flush=True)
     return main_err
 
 
@@ -445,7 +470,8 @@ def phase_sass() -> None:
     """Phase 3: what the built libraries run.  K3 runs CUDA-core FMAs and
     no tensor-core instruction (HMMA, HGMMA, IMMA, ...: any *MMA opcode);
     K1 (slice 5) holds HGMMA (its wgmma path), HMMA (its mma path) and
-    FFMA (its fp32 path); K4 holds HMMA (its bf16 path)."""
+    FFMA (its fp32 path); K4 holds HMMA (its bf16 path); K2 (slice 6)
+    holds IMMA (int8 on the tensor cores) and no IDP (``__dp4a``)."""
     ops = sass_opcodes(vpu_mm_library())
     mma = sorted(op for op in ops if "MMA" in op)
     if mma:
@@ -456,14 +482,17 @@ def phase_sass() -> None:
           f"FFMA, no *MMA opcode; opcodes {sorted(ops)}", flush=True)
     for name, library, want in (
             ("tiled_mm", tiled_mm_library(), ("HGMMA", "HMMA", "FFMA")),
-            ("flash_attention", flash_attention_library(), ("HMMA",))):
+            ("flash_attention", flash_attention_library(), ("HMMA",)),
+            ("qmm", qmm_library(), ("IMMA",))):
         ops = sass_opcodes(library)
         missing = [op for op in want if ops[op] == 0]
         if missing:
             raise AssertionError(f"{name} SASS holds no {missing}: "
                                  f"{sorted(ops)}")
-        print(f"{name} SASS: " + ", ".join(f"{ops[op]} {op}" for op in want),
-              flush=True)
+        if name == "qmm" and ops["IDP"]:
+            raise AssertionError(f"qmm SASS holds {ops['IDP']} IDP (dp4a)")
+        print(f"{name} SASS: " + ", ".join(f"{ops[op]} {op}" for op in want)
+              + (", no IDP" if name == "qmm" else ""), flush=True)
 
 
 def rand_int8(g: torch.Generator, *shape: int) -> torch.Tensor:
@@ -494,7 +523,7 @@ def phase_qmm_kernel() -> float:
     acts = {"none": None, "relu": torch.relu, "silu": F.silu}
     main_shapes = set(PANELS) | {(m, n, k) for _, m, n, k, _ in ALEX_GEMMS}
     shapes = ([(m, n, k) for _, m, n, k, _ in ALEX_GEMMS] + PANELS + RAGGED
-              + [QMM_EDGE])
+              + [QMM_EDGE] + EDGES)
     main_err, silu_ulps, cases = 0.0, 0.0, 0
     for m, n, k in shapes:
         a, w = rand_int8(g, m, k), rand_int8(g, k, n)
@@ -534,6 +563,39 @@ def phase_qmm_kernel() -> float:
                     if (m, n, k) in main_shapes and dtype == torch.float32:
                         main_err = max(main_err, (y - r).abs().max().item())
                 cases += 1
+    # every operand at -128 or 127, at the borders of both tiles and paths
+    for m, n, k in ((33, 65, 75), (129, 64, 1600), (1, 10, 31)):
+        for va, vw in ((-128, -128), (-128, 127), (127, -128), (127, 127)):
+            a = torch.full((m, k), va, dtype=torch.int8, device=DEVICE)
+            w = torch.full((k, n), vw, dtype=torch.int8, device=DEVICE)
+            acc = qmm_matmul(a, w, torch.ones(n, device=DEVICE),
+                             fuse_dequant=False)
+            if not (torch.equal(acc, qmm_ref(a, w, torch.ones(n, device=DEVICE),
+                                             fuse_dequant=False))
+                    and bool((acc == va * vw * k).all())):
+                raise AssertionError(f"qmm {m}x{n}x{k} at {va} x {vw}: not "
+                                     f"the exact sum {va * vw * k}")
+            cases += 1
+    # row panels of a k = 75 GEMM (the runtime's conv0 panels), one of them
+    # off every 16-byte boundary, and a W view off its boundary
+    a, w = rand_int8(g, 4096, 75), rand_int8(g, 75, 64)
+    w_scale = torch.rand(64, device=DEVICE, generator=g)
+    whole = qmm_matmul(a, w, w_scale, fuse_dequant=False)
+    for lo, hi in ((32, 64), (33, 66), (4095, 4096)):
+        panel = a[lo:hi]
+        if not torch.equal(qmm_matmul(panel, w, w_scale, fuse_dequant=False),
+                           whole[lo:hi]):
+            raise AssertionError(f"qmm: rows {lo}:{hi} of a k = 75 GEMM "
+                                 f"(base at byte {panel.data_ptr() % 16} "
+                                 f"mod 16) differ from the whole GEMM")
+        cases += 1
+    w_view = torch.empty(75 * 64 + 5, dtype=torch.int8, device=DEVICE)[5:]
+    w_view = w_view.view(75, 64)
+    w_view.copy_(w)
+    if not torch.equal(qmm_matmul(a, w_view, w_scale, fuse_dequant=False),
+                       whole):
+        raise AssertionError("qmm: a W view off its 16-byte boundary differs")
+    cases += 1
     # scales are operands: four activation scales, one library
     m, n, k = QMM_EDGE
     a, w = rand_int8(g, m, k), rand_int8(g, k, n)
@@ -548,10 +610,12 @@ def phase_qmm_kernel() -> float:
     if (kernel_build._libs["qmm"] is not lib
             or sorted(kernel_build._BUILD_DIR.glob("qmm-*.so")) != built):
         raise AssertionError("a new activation scale rebuilt qmm")
-    print(f"qmm: {cases} cases against the plain version: raw int32 and "
-          f"fused none/relu (fp32, bf16) bitwise, fused silu within "
-          f"{silu_ulps:.3g} ulp (limit 2); one build served 4 activation "
-          f"scales ({built[0].name})", flush=True)
+    print(f"qmm: {cases} cases against the plain version ({len(EDGES)} "
+          f"shapes at tile borders, -128/127 operands, unaligned row panels "
+          f"and W): raw int32 and fused none/relu (fp32, bf16) bitwise, "
+          f"fused silu within {silu_ulps:.3g} ulp (limit 2); launches by "
+          f"path {qmm_matmul.launches_by_path}; one build served 4 "
+          f"activation scales ({built[0].name})", flush=True)
     return main_err
 
 
@@ -770,6 +834,7 @@ def reset_launches() -> None:
     tiled_matmul.launches_by_path.update(dict.fromkeys(PATHS, 0))
     vpu_matmul.launches = 0
     qmm_matmul.launches = 0
+    qmm_matmul.launches_by_path.update(dict.fromkeys(QMM_PATHS, 0))
     flash_attention_cuda.launches = 0
     ssd_cuda.launches = 0
 
@@ -783,6 +848,17 @@ def launch_counts() -> dict:
             "qmm": qmm_matmul.launches,
             "flash_attention": flash_attention_cuda.launches,
             "ssd": ssd_cuda.launches}
+
+
+def qmm_paths_of(calls: list) -> dict:
+    """K2's launches by path for ``(n, k, launches)`` with operands on
+    16-byte boundaries, as every main-path operand (and row panel of a GEMM
+    with k % 16 == 0) is: ``async`` for k and n multiples of 16, else
+    ``shift``."""
+    paths = dict.fromkeys(QMM_PATHS, 0)
+    for n, k, count in calls:
+        paths["async" if n % 16 == 0 and k % 16 == 0 else "shift"] += count
+    return paths
 
 
 def phase_decode_paths(main: tuple) -> dict:
@@ -815,9 +891,14 @@ def phase_decode_paths(main: tuple) -> dict:
                                device=DEVICE)
     torch.cuda.synchronize()
     disp = launch_counts()
+    disp_paths = dict(qmm_matmul.launches_by_path)
     if disp != {**NO_LM_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
                  "qmm": len(ALEX_GEMMS)}:
         raise AssertionError(f"dispatcher decode forward launched {disp}")
+    want_paths = qmm_paths_of([(n, k, 1) for _, _, n, k, _ in ALEX_GEMMS])
+    if disp_paths != want_paths:
+        raise AssertionError(f"dispatcher decode forward: qmm launches by "
+                             f"path {disp_paths}, expected {want_paths}")
     if set(tr.engine_stats) != {"cuda-tiled-int8"}:
         raise AssertionError(f"decode GEMMs went to {sorted(tr.engine_stats)}")
     if q_logits.shape != logits.shape or not bool(
@@ -829,8 +910,8 @@ def phase_decode_paths(main: tuple) -> dict:
         raise AssertionError(f"decode logits rel_err {disp_err:.4g} vs fp32 "
                              f"> {DEFAULT_TOL}")
     print(f"main path (dispatcher, int8): {cfg.name} x{FRAMES}, launches "
-          f"{disp}, logits rel_err vs fp32 {disp_err:.4g} (tol "
-          f"{DEFAULT_TOL})", flush=True)
+          f"{disp}, qmm by path {disp_paths}, logits rel_err vs fp32 "
+          f"{disp_err:.4g} (tol {DEFAULT_TOL})", flush=True)
 
     eng.calibrator.import_state(state0)
     tr = SynergyTrace()
@@ -844,8 +925,13 @@ def phase_decode_paths(main: tuple) -> dict:
                               device=DEVICE)
         torch.cuda.synchronize()
         run = launch_counts()
+        run_paths = dict(qmm_matmul.launches_by_path)
         stats = rt.stats()
     panels_per_gemm = [js.grid[0] for js in tr.jobsets]
+    want_paths = qmm_paths_of([(js.n, js.k, js.grid[0]) for js in tr.jobsets])
+    if run_paths != want_paths:
+        raise AssertionError(f"runtime decode forward: qmm launches by path "
+                             f"{run_paths}, expected {want_paths}")
     panels = sum(panels_per_gemm)
     per = stats["engines"]
     if run != {**NO_LM_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
@@ -871,7 +957,8 @@ def phase_decode_paths(main: tuple) -> dict:
             f"|diff| {(got - one).abs().max().item():.3g}")
     print(f"main path (runtime, int8): {cfg.name} x{FRAMES} through "
           f"SynergyRuntime({QPOOL}): {panels} panels = qmm {run['qmm']} "
-          f"launches (tiled_mm {run['tiled_mm']}, vpu_mm {run['vpu_mm']}), "
+          f"launches (by path {run_paths}; tiled_mm {run['tiled_mm']}, "
+          f"vpu_mm {run['vpu_mm']}), "
           f"{stats['total_steals']} steals, logits bitwise equal to the "
           f"one-worker int8 pool, rel_err vs the dispatcher decode forward "
           f"{rt_err:.4g} (tol {DEFAULT_TOL})", flush=True)
@@ -936,6 +1023,7 @@ def phase_decode_paths(main: tuple) -> dict:
                   f"{errs[2]:.4g}", flush=True)
     eng.calibrator.import_state(state0)
     return {"dispatcher": disp, "runtime": run, "panels": panels,
+            "dispatcher_paths": disp_paths, "runtime_paths": run_paths,
             "panels_per_gemm": panels_per_gemm, "disp_err": disp_err,
             "rt_err": rt_err, "steals": stats["total_steals"],
             "engines": {n: {k: per[n][k] for k in ("jobs", "steals",
@@ -1977,8 +2065,10 @@ def main() -> int:
                  "max_abs_err": err, **summary(runtime_totals[name]),
                  "per": on_runtime, "by_path": by_path}
         if name == "vpu_mm":
-            entry["whole_gemms"] = {**summary(vpu_whole), "per": (
-                whole + "; a comparison with tiled_mm's whole GEMMs")}
+            entry["whole_gemms"] = {**summary(vpu_whole),
+                                    "tiled_mm_ms": totals["ms"],
+                                    "per": (whole + "; a comparison with "
+                                            "tiled_mm's whole GEMMs")}
         entries.append(entry)
     q_on_runtime = (f"one CIFAR_Alex+ decode forward at {FRAMES} frames "
                     f"through the runtime: per-panel medians (raw int32) "
@@ -1995,9 +2085,12 @@ def main() -> int:
         "launches": decode["runtime"]["qmm"], "max_abs_err": qmm_err,
         **summary(qmm_runtime), "per": q_on_runtime,
         "by_path": {"dispatcher": {"launches": decode["dispatcher"]["qmm"],
+                                   "launches_by_path":
+                                       decode["dispatcher_paths"],
                                    **summary(qmm_dispatcher),
                                    "per": whole + ", fused epilogue"},
-                    "runtime": q_runtime}})
+                    "runtime": {**q_runtime, "launches_by_path":
+                                decode["runtime_paths"]}}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (

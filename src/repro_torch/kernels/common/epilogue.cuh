@@ -1,6 +1,7 @@
 // Shared by the port's GEMM kernels (tiled_mm.cu, vpu_mm.cu): the element
 // conversions and the fused epilogue act(acc + bias), as ONE device
-// function (flash_attention.cu and ssd.cu use the conversions).  In fp32
+// function (flash_attention.cu and ssd.cu use the conversions; qmm.cu the
+// activations and the paired stores of an mma accumulator fragment).  In fp32
 // each kernel sums an output's k products from 0.0f with one fmaf per k
 // in increasing k; with the same epilogue on top, a row panel gives the
 // same bits whichever kernel ran it, which is what lets the runtime split
@@ -67,6 +68,9 @@ __device__ __forceinline__ void store2(float* p, float v0, float v1) {
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float v0, float v1) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
 }
+__device__ __forceinline__ void store2(int* p, int v0, int v1) {
+  *reinterpret_cast<int2*>(p) = make_int2(v0, v1);
+}
 
 // the same for two neighbouring columns of one row, as the tensor-core
 // kernels hold them in one thread's accumulator registers (p aligned to
@@ -76,6 +80,18 @@ __device__ __forceinline__ void epilogue_store2(TOut* p, float acc0,
                                                 float acc1, float bias0,
                                                 float bias1) {
   store2(p, activate<ACT>(acc0 + bias0), activate<ACT>(acc1 + bias1));
+}
+
+// The card's SM count, asked once per process: the GEMM kernels choose a
+// tile by whether its grid would fill the card.
+inline int sm_count() {
+  static const int sms = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count;
+  }();
+  return sms;
 }
 
 // The C entry points' argument check (m, n >= 1, k >= 0, known codes).

@@ -1,7 +1,8 @@
-// Inline-PTX helpers shared by the port's kernels (tiled_mm.cu and
-// flash_attention.cu): cp.async staging, ldmatrix fragment loads and the
-// mma.sync m16n8k16 bf16 product with an fp32 accumulator, for sm_90a (all
-// of them exist since sm_80).
+// Inline-PTX helpers shared by the port's kernels (tiled_mm.cu,
+// flash_attention.cu, qmm.cu and, for cp.async, ffma_gemm.cuh): cp.async
+// staging, ldmatrix fragment loads, the mma.sync m16n8k16 bf16 product with
+// an fp32 accumulator and the m16n8k32 int8 product with an int32
+// accumulator, for sm_90a (all of them exist since sm_80).
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4), each
 // 32-bit register holding two bf16 with the lower column in the low half:
@@ -9,6 +10,15 @@
 //                           a3 (g+8, 2t+8..)
 //   B (16 x 8, "col"):      b0 (k 2t..2t+1, n g), b1 (k 2t+8..2t+9, n g)
 //   C/D (16 x 8, fp32):     c0, c1 (g, 2t..2t+1), c2, c3 (g+8, 2t..2t+1)
+//
+// mma.m16n8k32 with s8 operands has the same layout in 32-bit words, each
+// word holding four int8 of neighbouring k (the lowest k in the low byte):
+//   A (16 x 32, row-major): a0 (g, 4t..4t+3), a1 (g+8, 4t..), a2 (g, 4t+16..),
+//                           a3 (g+8, 4t+16..)
+//   B (32 x 8, "col"):      b0 (k 4t..4t+3, n g), b1 (k 4t+16..4t+19, n g)
+//   C/D (16 x 8, int32):    as the fp32 C/D above
+// So both operands must be k-major in shared memory: ldmatrix (which moves
+// 16-bit elements and cannot transpose bytes) then gives the fragments.
 
 #pragma once
 
@@ -29,6 +39,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
+}
+
+// the same, and the L2 fetches the source's whole 128-byte line from device
+// memory: for a row read 64 bytes per k step, the next step hits in L2
+__device__ __forceinline__ void cp_async16_line(void* dst, const void* src,
+                                                int src_bytes) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(src_bytes)
+      : "memory");
 }
 
 // 4 bytes global -> shared, zero-filled when src_bytes == 0
@@ -77,6 +98,17 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += A (16 x 32 int8) * B (32 x 8 int8), exact int32 accumulator (IMMA)
+__device__ __forceinline__ void mma_s8_16832(int d[4], const uint32_t a[4],
+                                             uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

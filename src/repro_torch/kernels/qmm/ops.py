@@ -7,7 +7,9 @@ A CPU tensor takes the plain version (:func:`qmm_ref`); a CUDA tensor
 launches the kernel or raises.  Integer accumulation is exact, so the two
 agree bitwise on the raw int32 accumulator.  ``qmm_matmul.launches``
 counts kernel launches and nothing else, under the lock the other kernels'
-counts use."""
+counts use; ``qmm_matmul.launches_by_path`` splits them by the kernel's
+path (``async``, ``shift``: :data:`~.qmm.PATHS`), which follows the
+operands' shape and alignment and never changes a bit."""
 
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ import torch
 from repro_torch.kernels.common.gemm import (_ACT_CODES, _DTYPE_CODES,
                                              _INT_MAX, count_launch)
 
-from .qmm import load_qmm
+from .qmm import PATHS, load_qmm, qmm_path
 from .ref import qmm_ref
 
 __all__ = ["qmm_matmul"]
@@ -61,8 +63,9 @@ def qmm_matmul(a_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
                out_dtype: torch.dtype = torch.float32,
                fuse_dequant: bool = True) -> torch.Tensor:
     """act((A_q @ W_q) * w_scale * act_scale + bias) for any int8 (m, k) x
-    (k, n), with an exact int32 accumulator; ragged edges are masked in
-    the kernel, so nothing is padded.  ``act_scale`` (a float: the online
+    (k, n), with an exact int32 accumulator on the int8 tensor cores;
+    ragged edges and unaligned rows are handled in the kernel, so nothing
+    is padded or copied.  ``act_scale`` (a float: the online
     EMA publishes a fresh one per batch) is folded into the (1, n) scale
     operand in float32, which the kernel reads at run time, so no new
     scale rebuilds it.  ``fuse_dequant=False`` returns the raw int32
@@ -105,10 +108,11 @@ def qmm_matmul(a_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"qmm_matmul: kernel launch failed with CUDA "
                            f"error {rc} for m={m} n={n} k={k}")
-    count_launch(qmm_matmul)
+    count_launch(qmm_matmul, qmm_path(a_q.data_ptr(), w_q.data_ptr(), n, k))
     if fuse_dequant and act is None:
         out = activation(out).to(out_dtype)
     return out
 
 
 qmm_matmul.launches = 0
+qmm_matmul.launches_by_path = dict.fromkeys(PATHS, 0)

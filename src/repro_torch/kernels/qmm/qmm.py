@@ -10,11 +10,12 @@ time: the CPU tests import this module on machines with no CUDA toolkit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 from repro_torch.kernels.common.build import build_library, load_library
 
-__all__ = ["QMM_ARGTYPES", "load_qmm", "qmm_library"]
+__all__ = ["PATHS", "QMM_ARGTYPES", "load_qmm", "qmm_library", "qmm_path"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
 
@@ -22,6 +23,12 @@ _SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
 QMM_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+#: the kernel's paths, by the code ``qmm_path`` returns: 16-byte
+#: ``cp.async`` copies (k and n multiples of 16, A and W on 16-byte
+#: boundaries), or 4-byte copies realigned in shared memory by a funnel
+#: shift, for any other shape or address
+PATHS = ("async", "shift")
 
 
 def qmm_library() -> Path:
@@ -31,4 +38,20 @@ def qmm_library() -> Path:
 
 def load_qmm() -> ctypes.CDLL:
     """The bound library, built on the first call in this process."""
-    return load_library("qmm", _SOURCE, QMM_ARGTYPES)
+    lib = load_library("qmm", _SOURCE, QMM_ARGTYPES)
+    lib.qmm_path.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                             ctypes.c_int]
+    lib.qmm_path.restype = ctypes.c_int
+    return lib
+
+
+def qmm_path(a_ptr: int, w_ptr: int, n: int, k: int) -> str:
+    """The path the kernel takes for operands at these device addresses
+    with this (n, k): the kernel's own choice, which m never enters and
+    which reads the addresses modulo 16 only."""
+    return _qmm_path(a_ptr % 16, w_ptr % 16, n, k)
+
+
+@functools.lru_cache(maxsize=4096)
+def _qmm_path(a_mod: int, w_mod: int, n: int, k: int) -> str:
+    return PATHS[load_qmm().qmm_path(a_mod, w_mod, n, k)]

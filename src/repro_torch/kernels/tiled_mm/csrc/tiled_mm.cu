@@ -16,8 +16,9 @@
 // card with such tiles (the FC layers, the runtime's 32-row panels) take
 // 32 x 64 tiles of 4 x 4.  k walks in steps of 16 staged by cp.async
 // through four shared-memory buffers, so three steps load while one
-// multiplies.  Every output sums its k products from 0.0f with one fmaf
-// per k in increasing k, as vpu_mm.cu does, whatever the tile: a row panel
+// multiplies: the mainloop of common/ffma_gemm.cuh, which vpu_mm.cu (K3)
+// runs with its own tiles.  Every output sums its k products from 0.0f
+// with one fmaf per k in increasing k, whatever the tile: a row panel
 // gives the whole GEMM's bits, and the runtime merges panels of both
 // kernels bitwise.
 //
@@ -49,6 +50,7 @@
 #include <type_traits>
 
 #include "epilogue.cuh"
+#include "ffma_gemm.cuh"
 #include "ptx.cuh"
 #include "wgmma_gemm.cuh"
 
@@ -65,167 +67,38 @@ int choose_path(int n, int k, int in_dtype) {
 
 // ---------------------------------------------------------------- ffma
 
-namespace ffma {
-
-constexpr int BK = 16;              // k step per shared-memory buffer
-constexpr int STAGES = 4;           // k steps in the ring, 3 in flight
-
-// A block owns a BM x BN tile; thread (ty, tx) an RM x RN grid of 4 x 4
-// quads: rows q (BM / RM) + 4 ty + i and cols q' (BN / RN) + 4 tx + j
-// (i, j < 4), so neighbouring threads read neighbouring 16 bytes and the
-// float4 reads of shared memory meet no bank conflict.
-template <int BM_, int BN_, int RM_, int RN_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, RM = RM_, RN = RN_;
-  static constexpr int TM = 4 * RM, TN = 4 * RN;
-  static constexpr int TX = BN / TN;
-  static constexpr int THREADS = (BM / TM) * TX;
-  static constexpr int ALD = BM + 4;        // keeps float4 alignment
-  static constexpr int A_FLOATS = BK * ALD;
-  static constexpr int B_FLOATS = BK * BN;
-  static constexpr size_t SMEM =
-      sizeof(float) * STAGES * (size_t)(A_FLOATS + B_FLOATS);
-};
-
-// A is stored k-major so that a thread's rows are float4 reads.
+// The mainloop is common/ffma_gemm.cuh, shared with vpu_mm.cu (K3); this
+// kernel's own tiles are Wide, Narrow and Small there.
 template <typename T, typename TOut, int ACT>
 __global__ void __launch_bounds__(T::THREADS)
 tiled_mm_ffma_kernel(const float* __restrict__ a,
                      const float* __restrict__ b,
                      const float* __restrict__ bias, TOut* __restrict__ c,
                      int m, int n, int k) {
-  constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN;
-  constexpr int THREADS = T::THREADS;
   extern __shared__ __align__(16) float ffma_smem[];
-  float* As = ffma_smem;                          // STAGES x BK x ALD
-  float* Bs = ffma_smem + STAGES * T::A_FLOATS;   // STAGES x BK x BN
-
-  const int tid = threadIdx.x;
-  const int tx = tid % T::TX;
-  const int ty = tid / T::TX;
-  const int64_t row0 = (int64_t)blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int steps = (k + BK - 1) / BK;
-
-  // k step `st` into its buffer (nothing past the last step: an empty
-  // group keeps the count of groups in flight); what lies outside (m, k)
-  // or (k, n) arrives as zeros, which add nothing to the sums
-  auto stage = [&](int st) {
-    if (st < steps) {
-      const int k0 = st * BK;
-      float* as = As + (st % STAGES) * T::A_FLOATS;
-      float* bs = Bs + (st % STAGES) * T::B_FLOATS;
-#pragma unroll
-      for (int l = 0; l < BM * BK / THREADS; ++l) {
-        const int idx = tid + l * THREADS;
-        const int r = idx / BK, kk = idx % BK;
-        const bool in = row0 + r < m && k0 + kk < k;
-        cp_async4(&as[kk * T::ALD + r], in ? a + (row0 + r) * k + k0 + kk : a,
-                  in ? 4 : 0);
-      }
-#pragma unroll
-      for (int l = 0; l < BK * BN / THREADS; ++l) {
-        const int idx = tid + l * THREADS;
-        const int kk = idx / BN, cc = idx % BN;
-        const bool in = k0 + kk < k && col0 + cc < n;
-        cp_async4(&bs[kk * BN + cc],
-                  in ? b + (int64_t)(k0 + kk) * n + col0 + cc : b,
-                  in ? 4 : 0);
-      }
-    }
-    cp_async_commit();
-  };
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) stage(st);
-  for (int st = 0; st < steps; ++st) {
-    cp_async_wait<STAGES - 2>();    // step st has landed
-    __syncthreads();                // and step st - 1's buffer is free
-    stage(st + STAGES - 1);
-    const float* as = As + (st % STAGES) * T::A_FLOATS;
-    const float* bs = Bs + (st % STAGES) * T::B_FLOATS;
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float ar[TM], br[TN];
-#pragma unroll
-      for (int q = 0; q < T::RM; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            &as[kk * T::ALD + q * (BM / T::RM) + 4 * ty]);
-        ar[4 * q] = v.x, ar[4 * q + 1] = v.y, ar[4 * q + 2] = v.z,
-        ar[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int q = 0; q < T::RN; ++q) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            &bs[kk * BN + q * (BN / T::RN) + 4 * tx]);
-        br[4 * q] = v.x, br[4 * q + 1] = v.y, br[4 * q + 2] = v.z,
-        br[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < TN; ++j) {
-    const int gc = col0 + (j / 4) * (BN / T::RN) + 4 * tx + j % 4;
-    if (gc >= n) continue;
-    const float bj = bias_at(bias, gc);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int64_t gr = row0 + (i / 4) * (BM / T::RM) + 4 * ty + i % 4;
-      if (gr < m) epilogue_store<ACT>(&c[gr * n + gc], acc[i][j], bj);
-    }
-  }
+  ffma::gemm<T, float, TOut, ACT>(a, b, bias, c, m, n, k, ffma_smem);
 }
-
-template <typename T, typename TOut, int ACT>
-int launch_tile(const float* a, const float* b, const float* bias, TOut* c,
-                int m, int n, int k, cudaStream_t s) {
-  auto kernel = tiled_mm_ffma_kernel<T, TOut, ACT>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((m + T::BM - 1) / T::BM, (n + T::BN - 1) / T::BN);
-  kernel<<<grid, T::THREADS, T::SMEM, s>>>(a, b, bias, c, m, n, k);
-  return (int)cudaSuccess;
-}
-
-using Wide = Tile<128, 128, 2, 2>;   // 256 threads, 8 x 8 each
-using Narrow = Tile<128, 64, 2, 2>;  // 128 threads, 8 x 8 each
-using Small = Tile<32, 64, 1, 1>;    // 128 threads, 4 x 4 each
 
 // The tile never changes an output's bits (one fmaf per k in increasing
 // k, whatever the tile), so it may follow m: a 128-row tile while its grid
 // still reaches half the SMs, else 32 rows (the FC layers and the
 // runtime's 32-row panels, which a 128-row tile would leave 3/4 idle).
 template <typename TOut, int ACT>
-int launch(const float* a, const float* b, const float* bias, TOut* c,
-           int m, int n, int k, cudaStream_t s) {
-  static const int sms = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  const int bn = n <= 64 ? Narrow::BN : Wide::BN;
-  const int64_t big_blocks = (int64_t)((m + 127) / 128) * ((n + bn - 1) / bn);
-  if (2 * big_blocks < sms) {
-    return launch_tile<Small, TOut, ACT>(a, b, bias, c, m, n, k, s);
+int launch_ffma(const float* a, const float* b, const float* bias, TOut* c,
+                int m, int n, int k, cudaStream_t s) {
+  if (!ffma::big_tiles_fill_card(m, n)) {
+    return ffma::launch_tile<ffma::Small>(
+        tiled_mm_ffma_kernel<ffma::Small, TOut, ACT>, a, b, bias, c, m, n, k,
+        s);
   }
-  if (n <= 64) return launch_tile<Narrow, TOut, ACT>(a, b, bias, c, m, n, k, s);
-  return launch_tile<Wide, TOut, ACT>(a, b, bias, c, m, n, k, s);
+  if (n <= 64) {
+    return ffma::launch_tile<ffma::Narrow>(
+        tiled_mm_ffma_kernel<ffma::Narrow, TOut, ACT>, a, b, bias, c, m, n,
+        k, s);
+  }
+  return ffma::launch_tile<ffma::Wide>(
+      tiled_mm_ffma_kernel<ffma::Wide, TOut, ACT>, a, b, bias, c, m, n, k, s);
 }
-
-}  // namespace ffma
 
 // ----------------------------------------------------------------- mma
 
@@ -363,9 +236,9 @@ extern "C" int tiled_mm(const void* a, const void* b, const void* bias,
     constexpr int ACT = decltype(fused)::value;
     TOut* cc = static_cast<TOut*>(c);
     if constexpr (std::is_same<TIn, float>::value) {
-      rc = ffma::launch<TOut, ACT>(static_cast<const float*>(a),
-                                   static_cast<const float*>(b), fbias, cc,
-                                   m, n, k, s);
+      rc = launch_ffma<TOut, ACT>(static_cast<const float*>(a),
+                                  static_cast<const float*>(b), fbias, cc, m,
+                                  n, k, s);
     } else if (choose_path(n, k, in_dtype) == PATH_WGMMA) {
       rc = wgmma_gemm::launch<TOut, ACT>(a, b, fbias, cc, m, n, k, s);
     } else {

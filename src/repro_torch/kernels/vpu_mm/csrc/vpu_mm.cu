@@ -1,102 +1,86 @@
 // vpu_mm: C[m, n] = act(A[m, k] @ B[k, n] + bias[n]) for Hopper (sm_90a),
-// on the CUDA cores only, as increasing-k rank-1 updates.
+// on the CUDA cores only.
 //
 // Replaces the TPU kernel src/repro/kernels/vpu_mm/vpu_mm.py::vpu_mm_pallas,
 // the MXU-free matmul that stands for the paper's NEON SIMD cores: the
 // pool's slow, always-available engine.  Like the Pallas kernel it never
 // touches the matrix unit: no mma, wgmma or other tensor-core instruction,
-// only FFMA (chip_smoke.py checks the SASS for HMMA/GMMA/IMMA).
+// only FFMA (chip_smoke.py checks the SASS for HMMA/GMMA/IMMA).  What keeps
+// it the pool's slow member is the engine's cost model (a sixteenth of
+// cuda-tiled's rate) and the absence of the tensor cores, not a careless
+// loop: with TF32 off, an fp32 GEMM on this card runs on FFMA in any
+// library too.
 //
 // What bounds it on an H100: the fp32 FMA rate of the CUDA cores (67
 // TFLOP/s dense on the SXM part) for the wide-k GEMMs, device-memory bytes
-// (3.35 TB/s) for thin k.  It is deliberately simple and reaches neither:
-// each 64-thread block owns a 32-row x 64-column output tile (32 rows is
-// the runtime's row panel, the paper's TS), one thread per column holding
-// that column's 32 sums in registers.  A 32 x 32 slice of A is staged
-// through shared memory k-major, so a column of A is one contiguous row
-// that every thread reads as a broadcast; each step of k is the rank-1
-// update  acc[0:32] += A[0:32, kk] * B[kk, col]  — the Pallas kernel's
-// `acc + a_col * b_row`, one lane per column.  There is no register
-// micro-tiling of B and no software pipelining: one B load and eight
-// shared loads feed 32 FMAs.
+// (3.35 TB/s) for thin k.  Its main path is the runtime's 32-row row
+// panels (the paper's TS), where neither bound is near: a panel holds only
+// 32 x n outputs, each a chain of k dependent FMAs, so the time is the
+// longest chain of instructions one warp issues.
+//
+// What the design does about it: the mainloop is K1's register-blocked
+// FFMA loop (common/ffma_gemm.cuh: a cp.async ring, a register micro-tile
+// per thread, bf16 staged as bf16 and widened when read).  GEMMs whose
+// 128-row tiles fill the card take K1's tiles (8 x 8 outputs a thread).
+// Smaller ones (the 32-row panels, the FC layers) are too few outputs to
+// share registers across: a conv2 panel (32 x 64, k = 1,600) holds 2,048
+// chains of 1,600 dependent FMAs, and a thread that owns 16 of them (K1's
+// 32 x 64 tile of 4 x 4) issues 16 times the instructions of one that owns
+// one.  So they take 16 x 8 tiles of one output a thread, k steps of 32
+// through six buffers: the panel spreads over 16 blocks of 128 threads,
+// and five k steps are in flight to cover the latency of L2.
 //
 // Determinism: every output starts from 0.0f and takes one fmaf per k in
 // increasing k, and the epilogue is the shared device function of
 // common/epilogue.cuh, exactly as in tiled_mm.cu.  So an output's bits do
-// not depend on the block it lies in, on the row panel it was computed in,
+// not depend on the tile it lies in, on the row panel it was computed in,
 // or on which of the two kernels computed it.  Ragged edges are masked in
-// the loads, the k loop and the stores; nothing is padded.
+// the loads and the stores; nothing is padded.
 //
 // Interface: plain C, bound with ctypes, the same as tiled_mm's.  The
 // launch goes on the caller's stream, allocates nothing and does not
-// synchronise; the function returns cudaGetLastError().
+// synchronise; the function returns the CUDA error of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "ffma_gemm.cuh"
 
 namespace {
 
 using namespace synergy;
 
-constexpr int BM = 32;   // block tile rows: one runtime row panel
-constexpr int BN = 64;   // block tile cols: one thread per column
-constexpr int BK = 32;   // k step staged in shared memory
+// 16 x 8 outputs, one a thread: the row panels and the FC layers
+using Panel = ffma::Tile<16, 8, 1, 1, 1, 32, 6>;
 
-template <typename TIn, typename TOut, int ACT>
-__global__ void __launch_bounds__(BN)
+template <typename T, typename TIn, typename TOut, int ACT>
+__global__ void __launch_bounds__(T::THREADS)
 vpu_mm_kernel(const TIn* __restrict__ a, const TIn* __restrict__ b,
               const float* __restrict__ bias, TOut* __restrict__ c, int m,
               int n, int k) {
-  // A slice, k-major: As[kk] is the column A[row0:row0+BM, k0+kk]
-  __shared__ __align__(16) float As[BK][BM];
+  extern __shared__ __align__(16) unsigned char vpu_smem[];
+  ffma::gemm<T, TIn, TOut, ACT>(a, b, bias, c, m, n, k,
+                                reinterpret_cast<TIn*>(vpu_smem));
+}
 
-  const int tid = threadIdx.x;
-  const int64_t row0 = (int64_t)blockIdx.x * BM;
-  const int col = blockIdx.y * BN + tid;
-  const bool col_ok = col < n;
-
-  float acc[BM];
-#pragma unroll
-  for (int i = 0; i < BM; ++i) acc[i] = 0.0f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    const int kn = min(BK, k - k0);
-    // consecutive threads read consecutive k of one row of A
-#pragma unroll
-    for (int l = 0; l < (BM * BK) / BN; ++l) {
-      const int idx = tid + l * BN;
-      const int r = idx / BK;
-      const int kk = idx % BK;
-      const int64_t gr = row0 + r;
-      As[kk][r] = (gr < m && kk < kn) ? to_f32(a[gr * k + k0 + kk]) : 0.0f;
-    }
-    __syncthreads();
-    if (col_ok) {
-      for (int kk = 0; kk < kn; ++kk) {
-        const float bv = to_f32(b[(int64_t)(k0 + kk) * n + col]);
-#pragma unroll
-        for (int i = 0; i < BM; i += 4) {
-          const float4 av = *reinterpret_cast<const float4*>(&As[kk][i]);
-          acc[i + 0] = fmaf(av.x, bv, acc[i + 0]);
-          acc[i + 1] = fmaf(av.y, bv, acc[i + 1]);
-          acc[i + 2] = fmaf(av.z, bv, acc[i + 2]);
-          acc[i + 3] = fmaf(av.w, bv, acc[i + 3]);
-        }
-      }
-    }
-    __syncthreads();
+// The tile never changes an output's bits, so it follows the shape: K1's
+// 128-row tiles while they reach half the SMs, else Panel.
+template <typename TIn, typename TOut, int ACT>
+int launch(const TIn* a, const TIn* b, const float* bias, TOut* c, int m,
+           int n, int k, cudaStream_t s) {
+  if (!ffma::big_tiles_fill_card(m, n)) {
+    return ffma::launch_tile<Panel>(vpu_mm_kernel<Panel, TIn, TOut, ACT>, a,
+                                    b, bias, c, m, n, k, s);
   }
-
-  if (!col_ok) return;
-  const float bj = bias_at(bias, col);
-#pragma unroll
-  for (int i = 0; i < BM; ++i) {
-    const int64_t gr = row0 + i;
-    if (gr < m) epilogue_store<ACT>(&c[gr * n + col], acc[i], bj);
+  if (n <= 64) {
+    return ffma::launch_tile<ffma::Narrow>(
+        vpu_mm_kernel<ffma::Narrow, TIn, TOut, ACT>, a, b, bias, c, m, n, k,
+        s);
   }
+  return ffma::launch_tile<ffma::Wide>(
+      vpu_mm_kernel<ffma::Wide, TIn, TOut, ACT>, a, b, bias, c, m, n, k, s);
 }
 
 }  // namespace
@@ -109,14 +93,15 @@ extern "C" int vpu_mm(const void* a, const void* b, const void* bias,
   if (!gemm_args_ok(m, n, k, in_dtype, out_dtype, act)) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((m + BM - 1) / BM, (n + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = (int)cudaSuccess;
   dispatch_gemm(in_dtype, out_dtype, act, [&](auto in, auto out, auto fused) {
     using TIn = decltype(in);
     using TOut = decltype(out);
-    vpu_mm_kernel<TIn, TOut, decltype(fused)::value><<<grid, BN, 0, s>>>(
+    rc = launch<TIn, TOut, decltype(fused)::value>(
         static_cast<const TIn*>(a), static_cast<const TIn*>(b),
-        static_cast<const float*>(bias), static_cast<TOut*>(c), m, n, k);
+        static_cast<const float*>(bias), static_cast<TOut*>(c), m, n, k, s);
   });
+  if (rc != (int)cudaSuccess) return rc;
   return (int)cudaGetLastError();
 }

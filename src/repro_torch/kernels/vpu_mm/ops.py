@@ -28,9 +28,10 @@ def vpu_matmul(a: torch.Tensor, b: torch.Tensor, *,
                out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """act(A @ B + bias) on the CUDA cores only (no tensor cores) for any
     (m, k) x (k, n), fp32 or bf16 inputs, fp32 accumulation, output in
-    ``out_dtype`` (default: A's dtype).  The kernel has one fixed block
-    tile and masks ragged edges, so no operand is padded; for fp32 its
-    bits equal ``tiled_matmul``'s on the same operands."""
+    ``out_dtype`` (default: A's dtype).  The kernel chooses its tile by
+    shape, which never changes a bit, and masks ragged edges, so no
+    operand is padded; for fp32 its bits equal ``tiled_matmul``'s on the
+    same operands."""
     check_gemm("vpu_matmul", a, b, bias, out_dtype)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":

@@ -7,7 +7,10 @@ K1, and the work-stealing runtime splitting GEMMs over both kernels with
 results bitwise equal to the unsplit K1 GEMM.  K2 (qmm) against its plain
 version (raw int32 bitwise, fused epilogue bitwise for none/relu), one
 build for every activation scale, quantization on the card bitwise the
-CPU's, and the runtime's int32 split bitwise a one-worker split.  K4
+CPU's, and the runtime's int32 split bitwise a one-worker split.  The
+redesigns of K2 (int8 on the tensor cores, two paths by alignment) and K3
+(tiles by shape) at their tile borders, with -128/127 operands and row
+panels off every 16-byte boundary; K2's SASS holds IMMA and no IDP.  K4
 (flash_attention) and K5 (ssd) against their plain versions at the zoo's
 head dims (and the reduced configs' 16), GQA, ragged and cross shapes;
 a narrow zamba2 whose prefill on the card launches both and matches the
@@ -35,7 +38,7 @@ from repro_torch.kernels.common.build import sass_opcodes
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_cuda,
                                                  flash_attention_library)
-from repro_torch.kernels.qmm import qmm_matmul, qmm_ref
+from repro_torch.kernels.qmm import qmm_library, qmm_matmul, qmm_ref
 from repro_torch.kernels.ssd import ssd, ssd_cuda
 from repro_torch.kernels.tiled_mm import (PATHS, tiled_matmul,
                                           tiled_mm_library, tiled_mm_ref)
@@ -234,6 +237,50 @@ def test_vpu_kernel_uses_no_tensor_cores(cuda):
     assert not [op for op in ops if "MMA" in op], sorted(ops)
 
 
+#: the borders of K2's and K3's tiles (32-row panels, 16 x 8 and 32 x 32
+#: block tiles, k steps of 32 and 64): n and k crossed for each m
+EDGE_NK = [(n, k) for n in (1, 10, 63, 65) for k in (1, 31, 33, 75)]
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 127, 129])
+def test_vpu_kernel_at_tile_borders_is_bitwise_k1(cuda, m):
+    g = torch.Generator(device=cuda).manual_seed(19)
+    for n, k in EDGE_NK:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = _rand(g, m, k, dtype=dtype), _rand(g, k, n, dtype=dtype)
+            bias = _rand(g, n)
+            y = vpu_matmul(a, b, bias=bias, activation=torch.relu)
+            if dtype == torch.float32:
+                assert torch.equal(y, tiled_matmul(a, b, bias=bias,
+                                                   activation=torch.relu)), \
+                    (m, n, k)
+            else:
+                torch.testing.assert_close(
+                    y.float(), vpu_mm_ref(a, b, bias=bias,
+                                          activation=torch.relu).float(),
+                    rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("shape", [(32, 64, 75), (32, 64, 1600),
+                                   (32, 128, 1600), (32, 10, 128),
+                                   (256, 128, 2048), (2048, 64, 75)],
+                         ids=["conv0-panel", "conv2-panel", "conv4-panel",
+                              "fc7-panel", "fc6", "conv0-like"])
+def test_vpu_kernel_tiles_are_bitwise_k1(cuda, shape):
+    """Whichever tile K3 picks for a shape (the 16 x 8 panel tile, or
+    K1's 128-row tiles), every fp32 output is K1's, and a row panel off
+    every 16-byte boundary is the whole GEMM's rows."""
+    m, n, k = shape
+    g = torch.Generator(device=cuda).manual_seed(20)
+    a, b, bias = _rand(g, m, k), _rand(g, k, n), _rand(g, n)
+    for act in (None, torch.relu, F.silu):
+        y = vpu_matmul(a, b, bias=bias, activation=act)
+        assert torch.equal(y, tiled_matmul(a, b, bias=bias, activation=act))
+    whole = vpu_matmul(a, b, bias=bias)
+    lo = min(m - 1, 33)
+    assert torch.equal(vpu_matmul(a[lo:], b, bias=bias), whole[lo:])
+
+
 # --------------------------------------------- the runtime over K1 + K3
 
 @pytest.mark.parametrize("affinity", POOL)
@@ -325,6 +372,67 @@ def test_qmm_fused_epilogue_matches_the_plain_version(cuda, act, out_dtype,
     else:
         ulp = torch.finfo(out_dtype).eps * want.float().abs().clamp_min(1e-30)
         assert bool(((y.float() - want.float()).abs() <= 2 * ulp).all())
+
+
+@pytest.mark.parametrize("m", [1, 31, 32, 33, 127, 129])
+def test_qmm_at_tile_borders_is_bitwise_the_plain_version(cuda, m):
+    g = torch.Generator(device=cuda).manual_seed(21)
+    for n, k in EDGE_NK:
+        a, w = _int8(g, m, k), _int8(g, k, n)
+        w_scale = torch.rand(1, n, device=cuda, generator=g) * 1e-3
+        bias = torch.randn(n, device=cuda, generator=g)
+        assert torch.equal(qmm_matmul(a, w, w_scale, fuse_dequant=False),
+                           qmm_ref(a, w, w_scale, fuse_dequant=False))
+        for out_dtype in (torch.float32, torch.bfloat16):
+            y = qmm_matmul(a, w, w_scale, act_scale=0.02, bias=bias,
+                           activation=torch.relu, out_dtype=out_dtype)
+            assert torch.equal(y, qmm_ref(a, w, w_scale * 0.02, bias=bias,
+                                          activation=torch.relu,
+                                          out_dtype=out_dtype)), (m, n, k)
+
+
+@pytest.mark.parametrize("values", [(-128, -128), (-128, 127), (127, -128),
+                                    (127, 127)])
+@pytest.mark.parametrize("shape", [(33, 65, 75), (129, 64, 1600)],
+                         ids=["shift", "async"])
+def test_qmm_sums_saturated_operands_exactly(cuda, shape, values):
+    m, n, k = shape
+    va, vw = values
+    a = torch.full((m, k), va, dtype=torch.int8, device=cuda)
+    w = torch.full((k, n), vw, dtype=torch.int8, device=cuda)
+    acc = qmm_matmul(a, w, torch.ones(n, device=cuda), fuse_dequant=False)
+    assert bool((acc == va * vw * k).all())
+
+
+def test_qmm_paths_follow_alignment_and_keep_the_bits(cuda):
+    """k and n multiples of 16 on 16-byte boundaries take ``async``
+    (so do the row panels of such a GEMM); a k = 75 GEMM and its row
+    panels (bases at any byte) take ``shift``, and so does a W view off
+    its boundary; every row panel is the whole GEMM's."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    counts = qmm_matmul.launches_by_path
+    for k, path in ((75, "shift"), (1600, "async")):
+        a, w = _int8(g, 4096, k), _int8(g, k, 64)
+        scale = torch.rand(64, device=cuda, generator=g)
+        before = dict(counts)
+        whole = qmm_matmul(a, w, scale, fuse_dequant=False)
+        for lo, hi in ((32, 64), (33, 66), (4095, 4096)):
+            assert torch.equal(qmm_matmul(a[lo:hi], w, scale,
+                                          fuse_dequant=False), whole[lo:hi])
+        ran = {p: c - before[p] for p, c in counts.items()}
+        assert ran == {"async": 4 * (path == "async"),
+                       "shift": 4 * (path == "shift")}
+    w_view = torch.empty(75 * 64 + 5, dtype=torch.int8, device=cuda)[5:]
+    a, w = _int8(g, 300, 75), _int8(g, 75, 64)
+    w_view = w_view.view(75, 64)
+    w_view.copy_(w)
+    assert torch.equal(qmm_matmul(a, w_view, scale, fuse_dequant=False),
+                       qmm_matmul(a, w, scale, fuse_dequant=False))
+
+
+def test_qmm_sass_holds_imma_and_no_dp4a(cuda):
+    ops = sass_opcodes(qmm_library())
+    assert ops["IMMA"] > 0 and ops["IDP"] == 0, sorted(ops)
 
 
 def test_one_qmm_build_serves_every_scale(cuda):

@@ -48,19 +48,36 @@ def _operands(m, k, n, seed=0, wscale=0.05):
 @pytest.mark.parametrize("shape", [(16, 32, 24),    # tile-aligned
                                    (33, 70, 45),    # borders everywhere
                                    (1, 129, 17),    # single-token decode
-                                   (130, 75, 10)])  # conv0's k, fc7's n
+                                   (130, 75, 10),   # conv0's k, fc7's n
+                                   # the borders of the card kernel's
+                                   # tiles (32-row panels, 32 x 32 and
+                                   # 128 x 64 blocks, k steps of 64) and
+                                   # of its two paths (k, n % 16)
+                                   (1, 75, 10), (31, 33, 63), (129, 31, 65),
+                                   (32, 1, 1), (127, 64, 64),
+                                   # every operand at -128 or 127
+                                   (127, 75, 10, "saturated"),
+                                   (33, 64, 65, "saturated")])
 def test_raw_accumulator_is_bitwise_repro(shape):
-    m, k, n = shape
+    m, k, n = shape[:3]
     (_, ja_q, jqw, _, _), (_, ta_q, tqw, _, _) = _operands(m, k, n, seed=1)
+    tw_q, tw_scale = tqw.q, tqw.scale
+    jw_q, jw_scale = jqw.q, jqw.scale
+    if shape[3:] == ("saturated",):
+        rng = np.random.default_rng(10)
+        a_np = rng.choice(np.array([-128, 127], np.int8), size=(m, k))
+        w_np = rng.choice(np.array([-128, 127], np.int8), size=(k, n))
+        ta_q, tw_q = torch.from_numpy(a_np), torch.from_numpy(w_np)
+        ja_q, jw_q = jnp.asarray(a_np), jnp.asarray(w_np)
     np.testing.assert_array_equal(ta_q.numpy(), np.asarray(ja_q))
-    acc = qmm_matmul(ta_q, tqw.q, tqw.scale, fuse_dequant=False)
+    acc = qmm_matmul(ta_q, tw_q, tw_scale, fuse_dequant=False)
     assert acc.dtype == torch.int32 and acc.shape == (m, n)
-    jax_acc = jax_qmm_matmul(ja_q, jqw.q, jqw.scale, fuse_dequant=False,
+    jax_acc = jax_qmm_matmul(ja_q, jw_q, jw_scale, fuse_dequant=False,
                              tile=(16, 16, 16), interpret=True)
     np.testing.assert_array_equal(acc.numpy(), np.asarray(jax_acc))
     np.testing.assert_array_equal(
-        qmm_ref(ta_q, tqw.q, tqw.scale, fuse_dequant=False).numpy(),
-        np.asarray(jax_qmm_ref(ja_q, jqw.q, jqw.scale, fuse_dequant=False)))
+        qmm_ref(ta_q, tw_q, tw_scale, fuse_dequant=False).numpy(),
+        np.asarray(jax_qmm_ref(ja_q, jw_q, jw_scale, fuse_dequant=False)))
 
 
 @pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
