@@ -141,8 +141,9 @@ from repro_torch.kernels.ssd import (load_ssd, ssd, ssd_chunked,  # noqa: E402
                                      ssd_cuda)
 from repro_torch.kernels.ssd.ops import _prescale  # noqa: E402
 from repro_torch.kernels.tiled_mm import (PATHS,  # noqa: E402
-                                          load_tiled_mm, tiled_matmul,
-                                          tiled_mm_library, tiled_mm_ref)
+                                          ffma_chain_ref, load_tiled_mm,
+                                          tiled_matmul, tiled_mm_library,
+                                          tiled_mm_ref)
 from repro_torch.kernels.vpu_mm import (load_vpu_mm,  # noqa: E402
                                         vpu_matmul, vpu_mm_library,
                                         vpu_mm_ref)
@@ -464,6 +465,36 @@ def phase_vpu_kernel() -> float:
           f"({bf16_bitwise} of {len(shapes) * 3} bf16 cases too); unaligned "
           f"row panels bitwise the whole GEMM", flush=True)
     return main_err
+
+
+def phase_fmaf_witness() -> None:
+    """Phase 3: K1's ``ffma`` path and K3 hold the bits of one fmaf per k
+    in increasing k, as ``ffma_chain_ref`` emulates them on the CPU, at
+    the main path's fp32 shapes (the five Alex+ GEMMs on rows at their
+    first and last tiles' borders, and their 32-row panels).  The two
+    kernels share their mainloop, so only this witness, which depends on
+    no CUDA source, would see a change of its order."""
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    shapes = [(m, n, k) for _, m, n, k, _ in ALEX_GEMMS] + PANELS
+    before = dict(tiled_matmul.launches_by_path)
+    for m, n, k in shapes:
+        a = torch.randn(m, k, device=DEVICE, generator=g)
+        b = torch.randn(k, n, device=DEVICE, generator=g)
+        bias = torch.randn(n, device=DEVICE, generator=g)
+        rows = sorted({*range(min(m, 40)), *range(max(0, m - 40), m)})
+        want = ffma_chain_ref(a[rows], b, bias=bias, activation=torch.relu)
+        for kernel in (tiled_matmul, vpu_matmul):
+            got = kernel(a, b, bias=bias, activation=torch.relu)[rows].cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{kernel.__name__} {m}x{n}x{k}: not the bits of the "
+                    f"host fmaf chain, max |diff| "
+                    f"{(got - want).abs().max().item():.3g}")
+    ran = {p: c - before[p] for p, c in tiled_matmul.launches_by_path.items()}
+    if ran["ffma"] != len(shapes):
+        raise AssertionError(f"fp32 GEMMs took K1's paths {ran}")
+    print(f"ffma witness: K1 (ffma path) and K3 bitwise the host fmaf chain "
+          f"at {len(shapes)} main-path shapes", flush=True)
 
 
 def phase_sass() -> None:
@@ -1992,6 +2023,7 @@ def main() -> int:
     main_err = phase_kernels()
     phase_k1_bf16()
     vpu_err = phase_vpu_kernel()
+    phase_fmaf_witness()
     phase_sass()
     qmm_err = phase_qmm_kernel()
     flash_err = phase_flash_kernel()

@@ -82,18 +82,6 @@ __device__ __forceinline__ void epilogue_store2(TOut* p, float acc0,
   store2(p, activate<ACT>(acc0 + bias0), activate<ACT>(acc1 + bias1));
 }
 
-// The card's SM count, asked once per process: the GEMM kernels choose a
-// tile by whether its grid would fill the card.
-inline int sm_count() {
-  static const int sms = [] {
-    int dev = 0, count = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    return count;
-  }();
-  return sms;
-}
-
 // The C entry points' argument check (m, n >= 1, k >= 0, known codes).
 inline bool gemm_args_ok(int m, int n, int k, int in_dtype, int out_dtype,
                          int act) {

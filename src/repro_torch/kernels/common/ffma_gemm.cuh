@@ -25,6 +25,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "launch.cuh"
 #include "ptx.cuh"
 
 namespace synergy {

@@ -39,7 +39,9 @@
 //   wait in L2.  Path "shift" (any other shape or address: conv0's k = 75,
 //   whose rows and row panels start at any byte, and fc7's n = 10) copies
 //   the aligned 4-byte words that hold each row's bytes, and a funnel shift
-//   realigns every row in shared memory before the products.
+//   realigns every row in shared memory before the products.  Forced on
+//   the aligned shapes, shift takes 2-4 times async's device time
+//   (scripts/qmm_path_probe.py), so async stays.
 // - Rows of A past m and rows of W past k are staged as zeros, so the
 //   neighbouring bytes that an aligned word brings along meet zeros or land
 //   in outputs that are never stored.  Such a word is read only if it holds
@@ -66,6 +68,7 @@
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "launch.cuh"
 #include "ptx.cuh"
 
 namespace {
@@ -84,15 +87,14 @@ int choose_path(const void* a, const void* w, int n, int k) {
 
 // A BM x BN block tile of WM x WN warps, each warp MI x NI mma tiles of
 // 16 x 8, k steps of BK bytes (a multiple of 32: one m16n8k32 product per
-// 32) through a ring of STAGES buffers, at least MINB blocks on an SM.
+// 32) through a ring of STAGES buffers.
 // Shared memory: the ring (each stage: A as copied, BM rows of LDK bytes,
 // and W as copied, BK rows of LDW bytes), W k-major (BN rows of LDK bytes)
 // and, on the shift path, A realigned (BM rows of LDK bytes).
-template <int BM_, int BN_, int WM_, int WN_, int BK_, int STAGES_,
-          int MINB_>
+template <int BM_, int BN_, int WM_, int WN_, int BK_, int STAGES_>
 struct Tile {
   static constexpr int BM = BM_, BN = BN_, WM = WM_, WN = WN_, BK = BK_;
-  static constexpr int STAGES = STAGES_, MINB = MINB_;
+  static constexpr int STAGES = STAGES_;
   // row stride of the k-major buffers: BK + 16 bytes puts the 8 rows that
   // one ldmatrix reads in 8 different bank quads (BK = 64 or 128)
   static constexpr int LDK = BK + 16;
@@ -115,9 +117,9 @@ struct Tile {
                 "staging loops must divide evenly");
 };
 
-using Wide = Tile<128, 128, 2, 4, 64, 3, 1>;   // 256 threads, warps 64 x 32
-using Narrow = Tile<128, 64, 4, 2, 64, 3, 1>;  // 256 threads, warps 32 x 32
-using Small = Tile<32, 32, 1, 2, 64, 4, 1>;    // 64 threads, warps 32 x 16
+using Wide = Tile<128, 128, 2, 4, 64, 3>;   // 256 threads, warps 64 x 32
+using Narrow = Tile<128, 64, 4, 2, 64, 3>;  // 256 threads, warps 32 x 32
+using Small = Tile<32, 32, 1, 2, 64, 4>;    // 64 threads, warps 32 x 16
 
 // act(float(acc) * s + b), rounded as the header says
 template <int ACT>
@@ -131,7 +133,7 @@ __device__ __forceinline__ float dequant(int acc, float s, float b,
 // The grid is one-dimensional, column blocks fastest, so the blocks that
 // share rows of A run together and read them from L2.
 template <typename T, int PATH, typename TOut, int ACT, bool RAW>
-__global__ void __launch_bounds__(T::THREADS, T::MINB)
+__global__ void __launch_bounds__(T::THREADS)
 qmm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ w,
            const float* __restrict__ scale, const float* __restrict__ bias,
            TOut* __restrict__ c, int m, int n, int k) {

@@ -8,7 +8,9 @@ from typing import Callable
 
 import torch
 
-__all__ = ["tiled_mm_ref"]
+from repro_torch.kernels.qmm.ref import fma_f32
+
+__all__ = ["ffma_chain_ref", "tiled_mm_ref"]
 
 
 def tiled_mm_ref(a: torch.Tensor, b: torch.Tensor, *,
@@ -23,3 +25,26 @@ def tiled_mm_ref(a: torch.Tensor, b: torch.Tensor, *,
     if activation is not None:
         y = activation(y)
     return y.to(out_dtype or a.dtype)
+
+
+def ffma_chain_ref(a: torch.Tensor, b: torch.Tensor, *,
+                   bias: torch.Tensor | None = None,
+                   activation: Callable | None = None) -> torch.Tensor:
+    """The fp32 bits of K1's ``ffma`` path (and of K3, which must equal
+    them), emulated exactly on the CPU: every output starts from 0.0 and
+    takes one ``fmaf`` per k in increasing k (:func:`fma_f32`), then
+    act(acc + bias) in fp32, with a bias of 0.0 when there is none.  K1 and
+    K3 share their mainloop's source, so holding one against the other
+    cannot see a change of its order; this witness depends on no CUDA
+    source.  ``activation`` is None or ``torch.relu`` (silu's ``expf`` is
+    the device's own)."""
+    if activation not in (None, torch.relu):
+        raise ValueError("ffma_chain_ref: activation must be None or relu")
+    a = a.detach().cpu().to(torch.float32)
+    b = b.detach().cpu().to(torch.float32)
+    acc = torch.zeros(a.shape[0], b.shape[1], dtype=torch.float32)
+    for kk in range(a.shape[1]):
+        acc = fma_f32(a[:, kk:kk + 1], b[kk:kk + 1, :], acc)
+    y = acc + (torch.zeros(b.shape[1]) if bias is None
+               else bias.detach().cpu().to(torch.float32))
+    return torch.relu(y) if activation is torch.relu else y

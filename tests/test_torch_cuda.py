@@ -40,8 +40,9 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_library)
 from repro_torch.kernels.qmm import qmm_library, qmm_matmul, qmm_ref
 from repro_torch.kernels.ssd import ssd, ssd_cuda
-from repro_torch.kernels.tiled_mm import (PATHS, tiled_matmul,
-                                          tiled_mm_library, tiled_mm_ref)
+from repro_torch.kernels.tiled_mm import (PATHS, ffma_chain_ref,
+                                          tiled_matmul, tiled_mm_library,
+                                          tiled_mm_ref)
 from repro_torch.kernels.vpu_mm import vpu_matmul, vpu_mm_library, vpu_mm_ref
 from repro_torch.models import (decode_fn, init_cache, init_model,
                                 lm_forward, prefill_fn)
@@ -159,6 +160,32 @@ def test_fp32_gemms_take_the_ffma_path(cuda):
         tiled_matmul(_rand(g, m, k), _rand(g, k, n))
     assert {p: c - before[p] for p, c in tiled_matmul.launches_by_path.items()} \
         == {"ffma": 3, "mma": 0, "wgmma": 0}
+
+
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+@pytest.mark.parametrize("shape", [(32, 64, 1600), (33, 10, 75),
+                                   (256, 128, 2048), (16384, 128, 1600),
+                                   (16384, 64, 300)],
+                         ids=["conv2-panel", "ragged", "fc6", "conv4",
+                              "narrow"])
+def test_fp32_bits_are_the_host_fmaf_chain(cuda, shape, bias):
+    """K1's ``ffma`` path and K3, at each of their tiles (K1 32 x 64,
+    128 x 128, 128 x 64; K3 16 x 8 and K1's two), give the bits of one
+    fmaf per k in increasing k as the CPU emulates it, which depends on
+    no CUDA source: the fixed witness of the fp32 bits, since the two
+    kernels share their mainloop.  Rows at the first and last tiles'
+    borders and in the middle are held."""
+    m, n, k = shape
+    g = torch.Generator(device=cuda).manual_seed(24)
+    a, b, c = _rand(g, m, k), _rand(g, k, n), _rand(g, n)
+    c = c if bias else None
+    rows = sorted({*range(min(m, 40)), *range(max(0, m - 40), m),
+                   *range(m // 2 - 3, m // 2 + 3)} & set(range(m)))
+    for act in (None, torch.relu):
+        want = ffma_chain_ref(a[rows], b, bias=c, activation=act)
+        for kernel in (tiled_matmul, vpu_matmul):
+            got = kernel(a, b, bias=c, activation=act)[rows].cpu()
+            assert torch.equal(got, want), (kernel.__name__, act)
 
 
 def test_tiled_mm_sass_holds_its_three_paths(cuda):

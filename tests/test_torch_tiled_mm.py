@@ -15,8 +15,8 @@ import torch.nn.functional as F
 from repro.kernels.tiled_mm import tiled_matmul as jax_tiled_matmul
 from repro.kernels.tiled_mm import tiled_mm_ref as jax_tiled_mm_ref
 from repro_torch.kernels.common.gemm import count_launch
-from repro_torch.kernels.tiled_mm import (PATHS, ops, tiled_matmul,
-                                          tiled_mm_ref)
+from repro_torch.kernels.tiled_mm import (PATHS, ffma_chain_ref, ops,
+                                          tiled_matmul, tiled_mm_ref)
 
 _DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
            "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
@@ -154,3 +154,34 @@ def test_launches_are_counted_by_path(path):
     finally:
         tiled_matmul.launches = before[0]
         tiled_matmul.launches_by_path.update(before[1])
+
+
+def test_ffma_chain_ref_rounds_once_per_k():
+    """Step 2 is fmaf((1 + 2**-12)**2 - (1 + 2**-11)): 2**-24 exactly when
+    the product is not rounded on its own, 0 when it is."""
+    x = 1 + 2.0 ** -12
+    a = torch.tensor([[1.0, x]])
+    b = torch.tensor([[-(1 + 2.0 ** -11)], [x]])
+    assert ffma_chain_ref(a, b).item() == 2.0 ** -24
+
+
+@pytest.mark.parametrize("act", [None, torch.relu], ids=["none", "relu"])
+@pytest.mark.parametrize("bias", [False, True], ids=["no-bias", "bias"])
+def test_ffma_chain_ref_matches_jax_oracle(act, bias):
+    """Where every partial sum is exact (small integers) the chain is the
+    exact product; on normal inputs it is within the fp32 tolerance of
+    repro's oracle."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.integers(-8, 9, (33, 75)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-8, 9, (75, 10)).astype(np.float32))
+    c = torch.from_numpy(rng.integers(-8, 9, 10).astype(np.float32))
+    exact = (a.double() @ b.double() + (c.double() if bias else 0)).float()
+    if act is not None:
+        exact = act(exact)
+    assert torch.equal(ffma_chain_ref(a, b, bias=c if bias else None,
+                                      activation=act), exact)
+    (ja, jb, jc), (ta, tb, tc) = _operands(12, 33, 10, 75, bias=bias)
+    ref = jax_tiled_mm_ref(ja, jb, bias=jc,
+                           activation=None if act is None else jax.nn.relu)
+    _close(ffma_chain_ref(ta, tb, bias=tc, activation=act), ref,
+           1e-5 * np.sqrt(75))
