@@ -88,7 +88,21 @@ Phases, in order; each raises on failure and nothing is caught:
    every GEMM of one prefill and one decode step (recorded by an engine
    pinned with ``engine_scope``), beside its plain version, one bf16
    ``torch.matmul`` per GEMM and the bound at the bf16 peak, and K1's
-   TFLOP/s on the prefill.
+   TFLOP/s on the prefill.  Slice 7, after the runtime path's times:
+   ``pipeline``, CIFAR_Alex+ x256 as 8 micro-batches of 32 through a
+   ``ThreadedPipeline`` of three stages pinned to K1, K3 and K1 (counts
+   set to 0 just before, read just after; logits BITWISE the dispatcher
+   forward's), frames/s beside the dispatcher's and the runtime's;
+   ``runtime_steal``, ``benchmarks/paper_figs.py::runtime_steal`` on the
+   card (8 conv2 im2col panels of 8,192 rows through ``EngineStage.gemm``
+   pinned, then under ``SynergyRuntime(POOL).scope()``; outputs equal;
+   steals, busy fractions and ``runtime_beats_pinned`` printed, not
+   gated); ``graph``, the conv front-end as 8 wave graphs in flight at
+   once (``conv_wave_graph`` + ``submit_graph``, counts set to 0 just
+   before, read just after) and as a chain with a reap after every layer,
+   every wave BITWISE the dispatcher's conv4 output, a ``cancel()`` that
+   drains queued panels, frames/s of both and the card's busy share of a
+   profiled graph run.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  A kernel's top-level numbers are the
    runtime path's (this slice's main path): launches in phase 4's runtime
@@ -98,7 +112,9 @@ Phases, in order; each raises on failure and nothing is caught:
    ``shift``).  K4's and K5's are the LM prefill's: launches in it, and
    per-call medians times the calls one prefill makes.  K1's ``by_path``
    also gives ``lm_prefill`` and ``lm_decode`` (per step): launches by
-   path, times, bound and library time over the LM GEMMs.
+   path, times, bound and library time over the LM GEMMs; K1's and K3's
+   give ``pipeline``, ``runtime_steal`` and ``graph``: their launches in
+   slice 7's runs.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -125,8 +141,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import ARCHS, PAPER_CNNS, reduced  # noqa: E402
-from repro_torch.core.im2col import im2col  # noqa: E402
-from repro_torch.core.synergy_mm import SynergyTrace  # noqa: E402
+from repro_torch.core.im2col import (conv_out_shape, im2col,  # noqa: E402
+                                     im2col_wave)
+from repro_torch.core.pipeline import (EngineStage,  # noqa: E402
+                                       ThreadedPipeline)
+from repro_torch.core.synergy_mm import (SynergyTrace,  # noqa: E402
+                                         synergy_matmul)
 from repro_torch.engines import (CostModel, Engine,  # noqa: E402
                                  engine_scope, get_engine, list_engines)
 from repro_torch.kernels.common import build as kernel_build  # noqa: E402
@@ -149,11 +169,13 @@ from repro_torch.kernels.vpu_mm import (load_vpu_mm,  # noqa: E402
                                         vpu_mm_ref)
 from repro_torch.models import (decode_fn, init_cache,  # noqa: E402
                                 init_model, lm_forward, prefill_fn)
-from repro_torch.models.cnn import cnn_forward, init_cnn  # noqa: E402
+from repro_torch.models.cnn import (cnn_forward, conv_graph_steps,  # noqa: E402
+                                    conv_jobsets, conv_wave_graph, init_cnn,
+                                    maxpool2d)
 from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
                                quantize_activations, quantize_weights,
                                register_quantized, rel_err)
-from repro_torch.soc import SynergyRuntime  # noqa: E402
+from repro_torch.soc import GraphCancelled, SynergyRuntime  # noqa: E402
 
 DEVICE = "cuda"
 
@@ -190,6 +212,16 @@ QMM_EDGE = (130, 10, 75)
 EDGES = [(m, n, k) for m in (1, 31, 32, 33, 127, 129) for n in (1, 10, 63, 65)
          for k in (1, 31, 33, 75)]
 LOGIT_TOL = 1e-4     # fp32 logits, five GEMMs summed in another order
+#: slice 7: frames per pipeline micro-batch and per graph wave; the 256
+#: frames make 8 of them
+MICRO = 32
+#: the pipeline phase's stages over CIFAR_Alex+'s layers [lo, hi), each
+#: pinned to one kernel's engine: (name, lo, hi, engine)
+PIPE_STAGES = [("conv0+pool1", 0, 2, "cuda-tiled"),
+               ("conv2+pool3", 2, 4, "neon-vpu"),
+               ("conv4+pool5+fc6+fc7", 4, 8, "cuda-tiled")]
+#: seconds a graph, a wave or a chained GEMM may take before the phase fails
+GRAPH_TIMEOUT = 300
 BF16_TOL = 3e-2
 
 #: bf16 dense on the tensor cores (data sheet): the card's least time for
@@ -1380,19 +1412,33 @@ def phase_runtime_profile(card: str, main: tuple, pool: list = POOL,
     ``torch.profiler``: each kernel's device time and launches, and the
     share of the wall time in which at least one kernel ran on the card.
     Returns ``{kernel: {"count", "device_ms"}}``."""
-    from torch.profiler import ProfilerActivity, profile
     cfg, params, x, *_ = main
     with SynergyRuntime(pool, name="profiled", device=DEVICE) as rt:
         cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
                     device=DEVICE)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
-                        device=DEVICE)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        kernels, busy_ms, wall = profiled_run(
+            lambda: cnn_forward(cfg, params, x, runtime=rt,
+                                job_class=job_class, device=DEVICE))
+    emit({"profile": f"one runtime forward, {label}",
+          "wall_ms_under_profiler": 1e3 * wall, "kernels": kernels,
+          "device_busy_ms": busy_ms,
+          "device_busy_share": None if busy_ms is None
+          else busy_ms / (1e3 * wall), "card": card})
+    return kernels
+
+
+def profiled_run(fn) -> tuple[dict, float | None, float]:
+    """``fn()`` once under ``torch.profiler``, ended by a synchronize:
+    ``({kernel: {"count", "device_ms"}}, ms in which at least one kernel
+    ran on the card or None, wall seconds)``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     kernels, intervals = {}, []
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
@@ -1403,12 +1449,366 @@ def phase_runtime_profile(card: str, main: tuple, pool: list = POOL,
         k["device_ms"] += (ev.time_range.end - ev.time_range.start) / 1e3
         intervals.append((ev.time_range.start, ev.time_range.end))
     busy_ms = union_us(intervals) / 1e3 if intervals else None
-    emit({"profile": f"one runtime forward, {label}",
-          "wall_ms_under_profiler": 1e3 * wall, "kernels": kernels,
-          "device_busy_ms": busy_ms,
-          "device_busy_share": None if busy_ms is None
-          else busy_ms / (1e3 * wall), "card": card})
-    return kernels
+    return kernels, busy_ms, wall
+
+
+def cnn_stage(cfg, params: dict, lo: int, hi: int):
+    """Layers [lo, hi) of ``cfg`` as one stage function, from the port's
+    public pieces: im2col + ``synergy_matmul`` for CONV and FC layers,
+    ``maxpool2d`` for pooling, in ``cnn_forward``'s order and with its
+    tile, so a stage pinned to K1 or K3 gives the dispatcher's bits."""
+    shapes, _ = cfg.trace_shapes()
+    last_fc = max(i for i, (spec, *_) in enumerate(shapes)
+                  if spec[0] == "fc")
+
+    def stage(x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            for i in range(lo, hi):
+                spec, h, w, _ = shapes[i]
+                n = x.shape[0]
+                if spec[0] == "conv":
+                    _, cout, k, s, p = spec
+                    oh, ow = conv_out_shape(h, w, k, k, s, p)
+                    a = im2col(x, k, k, s, p).reshape(n * oh * ow, -1)
+                    x = synergy_matmul(
+                        a, params[f"conv{i}_w"].reshape(-1, cout),
+                        bias=params[f"conv{i}_b"], activation=torch.relu,
+                        tile=cfg.tile, name=f"{cfg.name}/conv{i}"
+                    ).reshape(n, oh, ow, cout)
+                elif spec[0] == "pool":
+                    x = maxpool2d(x, spec[1])
+                else:
+                    x = synergy_matmul(
+                        x.reshape(n, -1), params[f"fc{i}_w"],
+                        bias=params[f"fc{i}_b"],
+                        activation=None if i == last_fc else torch.relu,
+                        tile=cfg.tile, name=f"{cfg.name}/fc{i}")
+        return x
+    return stage
+
+
+def pipeline_stages(cfg, params: dict, split=PIPE_STAGES) -> list:
+    """The pipeline phase's stages: ``EngineStage``s over ``split``."""
+    return [EngineStage(name, cnn_stage(cfg, params, lo, hi), engine)
+            for name, lo, hi, engine in split]
+
+
+def conv_front(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The dispatcher's conv front-end (every layer up to the last conv
+    before the first FC, through ``cnn_stage``) as the flat ``(m, cout)``
+    output of that conv: what a wave graph's last node holds."""
+    last, *_, (_, _, cout) = conv_graph_steps(cfg)[-1]
+    return cnn_stage(cfg, params, 0, last + 1)(x).reshape(-1, cout)
+
+
+def graph_waves(rt, cfg, params: dict, waves: list, name: str = "wave"
+                ) -> list:
+    """Submit every wave's conv front-end as a dataflow graph
+    (``conv_wave_graph``), all in flight at once; returns the futures."""
+    steps = conv_graph_steps(cfg)
+    futs = []
+    for w, xw in enumerate(waves):
+        jss = [js for _, js in conv_jobsets(cfg, len(xw),
+                                            name_prefix=f"{name}{w}/")]
+        nodes, edges = conv_wave_graph(cfg, params, xw, steps, jss, len(xw))
+        futs.append(rt.submit_graph(nodes, edges, name=f"{name}{w}"))
+    return futs
+
+
+def chain_waves(rt, cfg, params: dict, waves: list) -> list:
+    """The same conv front-ends as a chain (``paper_figs.py::run_chain``):
+    one wave at a time, gather, ``submit_gemm``, ``result()`` after every
+    layer.  Returns each wave's flat last conv output."""
+    steps = conv_graph_steps(cfg)
+    outs = []
+    for w, x in enumerate(waves):
+        n = len(x)
+        jss = conv_jobsets(cfg, n, name_prefix=f"chain{w}/")
+        for (i, pools, (k, s, p), (oh, ow, cout)), (_, js) in zip(steps,
+                                                                  jss):
+            for size in pools:
+                x = maxpool2d(x, size)
+            y = rt.submit_gemm(
+                im2col_wave(x, k, k, s, p),
+                params[f"conv{i}_w"].reshape(-1, cout), jobset=js,
+                bias=params[f"conv{i}_b"], activation=torch.relu,
+                tile=(js.ts_m, js.ts_n, js.ts_k), job_class="prefill"
+            ).result(GRAPH_TIMEOUT)
+            x = y.reshape(n, oh, ow, cout)
+        outs.append(y)
+    return outs
+
+
+def host_timed(fn, reps: int) -> tuple[list, list]:
+    """``fn()`` once to warm up, then ``reps`` times, each between two
+    synchronizes on the host clock: (seconds, results)."""
+    fn()
+    samples, results = [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(fn())
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return samples, results
+
+
+def pipe_launches(cfg, split=PIPE_STAGES) -> dict:
+    """Launches of K1 and K3 per micro-batch through ``split``: one per
+    CONV or FC layer of each stage, on its engine's kernel."""
+    kernel = {"cuda-tiled": "tiled_mm", "neon-vpu": "vpu_mm"}
+    out = {"tiled_mm": 0, "vpu_mm": 0}
+    for _, lo, hi, engine in split:
+        out[kernel[engine]] += sum(1 for spec in cfg.layers[lo:hi]
+                                   if spec[0] in ("conv", "fc"))
+    return out
+
+
+def phase_pipeline(card: str, main: tuple, dispatcher_s: float,
+                   runtime_fp32: dict) -> dict:
+    """Slice 7: CIFAR_Alex+ x256 as 8 micro-batches of 32 frames through a
+    ``ThreadedPipeline`` of three stages pinned to K1, K3 and K1, counts
+    set to 0 just before and read just after; the logits must be BITWISE
+    the dispatcher forward's.  Then frames/s (median of 5 after 1) beside
+    the dispatcher's and the runtime's of this call, with the stages'
+    utilisation."""
+    cfg, params, x, _, logits = main
+    frames = list(x.to(DEVICE).split(MICRO))
+    reset_launches()
+    outs, _ = ThreadedPipeline(pipeline_stages(cfg, params)).run(frames)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    got = torch.cat(outs)
+    if not torch.equal(got, logits):
+        raise AssertionError(
+            f"pipeline logits differ from the dispatcher forward: max "
+            f"|diff| {(got - logits).abs().max().item():.3g}")
+    want = {k: len(frames) * v for k, v in pipe_launches(cfg).items()}
+    if {k: counts[k] for k in want} != want or counts["qmm"] != 0:
+        raise AssertionError(f"pipeline launches {counts}, expected {want}")
+    if tiled_matmul.launches_by_path["ffma"] != counts["tiled_mm"]:
+        raise AssertionError(f"tiled_mm launches by path "
+                             f"{tiled_matmul.launches_by_path} in the "
+                             f"pipeline, expected all on ffma")
+    print(f"pipeline: {cfg.name} x{FRAMES} as {len(frames)} micro-batches "
+          f"of {MICRO} through {[n for n, *_ in PIPE_STAGES]} pinned to "
+          f"{[e for *_, e in PIPE_STAGES]}: tiled_mm {counts['tiled_mm']} + "
+          f"vpu_mm {counts['vpu_mm']} launches, logits bitwise equal to the "
+          f"dispatcher forward", flush=True)
+
+    samples, runs = host_timed(lambda: ThreadedPipeline(
+        pipeline_stages(cfg, params)).run(frames), reps=5)
+    mid = sorted(range(len(samples)), key=samples.__getitem__)[2]
+    wall = statistics.median(samples)
+    emit({"pipeline": cfg.name, "frames": FRAMES,
+          "micro_batches": len(frames),
+          "stages": {n: e for n, _, _, e in PIPE_STAGES},
+          "frames_per_s": FRAMES / wall, "ms": 1e3 * wall,
+          "dispatcher_frames_per_s": FRAMES / dispatcher_s,
+          "runtime_frames_per_s": runtime_fp32["frames_per_s"],
+          "stage_utilization": runs[mid][1]["stage_utilization"],
+          "launches": {k: counts[k] for k in want},
+          "timer": "host clock around synchronize, median of 5 after 1 "
+                   "warm-up; stage_utilization of the median run (host "
+                   "seconds in each stage over the pipeline's wall)",
+          "card": card})
+    return counts
+
+
+def phase_runtime_steal(card: str, main: tuple) -> dict:
+    """Slice 7: ``benchmarks/paper_figs.py::runtime_steal`` on the card.
+    8 frames, each one 32-frame micro-batch's conv2 im2col panel (8,192 x
+    1,600), through a ``ThreadedPipeline`` of ``EngineStage.gemm`` pinned
+    to ``cuda-tiled`` (TS 32) and a host post-stage: pinned, then under
+    ``SynergyRuntime(POOL).scope()``.  The two runs' outputs must be
+    equal; steals, jobs, busy fractions (cost-model basis, as ``repro``
+    computes them), frames/s and ``runtime_beats_pinned`` are printed,
+    not gated."""
+    cfg, params, x, *_ = main
+    i, _, (k, s, p), (_, _, cout) = conv_graph_steps(cfg)[1]
+    front = cnn_stage(cfg, params, 0, i)
+    with torch.inference_mode():
+        frames = [im2col_wave(front(mb), k, k, s, p)
+                  for mb in x.to(DEVICE).split(MICRO)]
+    w = params[f"conv{i}_w"].reshape(-1, cout)
+    engines = [get_engine(n) for n in POOL]
+
+    def stages():
+        return [EngineStage.gemm("mm", w, engine="cuda-tiled",
+                                 tile=cfg.tile),
+                ("post", lambda y: (y, float(y.sum())))]
+
+    def busy_frac(before, after):
+        d = [a.busy_s - b.busy_s for b, a in zip(before, after)]
+        return sum(d) / (len(d) * max(d)) if max(d) > 0 else 0.0
+
+    def snap():
+        return [e.telemetry.snapshot() for e in engines]
+
+    def measure(rt) -> dict:
+        reset_launches()
+        outs, _ = ThreadedPipeline(stages()).run(frames)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        if rt is not None:
+            rt.reset_stats()
+        b0 = snap()
+        samples, _ = host_timed(
+            lambda: ThreadedPipeline(stages()).run(frames), reps=3)
+        return {"outs": outs, "counts": counts, "frac": busy_frac(b0, snap()),
+                "fps": len(frames) / statistics.median(samples),
+                "stats": rt.stats() if rt is not None else None}
+
+    pinned = measure(None)
+    with SynergyRuntime(POOL, name="steal", device=DEVICE) as pool, \
+            pool.scope():
+        rt = measure(pool)
+    for (y0, s0), (y1, s1) in zip(pinned["outs"], rt["outs"]):
+        if not torch.equal(y0, y1) or s0 != s1:
+            raise AssertionError("runtime_steal: the pooled run's GEMM "
+                                 "outputs differ from the pinned run's")
+    panels = len(frames) * -(-frames[0].shape[0] // cfg.tile)
+    if (pinned["counts"]["tiled_mm"], pinned["counts"]["vpu_mm"]) != (
+            len(frames), 0):
+        raise AssertionError(f"pinned run launches {pinned['counts']}")
+    if rt["counts"]["tiled_mm"] + rt["counts"]["vpu_mm"] != panels:
+        raise AssertionError(f"pooled run launches {rt['counts']}, "
+                             f"expected {panels} panels")
+    per = rt["stats"]["engines"]
+    emit({"runtime_steal": f"{cfg.name}/conv{i}", "frames": len(frames),
+          "frame": list(frames[0].shape), "w": list(w.shape),
+          "tile": cfg.tile, "pool": POOL,
+          "pinned": {"engine": "cuda-tiled", "frames_per_s": pinned["fps"],
+                     "busy_fraction": pinned["frac"],
+                     "launches": pinned["counts"]},
+          "runtime": {"frames_per_s": rt["fps"], "busy_fraction": rt["frac"],
+                      "steals": rt["stats"]["total_steals"],
+                      "jobs": {n: per[n]["jobs"] for n in POOL},
+                      "wall_busy_fraction": {n: per[n]["busy_fraction"]
+                                             for n in POOL},
+                      "launches": rt["counts"]},
+          "runtime_beats_pinned": rt["frac"] > pinned["frac"],
+          "runtime_faster_than_pinned": rt["fps"] > pinned["fps"],
+          "timer": "host clock around synchronize, median of 3 after 1 "
+                   "warm-up; busy_fraction on the cost-model basis over "
+                   "the 3 timed runs, as repro's runtime_steal; jobs and "
+                   "steals summed over them",
+          "card": card})
+    print(f"runtime_steal: outputs of the pinned and pooled runs equal; "
+          f"pooled launches tiled_mm {rt['counts']['tiled_mm']} + vpu_mm "
+          f"{rt['counts']['vpu_mm']} = {panels} panels", flush=True)
+    return rt["counts"]
+
+
+def phase_graph(card: str, main: tuple) -> dict:
+    """Slice 7: the conv front-end of CIFAR_Alex+ x256 as 8 waves of 32
+    frames on ``SynergyRuntime(POOL)`` (32-row panels): (a) graph mode,
+    ``conv_wave_graph`` + ``submit_graph``, every wave in flight at once,
+    counts set to 0 just before and read just after; (b) chain mode, one
+    wave at a time with ``result()`` after every layer.  Each wave's last
+    node must be BITWISE the dispatcher's conv front-end for its frames, in
+    both modes; one ``GraphFuture.cancel()`` must drain its wave's queued
+    panels and end its descendants in ``GraphCancelled``, and the runtime
+    must run waves afterwards.  Then frames/s of both modes (median of 3
+    after 1), their ratio, and the card's busy share under
+    ``torch.profiler`` for one graph run."""
+    cfg, params, x, *_ = main
+    xd = x.to(DEVICE)
+    want = conv_front(cfg, params, xd)
+    torch.cuda.synchronize()
+    waves = list(xd.split(MICRO))
+    rows = want.shape[0] // len(waves)
+    panels = len(waves) * sum(js.grid[0]
+                              for _, js in conv_jobsets(cfg, MICRO))
+
+    def check(vals: list, mode: str) -> None:
+        for w, v in enumerate(vals):
+            if not torch.equal(v, want[w * rows:(w + 1) * rows]):
+                raise AssertionError(f"graph ({mode}): wave {w} differs from "
+                                     f"the dispatcher's conv front-end")
+
+    def graph_run():
+        return [f.result(GRAPH_TIMEOUT)[-1]
+                for f in graph_waves(rt, cfg, params, waves)]
+
+    with SynergyRuntime(POOL, name="graph", device=DEVICE) as rt:
+        rt.reset_stats()
+        reset_launches()
+        vals = graph_run()
+        torch.cuda.synchronize()
+        counts, stats = launch_counts(), rt.stats()
+        check(vals, "graph")
+        if counts["tiled_mm"] == 0 or counts["vpu_mm"] == 0:
+            raise AssertionError(f"graph: a kernel ran no panel: {counts}")
+        if counts["tiled_mm"] + counts["vpu_mm"] != panels or counts[
+                "qmm"] != 0:
+            raise AssertionError(f"graph launches {counts}, expected "
+                                 f"{panels} panels")
+        reset_launches()
+        check(chain_waves(rt, cfg, params, waves), "chain")
+        torch.cuda.synchronize()
+        chain_counts = launch_counts()
+
+        # cancel one wave while its conv0 panels are queued
+        reset_launches()
+        gf, = graph_waves(rt, cfg, params, waves[:1], name="cancel")
+        deadline = time.monotonic() + GRAPH_TIMEOUT
+        while gf.node_future(1) is None and not gf.done():
+            if time.monotonic() > deadline:
+                raise AssertionError("cancel: conv0 was never submitted")
+            time.sleep(1e-4)
+        cancelled = gf.cancel("chip_smoke cancel")
+        try:
+            gf.result(GRAPH_TIMEOUT)
+        except GraphCancelled:
+            pass
+        else:
+            raise AssertionError("cancel: the graph finished normally")
+        torch.cuda.synchronize()
+        ran = tiled_matmul.launches + vpu_matmul.launches
+        conv0 = conv_jobsets(cfg, MICRO)[0][1].grid[0]
+        states = gf.node_states()
+        if ran >= conv0 or states[:2] != ["done", "failed"] or any(
+                st != "cancelled" for st in states[2:]):
+            raise AssertionError(f"cancel: {ran} of {conv0} conv0 panels "
+                                 f"ran, node states {states}")
+        print(f"graph: cancel drained {conv0 - ran} of {conv0} queued conv0 "
+              f"panels, {cancelled} nodes never started, states {states}",
+              flush=True)
+
+        graph_s, graph_vals = host_timed(graph_run, reps=3)
+        chain_s, chain_vals = host_timed(
+            lambda: chain_waves(rt, cfg, params, waves), reps=3)
+        for vals in graph_vals + chain_vals:
+            check(vals, "timed")
+        kernels, busy_ms, wall = profiled_run(graph_run)
+    graph_fps = FRAMES / statistics.median(graph_s)
+    chain_fps = FRAMES / statistics.median(chain_s)
+    emit({"graph": f"{cfg.name} conv front-end", "frames": FRAMES,
+          "waves": len(waves), "panels": panels, "pool": POOL,
+          "graph_frames_per_s": graph_fps, "chain_frames_per_s": chain_fps,
+          "graph_over_chain": graph_fps / chain_fps,
+          "steals": stats["total_steals"],
+          "jobs": {n: stats["engines"][n]["jobs"] for n in POOL},
+          "launches": {"graph": {k: counts[k] for k in
+                                 ("tiled_mm", "vpu_mm")},
+                       "chain": {k: chain_counts[k] for k in
+                                 ("tiled_mm", "vpu_mm")}},
+          "cancel": {"conv0_panels": conv0, "ran": ran,
+                     "nodes_cancelled": cancelled},
+          "profile": {"wall_ms_under_profiler": 1e3 * wall,
+                      "kernels": kernels, "device_busy_ms": busy_ms,
+                      "device_busy_share": None if busy_ms is None
+                      else busy_ms / (1e3 * wall)},
+          "timer": "host clock around synchronize, median of 3 after 1 "
+                   "warm-up; steals and jobs of the checked graph run; "
+                   "profile: one more graph run",
+          "card": card})
+    print(f"graph: {len(waves)} waves x {MICRO} frames, {panels} panels, "
+          f"tiled_mm {counts['tiled_mm']} + vpu_mm {counts['vpu_mm']}; "
+          f"graph and chain bitwise the dispatcher's conv front-end",
+          flush=True)
+    return counts
 
 
 def fa_tol(sk: int, dtype: torch.dtype) -> float:
@@ -2042,6 +2442,10 @@ def main() -> int:
     runtime_totals, vpu_whole = phase_panel_times(card, run)
     runtime_fp32 = phase_runtime_times(card, main, run, dispatcher_s)
     profiled = phase_runtime_profile(card, main)
+    # slice 7: the inter-frame pipeline and the dataflow-graph runtime
+    pipe = phase_pipeline(card, main, dispatcher_s, runtime_fp32)
+    steal = phase_runtime_steal(card, main)
+    graph = phase_graph(card, main)
     qmm_dispatcher, qmm_runtime = phase_qmm_times(card, decode)
     phase_decode_times(card, main, decode, dispatcher_s, runtime_fp32)
     q_profiled = phase_runtime_profile(card, main, QPOOL, "decode",
@@ -2071,7 +2475,16 @@ def main() -> int:
                        "device time of another runtime forward under "
                        "torch.profiler")}}
         by_path = {"dispatcher": {"launches": main[3][name]},
-                   "runtime": runtime}
+                   "runtime": runtime,
+                   "pipeline": {"launches": pipe[name], "per": (
+                       f"CIFAR_Alex+ x{FRAMES} as {FRAMES // MICRO} "
+                       f"micro-batches through the three-stage pipeline")},
+                   "runtime_steal": {"launches": steal[name], "per": (
+                       "the pooled runtime_steal run: 8 conv2 panels of "
+                       "8,192 rows")},
+                   "graph": {"launches": graph[name], "per": (
+                       f"the conv front-end of CIFAR_Alex+ x{FRAMES} as "
+                       f"{FRAMES // MICRO} wave graphs")}}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "

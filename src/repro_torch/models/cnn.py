@@ -14,21 +14,23 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.im2col import conv_out_shape, im2col
+from repro_torch.core.im2col import conv_out_shape, im2col, im2col_wave
 from repro_torch.core.job import JobSet
 from repro_torch.core.scheduler import SimLayer, SimNet
 from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.params import tensor_from_numpy
+from repro_torch.soc.graph import GraphNode
 from repro_torch.soc.runtime import runtime_scope
 
 __all__ = ["CNNConfig", "init_cnn", "params_from_jax", "cnn_forward",
-           "conv_jobsets", "maxpool2d", "cnn_flops_per_frame",
-           "build_simnet"]
+           "conv_jobsets", "conv_graph_steps", "conv_wave_graph",
+           "maxpool2d", "cnn_flops_per_frame", "build_simnet"]
 
 
 def maxpool2d(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -203,6 +205,91 @@ def conv_jobsets(cfg: CNNConfig, n_frames: int = 1, *,
         out.append((i, js))
         conv_id += 1
     return out
+
+
+def conv_graph_steps(cfg: CNNConfig) -> list[tuple]:
+    """Per-CONV-layer dataflow geometry for graph construction:
+    ``[(layer_index, pools_before, (k, stride, pad), (oh, ow, cout)),
+    ...]`` in network order, where ``pools_before`` are the CPU-side max
+    pool sizes between the previous conv and this one.  The conv
+    front-end ends at the first FC layer (matching the serving prefill
+    chain)."""
+    out: list[tuple] = []
+    shapes, _ = cfg.trace_shapes()
+    pools: list[int] = []
+    for i, (spec, h, w, c) in enumerate(shapes):
+        if spec[0] == "pool":
+            pools.append(spec[1])
+        elif spec[0] == "conv":
+            _, cout, k, s, p = spec
+            oh, ow = conv_out_shape(h, w, k, k, s, p)
+            out.append((i, tuple(pools), (k, s, p), (oh, ow, cout)))
+            pools = []
+        else:                         # fc: conv front-end ends here
+            break
+    return out
+
+
+def conv_wave_graph(cfg: CNNConfig, params: dict, x0: torch.Tensor,
+                    steps: Sequence[tuple], jobsets: Sequence[JobSet],
+                    n_frames: int, *, in_shape: tuple | None = None,
+                    affinity: str | None = None,
+                    job_class: str | None = "prefill",
+                    im2col_fn=None, qos=None):
+    """Build the ``(nodes, edges)`` dataflow graph of one prefill wave's
+    conv front-end over a consecutive slice of :func:`conv_graph_steps`.
+
+    Layer *l* becomes two nodes: a HOST gather node (reshape the previous
+    GEMM's flat output, apply the CPU-side pools, one
+    :func:`~repro_torch.core.im2col.im2col_wave` over the whole wave) and
+    a GEMM node (``submit_gemm`` of the im2col panel against the conv
+    weights) — so layer *l+1*'s gather overlaps layer *l*'s GEMM compute,
+    the NEURAghe-style producer/consumer overlap the chain never had.
+
+    ``x0``: the slice's input — the stacked wave frames for the first
+    chunk, or the previous chunk's flat GEMM output (then pass
+    ``in_shape`` to restore (N, H, W, C)); it and ``params`` live on the
+    runtime's device, where the gathers run too.  The LAST node's value
+    is the final conv's flat ``(m, cout)`` output.  ``im2col_fn``
+    overrides the gather primitive (a caller passes its own module
+    reference so instrumentation hooks on that module see every wave
+    gather); ``qos`` attaches a :class:`repro_torch.soc.qos_policy.QosTag`
+    to every GEMM node's panels, so a chunked prefill wave schedules at
+    its tenants' class and decode-class work preempts it at chunk
+    boundaries."""
+    if im2col_fn is None:
+        im2col_fn = im2col_wave
+
+    nodes: list = []
+    edges: list[tuple[int, int]] = []
+    prev_gemm: int | None = None
+    prev_shape = in_shape
+    for (i, pools, (k, s, p), (oh, ow, cout)), js in zip(steps, jobsets):
+
+        def gather(rt, *pred, _pools=pools, _k=k, _s=s, _p=p,
+                   _shape=prev_shape):
+            x = pred[0].reshape(_shape) if pred else (
+                x0.reshape(_shape) if _shape is not None else x0)
+            for size in _pools:
+                x = maxpool2d(x, size)
+            return im2col_fn(x, _k, _k, _s, _p)
+
+        def gemm(rt, a, _i=i, _js=js, _cout=cout):
+            return rt.submit_gemm(
+                a, params[f"conv{_i}_w"].reshape(-1, _cout), jobset=_js,
+                bias=params[f"conv{_i}_b"], activation=torch.relu,
+                tile=(_js.ts_m, _js.ts_n, _js.ts_k), job_class=job_class,
+                affinity=affinity, qos=qos)
+
+        gi = len(nodes)
+        nodes.append(GraphNode(name=f"{js.name}/gather", run=gather))
+        if prev_gemm is not None:
+            edges.append((prev_gemm, gi))
+        nodes.append(GraphNode(name=js.name, run=gemm))
+        edges.append((gi, gi + 1))
+        prev_gemm = gi + 1
+        prev_shape = (n_frames, oh, ow, cout)
+    return nodes, edges
 
 
 def build_simnet(cfg: CNNConfig) -> SimNet:

@@ -14,14 +14,16 @@ identical cost models.
         y = synergy_matmul(a, b)      # row panels split across BOTH kernels
     print(rt.stats()["total_steals"])
 
-``repro``'s dataflow-graph runtime (``soc.graph``) and durable serving
-state (``soc.durable``) are not ported yet.
+Dataflow graphs (:mod:`repro_torch.soc.graph`) go through
+``SynergyRuntime.submit_graph``.  ``repro``'s durable serving state
+(``soc.durable``) is not ported yet.
 """
 
 from .faults import (FAULT_KINDS, CorruptOutput, DroppedCompletion,
                      FaultPlan, FaultSpec, FaultyEngine, InjectedFault,
                      PanelRetryExhausted, RetryPolicy, WorkerKilled,
                      wrap_pool)
+from .graph import GraphCancelled, GraphFuture, GraphNode
 from .policy import (STEAL_QUEUE_DEPTH, STEAL_RATE_FLOOR, lpt_pick,
                      pick_victim, should_steal)
 from .qos import (AdmissionRejected, EngineHealth, HealthPolicy, Tenant)
@@ -36,6 +38,7 @@ from .simrt import (SimGraphResult, SimQosResult, SimRuntime,
 __all__ = [
     "SynergyRuntime", "RuntimeFuture", "runtime_scope", "current_runtime",
     "SimRuntime", "SimRuntimeResult", "SimGraphResult", "SimQosResult",
+    "GraphNode", "GraphFuture", "GraphCancelled",
     "should_steal", "pick_victim", "lpt_pick",
     "STEAL_RATE_FLOOR", "STEAL_QUEUE_DEPTH",
     "QosClass", "QosTag", "NEUTRAL_TAG", "DEFAULT_CLASS", "INTERACTIVE",

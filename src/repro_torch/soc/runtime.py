@@ -405,6 +405,15 @@ class SynergyRuntime:
         self._submissions = 0
         self._inflight = 0     # incomplete submissions (gates idle booking)
         self._listener = None
+        #: active dataflow-graph runs (see repro_torch.soc.graph) —
+        #: cancelled on shutdown so an abandoned DAG can never hang a
+        #: reaper on workers that no longer exist
+        self._graphs: set = set()
+        #: lazy host-side executor for graph run nodes (im2col gathers,
+        #: pooling) — NEVER an engine worker, so a host stage cannot stall
+        #: an engine queue.  On a card its threads launch on the device's
+        #: default stream, the stream submit_gemm orders and merges on
+        self._host_pool = None
         if engines is None:
             from repro_torch.engines.dispatch import DEFAULT_DISPATCHER
             pool: list[Engine] = DEFAULT_DISPATCHER.candidates(require)
@@ -457,6 +466,11 @@ class SynergyRuntime:
         with self._cond:
             if not self._started:
                 return
+            # graphs whose pending nodes would seed work AFTER the workers
+            # exit can never complete — cancel them first (reap graphs
+            # before shutting down to avoid this)
+            for g in list(self._graphs):
+                g.cancel("runtime shut down")
             if not drain:
                 self._cancel_queued_locked("runtime shut down")
             self._stopping = True
@@ -470,6 +484,9 @@ class SynergyRuntime:
             self._monitor = None       # stale monitor loops see the swap
             self._live_panels.clear()
             self._retired.clear()
+            pool, self._host_pool = self._host_pool, None
+        if pool is not None:
+            pool.shutdown(wait=False)
 
     def _cancel_queued_locked(self, why: str) -> None:
         for w in self._workers.values():
@@ -1306,6 +1323,85 @@ class SynergyRuntime:
                 self._seed_locked(jobs, affinity)
                 self._cond.notify_all()
         return futs
+
+    def submit_graph(self, nodes, edges, *, affinity: Optional[str] = None,
+                     granularity: str = "job", name: str = "graph",
+                     qos: Optional[QosTag] = None, node_retries: int = 0):
+        """Submit a dependency GRAPH of nodes: each node is a
+        :class:`~repro_torch.core.job.JobSet` (accounting-only) or a
+        :class:`repro_torch.soc.graph.GraphNode` (host compute / nested
+        ``submit_gemm``); ``edges`` is an iterable of ``(pred, succ)``
+        index pairs.  A node's work enters the pool the moment its last
+        predecessor's tail panel lands: the completion callback decrements
+        the successor's dependency counter under the manager lock and
+        LPT-seeds the newly ready units into the existing worker deques,
+        so stealing and hotplug rebalances apply to graph work
+        unchanged.  Returns a
+        :class:`repro_torch.soc.graph.GraphFuture` (per-node values,
+        merged accounting, ``cancel()``).  ``node_retries=N`` relaunches a
+        failed node (whole, as a fresh submission) up to N times before
+        its descendants are cancelled — the graph-level complement of
+        the runtime's panel-level :class:`RetryPolicy`.
+
+        On a card, run nodes launch on the default stream, where an
+        adopted ``submit_gemm`` enqueues its merge before the node
+        completes: a successor reads a predecessor's value in stream
+        order, with no event of its own."""
+        from .graph import _GraphRun
+        run = _GraphRun(self, nodes, edges, affinity=affinity,
+                        granularity=granularity, name=name, qos=qos,
+                        node_retries=node_retries)
+        run.start()
+        return run.future
+
+    def _host_submit(self, fn, *args) -> None:
+        """Run ``fn(*args)`` on the runtime's host-side executor (graph
+        run nodes).  Lazy: a runtime without graphs never spawns it."""
+        import concurrent.futures
+        with self._lock:
+            if self._host_pool is None:
+                self._host_pool = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=2,
+                    thread_name_prefix=f"synergy-{self.name}-host")
+            pool = self._host_pool
+        pool.submit(fn, *args)
+
+    @staticmethod
+    def _drain_error(error: BaseException, job: _RuntimeJob) -> BaseException:
+        """A PER-JOB copy of a drain error.  Completing multiple jobs with
+        the SAME exception instance raises one object into every waiter
+        thread — each ``raise`` rewrites ``__traceback__``, so concurrent
+        waiters see each other's (cross-contaminated) tracebacks.  Each
+        drained jobset gets its own instance, naming the jobset it
+        drained."""
+        name = job.sub.future.jobset.name
+        try:
+            return type(error)(f"{error} [drained jobset {name!r}]")
+        except Exception:
+            # error types with non-message constructors still get a
+            # fresh per-job instance, just a plainer one
+            return RuntimeError(f"{type(error).__name__}: {error} "
+                                f"[drained jobset {name!r}]")
+
+    def _drain_jobs_locked(self, predicate, error: BaseException) -> int:
+        """Remove queued (unstarted) jobs matching ``predicate`` from every
+        worker deque, completing each with a PER-JOB copy of ``error``
+        (see :meth:`_drain_error`); in-flight jobs are untouched.  The
+        cancellation half of ``GraphFuture.cancel``: a failed upstream
+        node must not leave orphan panels running."""
+        n = 0
+        for w in self._workers.values():
+            drained = [j for j in w.queue if predicate(j)]
+            if not drained:
+                continue
+            kept = [j for j in w.queue if not predicate(j)]
+            w.queue.clear()
+            w.queue.extend(kept)
+            for job in drained:
+                job.sub.complete(job, w.engine.name, None,
+                                 self._drain_error(error, job), 0.0, False)
+            n += len(drained)
+        return n
 
     def submit_gemm(self, a, b, *, jobset, bias=None, activation=None,
                     tile=(256, 256, 256), out_dtype=None,

@@ -28,37 +28,7 @@ from .qos_policy import (NEUTRAL_TAG, effective_deadline, qos_victim,
                          queue_insert_index)
 
 __all__ = ["SimRuntime", "SimRuntimeResult", "SimGraphResult",
-           "SimQosResult", "SimFaultResult", "validate_dag"]
-
-
-def validate_dag(n: int, edges) -> tuple[list[list[int]], list[list[int]]]:
-    """Check ``edges`` over ``n`` nodes form a DAG; returns
-    ``(successors, predecessors)`` adjacency (edge-order preserved, which
-    fixes the argument order of a run node's ``*pred_values``)."""
-    succs: list[list[int]] = [[] for _ in range(n)]
-    preds: list[list[int]] = [[] for _ in range(n)]
-    for e in edges:
-        u, v = e
-        if not (0 <= u < n and 0 <= v < n):
-            raise ValueError(f"edge {e!r} out of range for {n} nodes")
-        if u == v:
-            raise ValueError(f"self-edge on node {u}")
-        succs[u].append(v)
-        preds[v].append(u)
-    # Kahn: every node must be reachable through a topological order
-    indeg = [len(p) for p in preds]
-    ready = [i for i in range(n) if indeg[i] == 0]
-    seen = 0
-    while ready:
-        u = ready.pop()
-        seen += 1
-        for v in succs[u]:
-            indeg[v] -= 1
-            if indeg[v] == 0:
-                ready.append(v)
-    if seen != n:
-        raise ValueError("graph has a dependency cycle")
-    return succs, preds
+           "SimQosResult", "SimFaultResult"]
 
 
 @dataclasses.dataclass
@@ -606,6 +576,7 @@ class SimRuntime:
         earlier), so for a chain graph the trace is unit-for-unit
         identical to running the jobsets back-to-back through
         :meth:`run` — which is itself DES-conformant."""
+        from .graph import validate_dag
         n = len(jobsets)
         succs, preds = validate_dag(n, edges)
         remaining = [len(p) for p in preds]

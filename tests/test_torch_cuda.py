@@ -15,7 +15,10 @@ panels off every 16-byte boundary; K2's SASS holds IMMA and no IDP.  K4
 head dims (and the reduced configs' 16), GQA, ragged and cross shapes;
 a narrow zamba2 whose prefill on the card launches both and matches the
 CPU, and whose decode launches neither and reproduces the forward; the
-reduced zamba2 and mamba2-130m prefilling on the card.
+reduced zamba2 and mamba2-130m prefilling on the card.  The inter-frame
+pipeline with stages pinned to K1 and K3 bitwise the dispatcher's logits,
+and CIFAR_Alex+ wave graphs over K1 + K3 bitwise the dispatcher's conv
+front-end, with a graph cancel draining queued panels on the card.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -24,13 +27,17 @@ one.  On a machine with a card, and without JAX, run them as
 """
 
 import dataclasses
+import importlib.util
 import math
+import time
+from pathlib import Path
 
 import pytest
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import ARCHS, PAPER_CNNS, reduced
+from repro_torch.core import ThreadedPipeline
 from repro_torch.core.job import JobSet
 from repro_torch.core.synergy_mm import SynergyTrace, synergy_matmul
 from repro_torch.engines import get_engine
@@ -46,10 +53,10 @@ from repro_torch.kernels.tiled_mm import (PATHS, ffma_chain_ref,
 from repro_torch.kernels.vpu_mm import vpu_matmul, vpu_mm_library, vpu_mm_ref
 from repro_torch.models import (decode_fn, init_cache, init_model,
                                 lm_forward, prefill_fn)
-from repro_torch.models.cnn import cnn_forward, init_cnn
+from repro_torch.models.cnn import cnn_forward, conv_jobsets, init_cnn
 from repro_torch.quant import (QuantizedEngine, quantize_weights, rel_err)
 from repro_torch.quant.act import one_shot_act_scale, quantize_activations
-from repro_torch.soc import SynergyRuntime
+from repro_torch.soc import GraphCancelled, SynergyRuntime
 
 POOL = ["cuda-tiled", "neon-vpu"]
 
@@ -656,3 +663,97 @@ def test_reduced_config_prefills_on_the_card(cuda, arch, n_layers):
     assert ssd_cuda.launches - counts[1] == n_layers
     assert tiled_matmul.launches - counts[2] > 0
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------- the pipeline and the wave graphs
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module: its stage, wave-graph and
+    conv front-end builders are what its card phases run."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _alex_on(cuda, frames, seed):
+    cfg = PAPER_CNNS["CIFAR_Alex+"]
+    params = init_cnn(cfg, torch.Generator().manual_seed(seed), device=cuda)
+    x = torch.randn(frames, 32, 32, 3,
+                    generator=torch.Generator().manual_seed(seed + 1))
+    return cfg, params, x.to(cuda)
+
+
+def test_two_stage_pipeline_on_k1_and_k3_is_bitwise_the_forward(cuda):
+    """CIFAR_Alex+ x64 as 2 micro-batches through two stages pinned to
+    ``cuda-tiled`` (conv0 to pool3) and ``neon-vpu`` (conv4 to fc7): the
+    logits are the dispatcher forward's bits, and each kernel launches
+    once per GEMM of its stage."""
+    cs = _chip_smoke()
+    cfg, params, x = _alex_on(cuda, 64, 20)
+    want = cnn_forward(cfg, params, x)
+    split = [("front", 0, 4, "cuda-tiled"), ("back", 4, 8, "neon-vpu")]
+    launches = (tiled_matmul.launches, vpu_matmul.launches)
+    outs, stats = ThreadedPipeline(cs.pipeline_stages(cfg, params, split)
+                                   ).run(list(x.split(32)))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs), want)
+    per_mb = cs.pipe_launches(cfg, split)
+    assert (tiled_matmul.launches - launches[0],
+            vpu_matmul.launches - launches[1]) == (
+        2 * per_mb["tiled_mm"], 2 * per_mb["vpu_mm"]) == (4, 6)
+    assert stats["stage_engines"] == {"front": "cuda-tiled",
+                                      "back": "neon-vpu"}
+
+
+def test_wave_graphs_on_the_card_are_bitwise_the_conv_front_end(cuda):
+    """Two 8-frame CIFAR_Alex+ waves in flight at once as graphs over K1 +
+    K3 (32-row panels, gathers on the host executor's default stream):
+    each wave's last node is the dispatcher's conv front-end bits, and so
+    is the chain mode's."""
+    cs = _chip_smoke()
+    cfg, params, x = _alex_on(cuda, 16, 22)
+    want = cs.conv_front(cfg, params, x)
+    waves = list(x.split(8))
+    rows = want.shape[0] // len(waves)
+    launches = (tiled_matmul.launches, vpu_matmul.launches)
+    with SynergyRuntime(POOL, device=cuda) as rt:
+        vals = [f.result(60)[-1]
+                for f in cs.graph_waves(rt, cfg, params, waves)]
+        torch.cuda.synchronize()
+        ran = (tiled_matmul.launches - launches[0]
+               + vpu_matmul.launches - launches[1])
+        chain = cs.chain_waves(rt, cfg, params, waves)
+    for w in range(len(waves)):
+        assert torch.equal(vals[w], want[w * rows:(w + 1) * rows]), w
+        assert torch.equal(chain[w], want[w * rows:(w + 1) * rows]), w
+    assert ran == len(waves) * sum(js.grid[0] for _, js in
+                                   conv_jobsets(cfg, 8))
+
+
+def test_graph_cancel_on_the_card_drains_queued_panels(cuda):
+    """Cancelling a 32-frame wave graph once its conv0 panels are queued
+    drains them (fewer than all 1,024 launch), cancels every later node,
+    ends the graph in ``GraphCancelled``, and the runtime then runs a
+    fresh wave to the dispatcher's bits."""
+    cs = _chip_smoke()
+    cfg, params, x = _alex_on(cuda, 32, 24)
+    with SynergyRuntime(POOL, device=cuda) as rt:
+        launches = tiled_matmul.launches + vpu_matmul.launches
+        gf, = cs.graph_waves(rt, cfg, params, [x], name="cancel")
+        deadline = time.monotonic() + 60
+        while gf.node_future(1) is None:
+            assert time.monotonic() < deadline
+            time.sleep(1e-4)
+        assert gf.cancel("card cancel") == 4
+        with pytest.raises(GraphCancelled):
+            gf.result(60)
+        torch.cuda.synchronize()
+        ran = tiled_matmul.launches + vpu_matmul.launches - launches
+        assert ran < 1024
+        assert gf.node_states() == ["done", "failed"] + ["cancelled"] * 4
+        fresh, = cs.graph_waves(rt, cfg, params, [x], name="after")
+        got = fresh.result(60)[-1]
+    assert torch.equal(got, cs.conv_front(cfg, params, x))
