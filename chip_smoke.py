@@ -70,7 +70,26 @@ Phases, in order; each raises on failure and nothing is caught:
    CNN forward the ffma path.  Slice 5: the reduced zamba2-2.7b (4
    layers) and mamba2-130m (2 layers) prefill 2 x 70 tokens on the card
    through K4 and K5 (counts set to 0 just before, read just after),
-   within 1e-4 of the same prefill on the CPU.
+   within 1e-4 of the same prefill on the CPU.  Slice 8, ``serving``: the
+   continuous-batching server (``core/serving.py``) on zamba2-2.7b at full
+   width (the LM slice's params), 4 slots, max_len 64, the default MNIST
+   prefill CNN, 8 requests of 16 prompt and 8 new tokens, over
+   ``SynergyRuntime(["cuda-tiled", "neon-vpu"])``: wave admission with
+   batched and with per-slot decode, single admission, chunked prefill,
+   then int8-calibrated over ``["cuda-tiled", "cuda-tiled-int8"]``
+   batched and per-slot (both from one calibrator state), counts set to 0
+   just before each run and read just after.  Every run gives each
+   request the first run's tokens; batched and per-slot decode-GEMM
+   outputs are BITWISE in each precision; every run's decode GEMMs
+   (216 x 10,240 x 2,560 batched, 54 rows per slot) are held against
+   their plain versions on the same inputs: fp32 within 1e-5·sqrt(k) of
+   ``tiled_mm_ref``, int8 bitwise ``qmm_ref``; fp32 runs launch K1 and K3
+   and not K2, int8 runs launch K2, no run launches K4 or K5.  A reduced
+   granite-3-2b server (the stacked-wi decode GEMM) on the CPU and, in
+   both decode modes, on the card with the same weights: equal tokens,
+   the card's modes bitwise, decode GEMMs within 1e-5·sqrt(d_model) of
+   the CPU's.  Tokens/s, ms and host µs per engine step, and the
+   card's busy share of one decode step under ``torch.profiler``.
 5. Times (CUDA events, warm-up, median of 25): per Alex+ GEMM, each kernel,
    its plain version, ``torch.addmm`` + ReLU as the library yardstick, and
    the bound; both kernels also at the runtime's panel shapes, weighted by
@@ -104,9 +123,10 @@ Phases, in order; each raises on failure and nothing is caught:
    drains queued panels, frames/s of both and the card's busy share of a
    profiled graph run.
 6. One ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.  A kernel's top-level numbers are the
-   runtime path's (this slice's main path): launches in phase 4's runtime
-   forward, and times of the panels it ran there (``qmm``: the runtime
+   ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
+   that their plain times are of a float64-summed GEMM.  A kernel's
+   top-level numbers are the runtime path's (this slice's main path):
+   launches in phase 4's runtime forward, and times of the panels it ran there (``qmm``: the runtime
    decode forward's); ``by_path`` gives each path's launches and times on
    its own basis (``qmm``: with its launches by path, ``async`` and
    ``shift``).  K4's and K5's are the LM prefill's: launches in it, and
@@ -114,7 +134,8 @@ Phases, in order; each raises on failure and nothing is caught:
    also gives ``lm_prefill`` and ``lm_decode`` (per step): launches by
    path, times, bound and library time over the LM GEMMs; K1's and K3's
    give ``pipeline``, ``runtime_steal`` and ``graph``: their launches in
-   slice 7's runs.
+   slice 7's runs; every kernel's gives ``serving``: its launches in each
+   of slice 8's serving runs.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -173,8 +194,9 @@ from repro_torch.models.cnn import (cnn_forward, conv_graph_steps,  # noqa: E402
                                     conv_jobsets, conv_wave_graph, init_cnn,
                                     maxpool2d)
 from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
-                               quantize_activations, quantize_weights,
-                               register_quantized, rel_err)
+                               dequant_finish, quantize_activations,
+                               quantize_weights, register_quantized, rel_err)
+from repro_torch.core.serving import Request, SynergyServer  # noqa: E402
 from repro_torch.soc import GraphCancelled, SynergyRuntime  # noqa: E402
 
 DEVICE = "cuda"
@@ -277,6 +299,42 @@ REDUCED_TOL = 1e-4
 #: tokens, and one decode-step GEMM
 LM_GEMMS = [(4096, 2560, 2560), (4096, 20480, 2560), (4096, 2560, 10240),
             (4, 2560, 10240)]
+#: slice 8: the continuous-batching server on LM_ARCH at full width, its
+#: default MNIST prefill CNN and SERVE_REQUESTS requests of SERVE_PROMPT
+#: tokens and SERVE_NEW new tokens each; the chunked run replays
+#: SERVE_CHUNK_TOKENS prompt tokens per quantum of a full wave, whose MAC
+#: budget is SERVE_CHUNK_MACS (the server costs a replayed token
+#: n_layers·4·d_model² per slot).  The dense real-FFN check runs
+#: SERVE_DENSE (arch, n_layers), reduced, on the card and the CPU.
+SERVE_SLOTS = 4
+SERVE_MAX_LEN = 64
+SERVE_REQUESTS = 8
+SERVE_PROMPT = 16
+SERVE_NEW = 8
+SERVE_CHUNK_TOKENS = 4
+SERVE_CHUNK_MACS = (SERVE_CHUNK_TOKENS * SERVE_SLOTS * ARCHS[LM_ARCH].n_layers
+                    * 4 * ARCHS[LM_ARCH].d_model ** 2)
+SERVE_TIMEOUT = 300
+SERVE_DENSE = ("granite-3-2b", 2)
+#: (run name, pool, server keywords), in the order they run; every run
+#: must give each request the first run's tokens
+SERVE_RUNS = [("wave, batched", POOL, {}),
+              ("wave, per-slot", POOL, {"decode_mode": "per-slot"}),
+              ("single admission", POOL, {"admission": "single"}),
+              ("chunked prefill", POOL, {"prefill_chunk_macs": SERVE_CHUNK_MACS}),
+              ("int8, batched", QPOOL, {}),
+              ("int8, per-slot", QPOOL, {"decode_mode": "per-slot"})]
+#: the (batched, per-slot) pairs whose decode-GEMM outputs must be bitwise
+SERVE_BITWISE = [("wave, batched", "wave, per-slot"),
+                 ("int8, batched", "int8, per-slot")]
+
+
+#: K1's and K3's plain versions sum in float64 and round once to fp32, so a
+#: row's bits do not depend on m on the CPU; their plain_ms is a float64
+#: GEMM's time on the card, slower than an fp32-summing plain version's
+PLAIN_F64_NOTE = ("plain_ms: tiled_mm_ref / vpu_mm_ref sum in float64 and "
+                  "round once to fp32; not comparable with fp32-summed "
+                  "plain times")
 
 
 def fp32_tol(k: int) -> float:
@@ -2377,6 +2435,317 @@ def phase_lm_profile(card: str, lm: dict) -> dict:
     return found["prefill"]
 
 
+def serve_requests(cfg, n: int = SERVE_REQUESTS, prompt: int = SERVE_PROMPT,
+                   new: int = SERVE_NEW) -> list:
+    """``n`` requests of ``prompt`` token ids (CPU int32, seeded) asking
+    for ``new`` tokens each."""
+    toks = torch.randint(0, cfg.vocab_size, (n, prompt), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(22))
+    return [Request(i, toks[i].clone(), new) for i in range(n)]
+
+
+def record_decode_gemms(rt, qeng) -> list:
+    """Wrap ``rt.submit_gemm`` so that each decode-GEMM submission is kept
+    as (A, W, act scale, future): the scale is the one ``qeng`` (the
+    pool's int8 engine, or None) publishes for the GEMM's (k, n) just
+    before the submit, which the runtime's int8 split reads (None: fp32).
+    Only the serving thread feeds that calibrator, and only at reap."""
+    log, submit = [], rt.submit_gemm
+
+    def recorded(a, b, **kw):
+        scale = (None if qeng is None
+                 or not kw["jobset"].name.startswith("decode/")
+                 else qeng.act_scale_for(*b.shape))
+        fut = submit(a, b, **kw)
+        if kw["jobset"].name.startswith("decode/"):
+            log.append((a, b, scale, fut))
+        return fut
+
+    rt.submit_gemm = recorded
+    return log
+
+
+def check_decode_gemms(log: list, qeng) -> dict:
+    """Every recorded decode GEMM's result against its plain version on
+    the same inputs: an fp32 one (K1/K3 row panels) within
+    fp32_tol(k) of ``tiled_mm_ref``, an int8 one (K2's exact int32 panels,
+    dequantized at the recorded scale) BITWISE the raw ``qmm_ref`` through
+    the same ``dequant_finish``.  Returns the counts and the fp32 max
+    |err|; raises on a mismatch."""
+    out = {"fp32": 0, "int8": 0, "max_abs_err": 0.0}
+    if not log:
+        raise AssertionError("serving: no decode GEMM was submitted")
+    for a, b, scale, fut in log:
+        got = fut.result(SERVE_TIMEOUT)
+        if scale is None:
+            want = tiled_mm_ref(a, b)
+            tol = fp32_tol(b.shape[0])
+            torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     (got - want).abs().max().item())
+            out["fp32"] += 1
+        else:
+            qw = qeng.quantized(b)
+            acc = qmm_ref(quantize_activations(a, scale), qw.q, qw.scale,
+                          fuse_dequant=False)
+            want = dequant_finish(acc, qw, act_scale=scale,
+                                  out_dtype=torch.float32)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"serving: int8 decode GEMM {tuple(a.shape)} x "
+                    f"{tuple(b.shape)} differs from qmm_ref by "
+                    f"{(got - want).abs().max().item():.3g}")
+            out["int8"] += 1
+    return out
+
+
+def serve_run(cfg, params: dict, pool: list, device: str | None = None,
+              n: int = SERVE_REQUESTS, **kw) -> dict:
+    """One server over a fresh ``SynergyRuntime(pool)``: ``n`` requests
+    submitted and run to the end (``run()`` drains the in-flight
+    window), launch counts set to 0 just before the submits and read just
+    after the final synchronize; then every decode GEMM of the run held
+    against its plain version (check_decode_gemms).  Returns the tokens,
+    the decode-GEMM outputs and that check, the counts, the stats and the
+    times: wall and the serving thread's own CPU time
+    (``time.thread_time``).  ``device`` defaults to DEVICE."""
+    device = device or DEVICE
+    reqs = serve_requests(cfg, n=n)
+    qeng = (get_engine("cuda-tiled-int8") if "cuda-tiled-int8" in pool
+            else None)
+    with SynergyRuntime(pool, name="serving", device=device) as rt:
+        log = record_decode_gemms(rt, qeng)
+        srv = SynergyServer(cfg, params, slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, prefill_len=SERVE_PROMPT,
+                            runtime=rt, submit_timeout=SERVE_TIMEOUT,
+                            keep_decode_outputs=True, device=device, **kw)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        reset_launches()
+        cpu0, t0 = time.thread_time(), time.perf_counter()
+        for r in reqs:
+            srv.submit(r)
+        stats = srv.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        host = time.thread_time() - cpu0
+        counts = launch_counts()
+        steals = rt.stats()["total_steals"]
+        checked = check_decode_gemms(log, qeng)
+    generated = sum(len(r.out) for r in reqs)
+    return {"tokens": [list(r.out) for r in reqs],
+            "outputs": srv.decode_gemm_outputs, "checked": checked,
+            "launches": counts,
+            "stats": stats, "steals": steals, "wall_s": wall,
+            "generated": generated,
+            "figures": {
+                "tokens_per_s": generated / wall,
+                "decode_tokens_per_s": stats.tokens_out / wall,
+                "ms_per_engine_step": 1e3 * wall / stats.engine_steps,
+                "host_us_per_engine_step": 1e6 * host / stats.engine_steps,
+                "wall_s": wall, "host_s": host}}
+
+
+def serve_profile(cfg, params: dict) -> dict:
+    """The card's busy share of one decode step (``decode_step`` and the
+    coalesced decode GEMM, drained) under ``torch.profiler``, on a
+    wave-batched server over ``SynergyRuntime(POOL)`` whose first wave is
+    admitted and whose first decode step warms up, both unprofiled."""
+    reqs = serve_requests(cfg, n=SERVE_SLOTS)
+    with SynergyRuntime(POOL, name="serving-profile", device=DEVICE) as rt:
+        srv = SynergyServer(cfg, params, slots=SERVE_SLOTS,
+                            max_len=SERVE_MAX_LEN, prefill_len=SERVE_PROMPT,
+                            runtime=rt, submit_timeout=SERVE_TIMEOUT,
+                            device=DEVICE)
+        for r in reqs:
+            srv.submit(r)
+        for _ in range(2):               # the admission, a warm-up step
+            srv.step()
+            srv.drain()
+        torch.cuda.synchronize()
+        kernels, busy_ms, wall = profiled_run(
+            lambda: (srv.step(), srv.drain()))
+        srv.run()
+    return {"wall_ms_under_profiler": 1e3 * wall, "kernels": kernels,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": None if busy_ms is None
+            else busy_ms / (1e3 * wall)}
+
+
+def phase_serving(card: str, lm: dict) -> dict:
+    """Slice 8: the continuous-batching server (``core/serving.py``) on
+    ``lm``'s LM_ARCH at full width (its params, on the card), SERVE_SLOTS
+    slots, max_len SERVE_MAX_LEN, the default MNIST prefill CNN, over
+    ``SynergyRuntime(POOL)`` and, for the int8 runs, ``QPOOL``: the
+    SERVE_RUNS in turn, each with counts set to 0 just before and read
+    just after.  Every run must give each request the first run's tokens;
+    each SERVE_BITWISE pair's decode-GEMM outputs must be bitwise; the fp32
+    runs launch K1 and K3 and never K2, the int8 runs launch K2, and no
+    run launches K4 or K5 (the prompt replay is ``decode_step``).  Both
+    int8 runs start from one calibrator state in which the decode GEMM's
+    scale is published (the fp32 runs fed it through their decode
+    hint).  Every decode GEMM of every run is held against its plain
+    version on its own inputs (check_decode_gemms: fp32 within
+    fp32_tol(k) of tiled_mm_ref, int8 bitwise qmm_ref).  Then the dense
+    real-FFN check (phase_serving_dense); then one decode step under the
+    profiler.  Prints tokens/s, ms and host µs per engine step
+    and the busy share beside the card, and the seconds each part took."""
+    t_phase = time.perf_counter()
+    cfg, params = lm["cfg"], lm["params"]
+    qeng = get_engine("cuda-tiled-int8")
+    key = qeng.act_key(cfg.d_model, 4 * cfg.d_model)
+    runs, q_state = {}, None
+    for name, pool, kw in SERVE_RUNS:
+        if pool is QPOOL:
+            if q_state is None:
+                if qeng.act_scale_for(*key) is None:
+                    raise AssertionError(f"serving: no published int8 scale "
+                                         f"for the decode GEMM {key}")
+                q_state = qeng.calibrator.export_state()
+            qeng.calibrator.import_state(q_state)
+        run = serve_run(cfg, params, pool, **kw)
+        counts = run["launches"]
+        if counts["flash_attention"] or counts["ssd"]:
+            raise AssertionError(f"serving ({name}) launched K4/K5: {counts}")
+        if pool is QPOOL:
+            if counts["qmm"] == 0 or counts["tiled_mm"] == 0:
+                raise AssertionError(f"serving ({name}): launches {counts}")
+        elif (counts["tiled_mm"] == 0 or counts["vpu_mm"] == 0
+                or counts["qmm"] != 0):
+            raise AssertionError(f"serving ({name}): launches {counts}")
+        first = next(iter(runs.values()), run)
+        if run["tokens"] != first["tokens"]:
+            raise AssertionError(f"serving ({name}): tokens differ from "
+                                 f"{SERVE_RUNS[0][0]}")
+        if (run["generated"] != SERVE_REQUESTS * SERVE_NEW
+                or run["stats"].prefills != SERVE_REQUESTS):
+            raise AssertionError(f"serving ({name}): {run['generated']} "
+                                 f"tokens, {run['stats'].prefills} prefills")
+        runs[name] = run
+        st = run["stats"]
+        print(f"serving ({name}): {st.prefill_waves} waves, "
+              f"{st.engine_steps} engine steps, {st.decode_steps} decode "
+              f"steps, {st.prefill_chunks} chunks, launches {counts}; "
+              f"decode GEMMs vs plain {run['checked']}; "
+              f"{run['figures']['tokens_per_s']:.1f} tokens/s, "
+              f"{run['figures']['ms_per_engine_step']:.1f} ms and "
+              f"{run['figures']['host_us_per_engine_step']:.0f} host µs "
+              f"per engine step", flush=True)
+    for a, b in SERVE_BITWISE:
+        ya, yb = runs[a]["outputs"], runs[b]["outputs"]
+        if len(ya) != len(yb) or not ya or any(
+                x.shape != y.shape or not torch.equal(x, y)
+                for x, y in zip(ya, yb)):
+            raise AssertionError(f"serving: decode-GEMM outputs of {a!r} "
+                                 f"and {b!r} are not bitwise equal")
+        if not all(bool(torch.isfinite(x).all()) for x in ya):
+            raise AssertionError(f"serving ({a}): decode GEMM not finite")
+    runs_s = time.perf_counter() - t_phase
+    dense = phase_serving_dense()
+    dense_s = time.perf_counter() - t_phase - runs_s
+    profile = serve_profile(cfg, params)
+    phase_s = time.perf_counter() - t_phase
+    emit({"serving": LM_ARCH, "slots": SERVE_SLOTS,
+          "max_len": SERVE_MAX_LEN, "requests": SERVE_REQUESTS,
+          "prompt": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+          "prefill_cnn": "MNIST",
+          "runs": [{"run": name, "pool": pool,
+                    "launches": runs[name]["launches"],
+                    "engine_steps": runs[name]["stats"].engine_steps,
+                    "decode_steps": runs[name]["stats"].decode_steps,
+                    "prefill_waves": runs[name]["stats"].prefill_waves,
+                    "prefill_chunks": runs[name]["stats"].prefill_chunks,
+                    "decode_stall_steps":
+                        runs[name]["stats"].decode_stall_steps,
+                    "runtime_jobs": runs[name]["stats"].runtime_jobs,
+                    "precision_jobs": runs[name]["stats"].precision_jobs,
+                    "steals": runs[name]["steals"],
+                    "decode_gemms_vs_plain": runs[name]["checked"],
+                    **runs[name]["figures"]}
+                   for name, pool, _ in SERVE_RUNS],
+          "tokens": runs[SERVE_RUNS[0][0]]["tokens"],
+          "bitwise_pairs": SERVE_BITWISE, "dense_check": dense,
+          "profile": {"one decode step": profile},
+          "seconds": {"runs": runs_s, "dense_check": dense_s,
+                      "profile": phase_s - runs_s - dense_s,
+                      "phase": phase_s},
+          "timer": "host clock from the first submit to the synchronize "
+                   "after run(); host = the serving thread's CPU time",
+          "card": card})
+    print(f"serving: {len(SERVE_RUNS)} runs of {LM_ARCH} at full width, "
+          f"every request's tokens equal across runs, decode GEMMs bitwise "
+          f"in {SERVE_BITWISE}; busy share of a decode step "
+          f"{profile['device_busy_share']}; runs {runs_s:.1f} s, dense "
+          f"check {dense_s:.1f} s, phase {phase_s:.1f} s; card {card}",
+          flush=True)
+    return {name: runs[name]["launches"] for name, _, _ in SERVE_RUNS}
+
+
+def phase_serving_dense() -> dict:
+    """Slice 8, the real-FFN decode GEMM: SERVE_DENSE reduced (the
+    stacked-``wi`` decode weight) served over ``SynergyRuntime(POOL)`` on
+    the CPU (batched) and on the card (batched and per-slot) with the same
+    LM and CNN weights, one wave of SERVE_SLOTS requests: equal tokens per
+    request, the card's batched decode-GEMM outputs BITWISE its per-slot
+    ones and within 1e-5·sqrt(d_model) of the CPU's, K1 launched on the
+    card and no kernel on the CPU."""
+    arch, n_layers = SERVE_DENSE
+    cfg = reduced(ARCHS[arch], n_layers=n_layers)
+    params = init_model(cfg, 0, device="cpu")
+    cnn = init_cnn(PAPER_CNNS["MNIST"], torch.Generator().manual_seed(0),
+                   device="cpu")
+    cpu = serve_run(cfg, params, POOL, device="cpu", cnn_params=cnn,
+                    n=SERVE_SLOTS)
+    card, slot = (serve_run(cfg, to_device(params), POOL,
+                            cnn_params=to_device(cnn), n=SERVE_SLOTS,
+                            decode_mode=mode)
+                  for mode in ("batched", "per-slot"))
+    if not card["tokens"] == slot["tokens"] == cpu["tokens"]:
+        raise AssertionError(f"serving dense {arch}: the card's tokens "
+                             f"(batched, per-slot) differ from the CPU's")
+    if not (len(card["outputs"]) == len(slot["outputs"])
+            == len(cpu["outputs"]) > 0):
+        raise AssertionError(f"serving dense {arch}: decode outputs "
+                             f"{len(card['outputs'])}, "
+                             f"{len(slot['outputs'])} vs "
+                             f"{len(cpu['outputs'])}")
+    tol = fp32_tol(cfg.d_model)
+    err = 0.0
+    for got, per_slot, want in zip(card["outputs"], slot["outputs"],
+                                   cpu["outputs"]):
+        if not torch.equal(got, per_slot):
+            raise AssertionError(f"serving dense {arch}: batched and "
+                                 f"per-slot decode GEMMs differ on the card")
+        torch.testing.assert_close(got.cpu(), want, rtol=tol, atol=tol)
+        err = max(err, (got.cpu() - want).abs().max().item())
+    if card["launches"]["tiled_mm"] == 0 or slot["launches"]["tiled_mm"] == 0:
+        raise AssertionError(f"serving dense {arch}: no K1 launch")
+    if any(cpu["launches"].values()):
+        raise AssertionError(f"serving dense {arch}: the CPU run launched "
+                             f"kernels {cpu['launches']}")
+    print(f"serving dense {arch} ({n_layers} layers, decode GEMM "
+          f"{cfg.d_model} x {n_layers * 2 * cfg.d_ff}): tokens equal on the "
+          f"card (batched, per-slot) and the CPU, card decode GEMMs bitwise "
+          f"across modes, max |diff| to the CPU {err:.3g} (tol {tol:.3g}); "
+          f"card launches {card['launches']}, {slot['launches']}",
+          flush=True)
+    return {"arch": arch, "n_layers": n_layers, "max_abs_diff": err,
+            "tol": tol, "launches": card["launches"],
+            "per_slot_launches": slot["launches"],
+            "cpu_launches": cpu["launches"],
+            "decode_steps": card["stats"].decode_steps}
+
+
+def serving_launches(serving: dict, name: str) -> dict:
+    """A kernel's launches in each of phase_serving's runs."""
+    return {"launches": {run: counts[name]
+                         for run, counts in serving.items()},
+            "per": (f"each {LM_ARCH} serving run: {SERVE_REQUESTS} requests "
+                    f"of {SERVE_PROMPT} + {SERVE_NEW} tokens, "
+                    f"{SERVE_SLOTS} slots")}
+
+
 def summary(t: dict) -> dict:
     """The kernels line's time keys from per-forward totals."""
     return {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -2436,6 +2805,7 @@ def main() -> int:
     decode = phase_decode_paths(main)
     lm = phase_lm(card)
     phase_reduced_lm()
+    serving = phase_serving(card, lm)
 
     # phase 5: times
     totals, dispatcher_s = phase_times(card, main)
@@ -2484,7 +2854,8 @@ def main() -> int:
                        "8,192 rows")},
                    "graph": {"launches": graph[name], "per": (
                        f"the conv front-end of CIFAR_Alex+ x{FRAMES} as "
-                       f"{FRAMES // MICRO} wave graphs")}}
+                       f"{FRAMES // MICRO} wave graphs")},
+                   "serving": serving_launches(serving, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -2509,6 +2880,7 @@ def main() -> int:
                  "replaces": replaces, "launches": run[name],
                  "max_abs_err": err, **summary(runtime_totals[name]),
                  "per": on_runtime, "by_path": by_path}
+        entry["plain_note"] = PLAIN_F64_NOTE
         if name == "vpu_mm":
             entry["whole_gemms"] = {**summary(vpu_whole),
                                     "tiled_mm_ms": totals["ms"],
@@ -2535,7 +2907,8 @@ def main() -> int:
                                    **summary(qmm_dispatcher),
                                    "per": whole + ", fused epilogue"},
                     "runtime": {**q_runtime, "launches_by_path":
-                                decode["runtime_paths"]}}})
+                                decode["runtime_paths"]},
+                    "serving": serving_launches(serving, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -2558,7 +2931,8 @@ def main() -> int:
                                                    "prefill under "
                                                    "torch.profiler"}},
                 "lm_decode": {"launches_per_step":
-                              lm["decode"]["launches_per_step"][name]}}})
+                              lm["decode"]["launches_per_step"][name]},
+                "serving": serving_launches(serving, name)}})
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -84,7 +84,9 @@ class CudaTiledEngine(Engine):
 
 
 class ReferenceEngine(Engine):
-    """Plain fp32 oracle — correctness baseline, never speed-ranked."""
+    """Plain oracle — correctness baseline, never speed-ranked: fp32 out,
+    the products summed in float64 and rounded once (``tiled_mm_ref``),
+    so a row's bits do not depend on how many rows share the call."""
 
     def __init__(self, name: str = "reference"):
         super().__init__(name, {CAP_GEMM, CAP_EPILOGUE, CAP_GRAD, CAP_ORACLE},

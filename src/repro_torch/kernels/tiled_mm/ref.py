@@ -17,9 +17,14 @@ def tiled_mm_ref(a: torch.Tensor, b: torch.Tensor, *,
                  bias: torch.Tensor | None = None,
                  activation: Callable | None = None,
                  out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """act(A @ B + bias), accumulated in fp32, cast to ``out_dtype``
-    (default: A's dtype)."""
-    y = torch.matmul(a.to(torch.float32), b.to(torch.float32))
+    """act(A @ B + bias) in fp32, cast to ``out_dtype`` (default: A's
+    dtype).  The products are summed in float64 and rounded once to fp32,
+    so a row's bits do not depend on how many rows share the call (a BLAS
+    fp32 GEMM picks its algorithm by m): the plain version keeps the
+    kernel's promise that a row panel gives the whole GEMM's rows, on
+    which batched and per-slot serving decode agree bitwise."""
+    y = torch.matmul(a.to(torch.float64),
+                     b.to(torch.float64)).to(torch.float32)
     if bias is not None:
         y = y + bias.to(torch.float32)
     if activation is not None:

@@ -18,7 +18,10 @@ CPU, and whose decode launches neither and reproduces the forward; the
 reduced zamba2 and mamba2-130m prefilling on the card.  The inter-frame
 pipeline with stages pinned to K1 and K3 bitwise the dispatcher's logits,
 and CIFAR_Alex+ wave graphs over K1 + K3 bitwise the dispatcher's conv
-front-end, with a graph cancel draining queued panels on the card.
+front-end, with a graph cancel draining queued panels on the card.  The
+continuous-batching server over K1 + K3 on the card: the CPU's tokens,
+batched decode bitwise per-slot, decode GEMMs within 1e-5·sqrt(k) of the
+CPU's.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -757,3 +760,20 @@ def test_graph_cancel_on_the_card_drains_queued_panels(cuda):
         fresh, = cs.graph_waves(rt, cfg, params, [x], name="after")
         got = fresh.result(60)[-1]
     assert torch.equal(got, cs.conv_front(cfg, params, x))
+
+
+# ------------------------------------------------------------- the server
+
+
+def test_server_on_the_card_matches_the_cpu_and_its_decode_modes(cuda):
+    """``chip_smoke.py``'s dense serving check: a reduced granite server
+    (the real-FFN decode GEMM) over ``SynergyRuntime(POOL)`` on the card
+    gives each request the CPU server's tokens in both decode modes,
+    batched decode is BITWISE per-slot, the decode-GEMM outputs are within
+    1e-5·sqrt(k) of the CPU's and of the plain version on their own
+    inputs, and K1 launched on the card and not on the CPU."""
+    dense = _chip_smoke().phase_serving_dense()
+    assert dense["launches"]["tiled_mm"] > 0
+    assert dense["per_slot_launches"]["tiled_mm"] > 0
+    assert dense["decode_steps"] > 0
+    assert not any(dense["cpu_launches"].values())

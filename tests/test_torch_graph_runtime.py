@@ -34,6 +34,7 @@ from repro.soc.graph import validate_dag as jax_validate_dag
 from repro_torch.configs import PAPER_CNNS
 from repro_torch.core.job import JobSet
 from repro_torch.engines import CAP_GEMM, CostModel, Engine
+from repro_torch.kernels.tiled_mm import tiled_mm_ref
 from repro_torch.models import cnn
 from repro_torch.soc import (GraphCancelled, GraphFuture, GraphNode,
                              SynergyRuntime)
@@ -62,12 +63,8 @@ class _DelayEngine(Engine):
     def execute(self, a, b, *, bias=None, activation=None, tile=None,
                 out_dtype=None):
         time.sleep(self._rng.random() * self._max_delay_s)
-        y = torch.matmul(a.float(), b.float())
-        if bias is not None:
-            y = y + bias
-        if activation is not None:
-            y = activation(y)
-        return y.to(out_dtype or a.dtype)
+        return tiled_mm_ref(a, b, bias=bias, activation=activation,
+                            out_dtype=out_dtype)
 
 
 class _GatedEngine(Engine):

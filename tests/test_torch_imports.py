@@ -28,6 +28,7 @@ def _forbidden(name: str) -> bool:
 
 def test_the_port_has_modules():
     assert len(FILES) > 10
+    assert ROOT / "src" / "repro_torch" / "core" / "serving.py" in FILES
 
 
 @pytest.mark.parametrize("path", FILES,

@@ -166,3 +166,50 @@ def test_the_process_registry_is_shared():
     assert isinstance(REGISTRY, MetricsRegistry)
     from repro_torch.obs import metrics
     assert metrics.REGISTRY is REGISTRY
+
+
+def test_render_prometheus_of_a_mirrored_server_run_equals_repros():
+    """``render_prometheus(runtime=rt, server=srv)`` after the same
+    tenanted run on repro's server and the port's (one F-PE worker each):
+    the same text, sample for sample, but for the samples that read the
+    host's wall clock (busy fraction, queue-wait seconds)."""
+    import numpy as np
+    from repro.soc import Tenant as JaxTenant
+    from repro_torch.soc import Tenant
+    from test_torch_serving import (assert_same_stats, outs, requests,
+                                    servers, submit_all)
+
+    wall_clock = {"repro_engine_busy_fraction",
+                  "repro_tenant_queue_wait_seconds_total"}
+    jrt = JaxSynergyRuntime(["F-PE"], name="obs-serve")
+    trt = SynergyRuntime(["F-PE"], name="obs-serve", device="cpu")
+    with jrt, trt:
+        js, ts = servers(slots=2, jax_kw={"runtime": jrt,
+                                          "tenants": [JaxTenant("t0")]},
+                         torch_kw={"runtime": trt,
+                                   "tenants": [Tenant("t0")]})
+        jr, tr = requests(3, max_new=3, tenant="t0",
+                          toks=lambda i: np.arange(4) + i)
+        submit_all(js, jr)
+        submit_all(ts, tr)
+        jst, tst = js.run(), ts.run()
+        text = render_prometheus(runtime=trt, server=ts,
+                                 registry=MetricsRegistry())
+        jtext = jax_render_prometheus(runtime=jrt, server=js,
+                                      registry=JaxMetricsRegistry())
+    assert outs(tr) == outs(jr)
+    assert_same_stats(jst, tst)
+    assert _families(text) == _families(jtext)
+    parsed, jparsed = parse_prometheus(text), parse_prometheus(jtext)
+    assert parsed.keys() == jparsed.keys()
+    for name in parsed:
+        if name in wall_clock:
+            assert [lb for lb, _ in parsed[name]] == \
+                [lb for lb, _ in jparsed[name]], name
+        else:
+            assert parsed[name] == jparsed[name], name
+    assert parsed["repro_serve_tokens_total"] == [({}, tst.tokens_out)]
+    assert parsed["repro_tenant_admitted_total"] == [({"tenant": "t0"},
+                                                      3.0)]
+    assert {lb["engine"] for lb, _ in parsed["repro_engine_jobs_total"]} \
+        == {"F-PE"}

@@ -185,3 +185,22 @@ def test_ffma_chain_ref_matches_jax_oracle(act, bias):
                            activation=None if act is None else jax.nn.relu)
     _close(ffma_chain_ref(ta, tb, bias=tc, activation=act), ref,
            1e-5 * np.sqrt(75))
+
+
+@pytest.mark.parametrize("plain", ["tiled_mm_ref", "vpu_mm_ref"])
+@pytest.mark.parametrize("k,n", [(32, 256), (1600, 64), (2560, 512)])
+def test_plain_rows_do_not_depend_on_how_many_rows_share_the_call(plain,
+                                                                   k, n):
+    """The kernels pick their path by (n, k, dtype), never by m, so a row
+    panel gives the whole GEMM's rows; the plain versions keep that on the
+    CPU (a float64 sum rounded once), which is what makes the server's
+    batched and per-slot decode agree bitwise there."""
+    from repro_torch.kernels.vpu_mm import vpu_mm_ref
+    fn = {"tiled_mm_ref": tiled_mm_ref, "vpu_mm_ref": vpu_mm_ref}[plain]
+    g = torch.Generator().manual_seed(k + n)
+    a = torch.randn(64, k, generator=g)
+    b = torch.randn(k, n, generator=g)
+    whole = fn(a, b)
+    for m in (1, 2, 3, 17, 32):
+        assert torch.equal(fn(a[:m], b), whole[:m]), m
+        assert torch.equal(fn(a[m:m + 1], b), whole[m:m + 1]), m
