@@ -90,6 +90,26 @@ Phases, in order; each raises on failure and nothing is caught:
    the card's modes bitwise, decode GEMMs within 1e-5·sqrt(d_model) of
    the CPU's.  Tokens/s, ms and host µs per engine step, and the
    card's busy share of one decode step under ``torch.profiler``.
+   Slice 9, ``durability``: the same zamba2-2.7b server with
+   ``Durability`` (snapshots every 4 steps, 2 kept, in a temporary
+   directory removed afterwards) crashes at engine step 6 by a
+   ``CrashPlan`` (a snapshot taken, decode live, requests queued), its
+   runtime shut down, and ``SynergyServer.restore`` on a fresh runtime
+   runs to the end: wave + batched over ``["cuda-tiled", "neon-vpu"]``
+   and int8 batched over ``["cuda-tiled", "cuda-tiled-int8"]`` from the
+   serving phase's int8 calibrator state.  Each request's tokens equal
+   the serving run's, ``tokens_out + replayed_tokens`` its
+   ``tokens_out``, ``restores`` 1; counts set to 0 just before the
+   restore and read just after: fp32 launches K1 and K3 and not K2, int8
+   K2, neither K4 nor K5; every decode GEMM of the restored server held
+   against its plain version as in ``serving``.  Then one real kill: a
+   child process (``python3 -c``, the port only) serves the reduced
+   granite-3-2b on the card with ``Durability`` and is SIGKILLed once its
+   journal holds 4 token records; the parent restores on the card and
+   runs to the end, and every request's tokens, as the journal delivered
+   them, equal the card's uninterrupted run.  Snapshot bytes, ms per
+   snapshot (host copy, wait on the writer), restore ms (load, replay),
+   replayed tokens and jobs, torn-tail bytes and the phase's seconds.
 5. Times (CUDA events, warm-up, median of 25): per Alex+ GEMM, each kernel,
    its plain version, ``torch.addmm`` + ReLU as the library yardstick, and
    the bound; both kernels also at the runtime's panel shapes, weighted by
@@ -135,7 +155,8 @@ Phases, in order; each raises on failure and nothing is caught:
    path, times, bound and library time over the LM GEMMs; K1's and K3's
    give ``pipeline``, ``runtime_steal`` and ``graph``: their launches in
    slice 7's runs; every kernel's gives ``serving``: its launches in each
-   of slice 8's serving runs.
+   of slice 8's serving runs, and ``durability``: in each of slice 9's
+   restored runs.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -147,10 +168,14 @@ import collections
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -197,7 +222,9 @@ from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
                                dequant_finish, quantize_activations,
                                quantize_weights, register_quantized, rel_err)
 from repro_torch.core.serving import Request, SynergyServer  # noqa: E402
-from repro_torch.soc import GraphCancelled, SynergyRuntime  # noqa: E402
+from repro_torch.soc import (CrashPlan, Durability,  # noqa: E402
+                             GraphCancelled, RequestJournal, SimulatedCrash,
+                             SynergyRuntime)
 
 DEVICE = "cuda"
 
@@ -327,6 +354,27 @@ SERVE_RUNS = [("wave, batched", POOL, {}),
 #: the (batched, per-slot) pairs whose decode-GEMM outputs must be bitwise
 SERVE_BITWISE = [("wave, batched", "wave, per-slot"),
                  ("int8, batched", "int8, per-slot")]
+#: slice 9, durable serving on the serving runs' server: snapshots every
+#: DUR_SNAPSHOT_EVERY engine steps, the newest DUR_KEEP kept; the
+#: CrashPlan fires at the start of engine step DUR_CRASH_AT (0-based): the
+#: first wave was admitted at step 1 and has decoded since, the snapshot
+#: after step 4 was taken, and SERVE_REQUESTS - SERVE_SLOTS requests are
+#: still queued (the phase checks all three)
+DUR_SNAPSHOT_EVERY = 4
+DUR_KEEP = 2
+DUR_CRASH_AT = 6
+#: (serving run whose tokens a restored run must give, pool)
+DUR_RUNS = [("wave, batched", POOL), ("int8, batched", QPOOL)]
+#: the real kill: SERVE_DENSE on the card in a child process serving
+#: DUR_KILL_REQUESTS requests of SERVE_PROMPT + DUR_KILL_NEW tokens,
+#: SIGKILLed once its journal holds DUR_KILL_TOKEN_RECORDS token records
+DUR_KILL_REQUESTS = 16
+DUR_KILL_NEW = 24
+DUR_KILL_TOKEN_RECORDS = 4
+DUR_KILL_TIMEOUT = 300
+#: the child: ``python3 -c KILL_CHILD <checkout> <directory>``
+KILL_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
+              "import chip_smoke; chip_smoke.kill_child(sys.argv[2])")
 
 
 #: K1's and K3's plain versions sum in float64 and round once to fp32, so a
@@ -2500,7 +2548,7 @@ def check_decode_gemms(log: list, qeng) -> dict:
 
 
 def serve_run(cfg, params: dict, pool: list, device: str | None = None,
-              n: int = SERVE_REQUESTS, **kw) -> dict:
+              n: int = SERVE_REQUESTS, new: int = SERVE_NEW, **kw) -> dict:
     """One server over a fresh ``SynergyRuntime(pool)``: ``n`` requests
     submitted and run to the end (``run()`` drains the in-flight
     window), launch counts set to 0 just before the submits and read just
@@ -2510,7 +2558,7 @@ def serve_run(cfg, params: dict, pool: list, device: str | None = None,
     times: wall and the serving thread's own CPU time
     (``time.thread_time``).  ``device`` defaults to DEVICE."""
     device = device or DEVICE
-    reqs = serve_requests(cfg, n=n)
+    reqs = serve_requests(cfg, n=n, new=new)
     qeng = (get_engine("cuda-tiled-int8") if "cuda-tiled-int8" in pool
             else None)
     with SynergyRuntime(pool, name="serving", device=device) as rt:
@@ -2590,7 +2638,9 @@ def phase_serving(card: str, lm: dict) -> dict:
     fp32_tol(k) of tiled_mm_ref, int8 bitwise qmm_ref).  Then the dense
     real-FFN check (phase_serving_dense); then one decode step under the
     profiler.  Prints tokens/s, ms and host µs per engine step
-    and the busy share beside the card, and the seconds each part took."""
+    and the busy share beside the card, and the seconds each part took.
+    Returns each run's launches, the first run's tokens and
+    ``tokens_out``, and the calibrator state the int8 runs start from."""
     t_phase = time.perf_counter()
     cfg, params = lm["cfg"], lm["params"]
     qeng = get_engine("cuda-tiled-int8")
@@ -2679,7 +2729,23 @@ def phase_serving(card: str, lm: dict) -> dict:
           f"{profile['device_busy_share']}; runs {runs_s:.1f} s, dense "
           f"check {dense_s:.1f} s, phase {phase_s:.1f} s; card {card}",
           flush=True)
-    return {name: runs[name]["launches"] for name, _, _ in SERVE_RUNS}
+    return {"launches": {name: runs[name]["launches"]
+                         for name, _, _ in SERVE_RUNS},
+            "tokens": {name: runs[name]["tokens"] for name, _, _ in SERVE_RUNS},
+            "tokens_out": {name: runs[name]["stats"].tokens_out
+                           for name, _, _ in SERVE_RUNS},
+            "q_state": q_state}
+
+
+def dense_model() -> tuple:
+    """SERVE_DENSE reduced, its LM params and the MNIST prefill CNN's, on
+    the CPU, from seed 0."""
+    arch, n_layers = SERVE_DENSE
+    cfg = reduced(ARCHS[arch], n_layers=n_layers)
+    params = init_model(cfg, 0, device="cpu")
+    cnn = init_cnn(PAPER_CNNS["MNIST"], torch.Generator().manual_seed(0),
+                   device="cpu")
+    return cfg, params, cnn
 
 
 def phase_serving_dense() -> dict:
@@ -2691,10 +2757,7 @@ def phase_serving_dense() -> dict:
     ones and within 1e-5·sqrt(d_model) of the CPU's, K1 launched on the
     card and no kernel on the CPU."""
     arch, n_layers = SERVE_DENSE
-    cfg = reduced(ARCHS[arch], n_layers=n_layers)
-    params = init_model(cfg, 0, device="cpu")
-    cnn = init_cnn(PAPER_CNNS["MNIST"], torch.Generator().manual_seed(0),
-                   device="cpu")
+    cfg, params, cnn = dense_model()
     cpu = serve_run(cfg, params, POOL, device="cpu", cnn_params=cnn,
                     n=SERVE_SLOTS)
     card, slot = (serve_run(cfg, to_device(params), POOL,
@@ -2740,10 +2803,313 @@ def phase_serving_dense() -> dict:
 def serving_launches(serving: dict, name: str) -> dict:
     """A kernel's launches in each of phase_serving's runs."""
     return {"launches": {run: counts[name]
-                         for run, counts in serving.items()},
+                         for run, counts in serving["launches"].items()},
             "per": (f"each {LM_ARCH} serving run: {SERVE_REQUESTS} requests "
                     f"of {SERVE_PROMPT} + {SERVE_NEW} tokens, "
                     f"{SERVE_SLOTS} slots")}
+
+
+def durability_launches(durability: dict, name: str) -> dict:
+    """A kernel's launches in each of phase_durability's restored runs."""
+    return {"launches": {run: counts[name] for run, counts
+                         in durability["launches"].items()},
+            "per": (f"each {LM_ARCH} durability run, from the restore "
+                    f"(snapshot load and journal replay) to the end")}
+
+
+def timed_snapshots(srv) -> list:
+    """Wrap ``srv.snapshot`` (which ``step()`` calls on its cadence) so
+    that each snapshot's wall seconds are kept in the returned list."""
+    times, snapshot = [], srv.snapshot
+
+    def timed():
+        t0 = time.perf_counter()
+        step = snapshot()
+        times.append(time.perf_counter() - t0)
+        return step
+
+    srv.snapshot = timed
+    return times
+
+
+def snapshot_figures(srv, times: list) -> dict:
+    """A durable server's snapshots so far: how many, the last one's
+    bytes, and ms per snapshot in all (the window reaped, the pool
+    quiesced, the save) and of its two parts on the serving thread: the
+    host copy and the wait on the previous snapshot's writer."""
+    ck, n = srv._ck, max(1, len(times))
+    return {"snapshots": len(times), "bytes": ck.last_bytes,
+            "ms_per_snapshot": 1e3 * sum(times) / n,
+            "host_copy_ms": 1e3 * ck.copy_s / n,
+            "writer_wait_ms": 1e3 * ck.wait_s / n}
+
+
+def journal_streams(path: str) -> dict:
+    """Each request's tokens as the journal delivered them: its "first"
+    token, then its "tok" tokens, in order."""
+    out: dict = {}
+    for rec in RequestJournal.scan(path)[0]:
+        if rec["t"] in ("first", "tok"):
+            for rid, _, tok in rec["e"]:
+                out.setdefault(rid, []).append(tok)
+    return out
+
+
+def durable_run(cfg, params: dict, pool: list, workdir: str) -> dict:
+    """One crash and restore of the serving runs' server over ``pool``:
+    SERVE_REQUESTS requests served with ``Durability(workdir)`` until the
+    CrashPlan fires at DUR_CRASH_AT; that server's runtime shut down; then
+    ``SynergyServer.restore`` on a fresh runtime, run to the end, launch
+    counts set to 0 just before the restore and read just after the final
+    synchronize, and every decode GEMM from the restore on held against
+    its plain version (check_decode_gemms).  Returns the tokens, counts,
+    stats and the snapshot and restore figures."""
+    reqs = serve_requests(cfg)
+    qeng = (get_engine("cuda-tiled-int8") if "cuda-tiled-int8" in pool
+            else None)
+    d = Durability(workdir, snapshot_every=DUR_SNAPSHOT_EVERY, keep=DUR_KEEP)
+    kw = dict(slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+              prefill_len=SERVE_PROMPT, submit_timeout=SERVE_TIMEOUT,
+              device=DEVICE)
+    with SynergyRuntime(pool, name="durable", device=DEVICE) as rt:
+        srv = SynergyServer(cfg, params, runtime=rt, durable=d,
+                            crash_plan=CrashPlan(at_step=DUR_CRASH_AT), **kw)
+        times = timed_snapshots(srv)
+        try:
+            for r in reqs:
+                srv.submit(r)
+            srv.run()
+        except SimulatedCrash:
+            pass
+        else:
+            raise AssertionError("durability: the CrashPlan never fired")
+        live = sum(r is not None for r in srv.slot_req)
+        queued = len(srv.pending)
+        if not (srv.stats.snapshots and live and queued):
+            raise AssertionError(
+                f"durability: at the crash {srv.stats.snapshots} snapshots, "
+                f"{live} live slots, {queued} queued requests")
+        crashed = snapshot_figures(srv, times)
+        srv._ck.wait()          # a killed process's writer dies with it
+    with SynergyRuntime(pool, name="durable-restored", device=DEVICE) as rt:
+        log = record_decode_gemms(rt, qeng)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        srv2 = SynergyServer.restore(cfg, params, durable=d, runtime=rt, **kw)
+        times2 = timed_snapshots(srv2)
+        stats = srv2.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        restored = snapshot_figures(srv2, times2)
+        srv2._ck.wait()
+        checked = check_decode_gemms(log, qeng)
+    got = {rid: list(r.out) for rid, r in srv2.restored_requests.items()}
+    return {"tokens": [got.get(r.rid, list(r.out)) for r in reqs],
+            "launches": counts, "stats": stats, "checked": checked,
+            "at_crash": {"engine_steps": DUR_CRASH_AT, "live": live,
+                         "queued": queued, **crashed},
+            "restored": restored, "restore_wall_s": wall,
+            "restore_ms": {k: 1e3 * v
+                           for k, v in srv2.restore_seconds.items()}}
+
+
+def kill_child(workdir: str) -> None:
+    """The child process of phase_durability's real kill: SERVE_DENSE on
+    the card over ``SynergyRuntime(POOL)`` with ``Durability(workdir)``,
+    DUR_KILL_REQUESTS requests, one line per engine step.  It is meant
+    to be SIGKILLed; it prints DONE if it is not."""
+    cfg, params, cnn = dense_model()
+    d = Durability(workdir, snapshot_every=DUR_SNAPSHOT_EVERY, keep=DUR_KEEP)
+    with SynergyRuntime(POOL, name="durable-child", device=DEVICE) as rt:
+        srv = SynergyServer(cfg, to_device(params), runtime=rt,
+                            cnn_params=to_device(cnn), durable=d,
+                            slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                            prefill_len=SERVE_PROMPT,
+                            submit_timeout=SERVE_TIMEOUT, device=DEVICE)
+        for r in serve_requests(cfg, n=DUR_KILL_REQUESTS, new=DUR_KILL_NEW):
+            srv.submit(r)
+        while srv.step():
+            print("step", srv.stats.engine_steps, flush=True)
+        srv.close()
+    print("DONE", flush=True)
+
+
+def durable_kill() -> dict:
+    """One real kill, at the reduced size: ``kill_child`` in a child
+    process (``python3 -c``, the port only), SIGKILLed once its journal
+    holds DUR_KILL_TOKEN_RECORDS token records; then ``restore`` on the
+    card from its directory, run to the end.  Every request's tokens — as
+    the journal delivered them, once each, across the kill — must equal
+    the card's uninterrupted run of the same server (serve_run)."""
+    cfg, params, cnn = dense_model()
+    params, cnn = to_device(params), to_device(cnn)
+    ref = serve_run(cfg, params, POOL, n=DUR_KILL_REQUESTS,
+                    new=DUR_KILL_NEW, cnn_params=cnn)
+    workdir = tempfile.mkdtemp(prefix="durable-kill-")
+    try:
+        d = Durability(workdir, snapshot_every=DUR_SNAPSHOT_EVERY,
+                       keep=DUR_KEEP)
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, "-c", KILL_CHILD, str(ROOT), workdir],
+            stdout=subprocess.PIPE, text=True)
+        watchdog = threading.Timer(DUR_KILL_TIMEOUT, child.kill)
+        watchdog.start()
+        records, killed_at = 0, None
+        try:
+            for line in child.stdout:
+                if line.startswith("DONE"):
+                    break
+                records = sum(r["t"] == "tok" for r in
+                              RequestJournal.scan(d.journal_path)[0])
+                if records >= DUR_KILL_TOKEN_RECORDS:
+                    killed_at = line.split()[-1]
+                    child.send_signal(signal.SIGKILL)
+                    break
+            child.wait(timeout=DUR_KILL_TIMEOUT)
+        finally:
+            watchdog.cancel()
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+            child.stdout.close()
+        child_s = time.perf_counter() - t0
+        if killed_at is None or child.returncode != -signal.SIGKILL:
+            raise AssertionError(f"durability kill: the child was not "
+                                 f"killed mid-run (rc {child.returncode}, "
+                                 f"{records} token records)")
+        _, end, torn = RequestJournal.scan(d.journal_path)
+        torn_bytes = os.path.getsize(d.journal_path) - end
+        with SynergyRuntime(POOL, name="durable-kill", device=DEVICE) as rt:
+            srv = SynergyServer.restore(
+                cfg, params, durable=d, runtime=rt, cnn_params=cnn,
+                slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                prefill_len=SERVE_PROMPT, submit_timeout=SERVE_TIMEOUT,
+                device=DEVICE)
+            if srv._journal.truncated_bytes != torn_bytes:
+                raise AssertionError(
+                    f"durability kill: restore truncated "
+                    f"{srv._journal.truncated_bytes} bytes, the scan found "
+                    f"{torn_bytes}")
+            srv.run()
+            srv._ck.wait()
+        streams = journal_streams(d.journal_path)
+        want = {i: toks for i, toks in enumerate(ref["tokens"])}
+        if streams != want:
+            raise AssertionError("durability kill: the journal's streams "
+                                 "differ from the uninterrupted run's")
+        for rid, r in srv.restored_requests.items():
+            if list(r.out) != want[rid]:
+                raise AssertionError(f"durability kill: request {rid}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"killed_after_step": int(killed_at), "token_records": records,
+            "torn_tail_bytes": torn_bytes, "torn": torn,
+            "replayed_tokens": srv.stats.replayed_tokens,
+            "restores": srv.stats.restores,
+            "restore_ms": {k: 1e3 * v
+                           for k, v in srv.restore_seconds.items()},
+            "child_s": child_s}
+
+
+def phase_durability(card: str, lm: dict, serving: dict) -> dict:
+    """Slice 9: durable serving (``soc/durable.py``, ``checkpoint/`` and
+    the journal, snapshots and restore of ``core/serving.py``) on the
+    serving phase's zamba2-2.7b server at full width: for each DUR_RUNS
+    pool, a crash at DUR_CRASH_AT and a restore on a fresh runtime
+    (durable_run; the int8 run from the calibrator state the serving
+    phase's int8 runs started from).  Each request's tokens must equal the
+    serving run's; ``tokens_out + replayed_tokens`` its ``tokens_out``,
+    ``restores`` 1; from the restore on, fp32 launches K1 and K3 and not
+    K2, int8 launches K2, neither K4 nor K5, and every decode GEMM is held
+    against its plain version.  Then one real SIGKILL at the reduced size
+    (durable_kill).  Prints the snapshot bytes and ms (host copy, wait on
+    the writer), the restore ms (load, replay), the replayed tokens and
+    jobs and the phase's seconds, beside the card."""
+    t_phase = time.perf_counter()
+    cfg, params = lm["cfg"], lm["params"]
+    qeng = get_engine("cuda-tiled-int8")
+    print(f"durability: CrashPlan(at_step={DUR_CRASH_AT}), snapshots every "
+          f"{DUR_SNAPSHOT_EVERY} steps, keep {DUR_KEEP}", flush=True)
+    runs = {}
+    for name, pool in DUR_RUNS:
+        if pool is QPOOL:
+            qeng.calibrator.import_state(serving["q_state"])
+        workdir = tempfile.mkdtemp(prefix="durable-")
+        try:
+            run = durable_run(cfg, params, pool, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        st, counts = run["stats"], run["launches"]
+        if run["tokens"] != serving["tokens"][name]:
+            raise AssertionError(f"durability ({name}): restored tokens "
+                                 f"differ from the serving run's")
+        if (st.tokens_out + st.replayed_tokens != serving["tokens_out"][name]
+                or st.restores != 1 or not st.replayed_tokens):
+            raise AssertionError(
+                f"durability ({name}): tokens_out {st.tokens_out} + "
+                f"replayed {st.replayed_tokens} vs "
+                f"{serving['tokens_out'][name]}, restores {st.restores}")
+        if counts["flash_attention"] or counts["ssd"]:
+            raise AssertionError(f"durability ({name}) launched K4/K5: "
+                                 f"{counts}")
+        if pool is QPOOL:
+            if counts["qmm"] == 0:
+                raise AssertionError(f"durability ({name}): launches {counts}")
+        elif (counts["tiled_mm"] == 0 or counts["vpu_mm"] == 0
+                or counts["qmm"] != 0):
+            raise AssertionError(f"durability ({name}): launches {counts}")
+        runs[name] = run
+        print(f"durability ({name}): crashed at step {DUR_CRASH_AT} with "
+              f"{run['at_crash']['live']} live, {run['at_crash']['queued']} "
+              f"queued, {run['at_crash']['snapshots']} snapshots of "
+              f"{run['at_crash']['bytes']} bytes, "
+              f"{run['at_crash']['ms_per_snapshot']:.1f} ms each (host copy "
+              f"{run['at_crash']['host_copy_ms']:.1f}, writer wait "
+              f"{run['at_crash']['writer_wait_ms']:.1f}); restore load "
+              f"{run['restore_ms']['load']:.1f} ms, replay "
+              f"{run['restore_ms']['replay']:.1f} ms, {st.replayed_tokens} "
+              f"tokens and {st.replayed_jobs} jobs replayed; tokens equal "
+              f"the serving run's; launches from the restore {counts}; "
+              f"decode GEMMs vs plain {run['checked']}; card {card}",
+              flush=True)
+    runs_s = time.perf_counter() - t_phase
+    kill = durable_kill()
+    phase_s = time.perf_counter() - t_phase
+    emit({"durability": LM_ARCH, "crash_at": DUR_CRASH_AT,
+          "snapshot_every": DUR_SNAPSHOT_EVERY, "keep": DUR_KEEP,
+          "runs": [{"run": name, "pool": pool,
+                    "launches": runs[name]["launches"],
+                    "at_crash": runs[name]["at_crash"],
+                    "restored_snapshots": runs[name]["restored"],
+                    "restore_ms": runs[name]["restore_ms"],
+                    "restore_to_end_s": runs[name]["restore_wall_s"],
+                    "tokens_out": runs[name]["stats"].tokens_out,
+                    "replayed_tokens": runs[name]["stats"].replayed_tokens,
+                    "replayed_jobs": runs[name]["stats"].replayed_jobs,
+                    "decode_gemms_vs_plain": runs[name]["checked"]}
+                   for name, pool in DUR_RUNS],
+          "kill": {"arch": SERVE_DENSE[0], "n_layers": SERVE_DENSE[1],
+                   "requests": DUR_KILL_REQUESTS, "new_tokens": DUR_KILL_NEW,
+                   **kill},
+          "seconds": {"runs": runs_s, "kill": phase_s - runs_s,
+                      "phase": phase_s},
+          "timer": "host clock; snapshot ms per snapshot() call, restore "
+                   "ms inside SynergyServer.restore",
+          "card": card})
+    print(f"durability: {len(DUR_RUNS)} crash/restore runs of {LM_ARCH} at "
+          f"full width restored to the serving tokens; {SERVE_DENSE[0]} "
+          f"child SIGKILLed after step {kill['killed_after_step']} "
+          f"({kill['token_records']} token records), torn tail "
+          f"{kill['torn_tail_bytes']} bytes, {kill['replayed_tokens']} "
+          f"tokens replayed, restore load {kill['restore_ms']['load']:.1f} "
+          f"ms, replay {kill['restore_ms']['replay']:.1f} ms, tokens equal "
+          f"the uninterrupted run's; runs {runs_s:.1f} s, phase "
+          f"{phase_s:.1f} s; card {card}", flush=True)
+    return {"launches": {name: runs[name]["launches"]
+                         for name, _ in DUR_RUNS}}
 
 
 def summary(t: dict) -> dict:
@@ -2806,6 +3172,7 @@ def main() -> int:
     lm = phase_lm(card)
     phase_reduced_lm()
     serving = phase_serving(card, lm)
+    durability = phase_durability(card, lm, serving)
 
     # phase 5: times
     totals, dispatcher_s = phase_times(card, main)
@@ -2855,7 +3222,8 @@ def main() -> int:
                    "graph": {"launches": graph[name], "per": (
                        f"the conv front-end of CIFAR_Alex+ x{FRAMES} as "
                        f"{FRAMES // MICRO} wave graphs")},
-                   "serving": serving_launches(serving, name)}
+                   "serving": serving_launches(serving, name),
+                   "durability": durability_launches(durability, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -2908,7 +3276,8 @@ def main() -> int:
                                    "per": whole + ", fused epilogue"},
                     "runtime": {**q_runtime, "launches_by_path":
                                 decode["runtime_paths"]},
-                    "serving": serving_launches(serving, "qmm")}})
+                    "serving": serving_launches(serving, "qmm"),
+                    "durability": durability_launches(durability, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -2932,7 +3301,8 @@ def main() -> int:
                                                    "torch.profiler"}},
                 "lm_decode": {"launches_per_step":
                               lm["decode"]["launches_per_step"][name]},
-                "serving": serving_launches(serving, name)}})
+                "serving": serving_launches(serving, name),
+                "durability": durability_launches(durability, name)}})
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -52,10 +52,16 @@ cache tensor across steps.  Reaped runtime results are merged on the
 server thread's stream (the stream it submitted from) and graph values on
 the default stream, so the host reads them in stream order.
 
-Durability (``repro``'s write-ahead journal, snapshots, restore and the
-SIGTERM drain) is a later slice: ``durable=``, ``crash_plan=``,
-:meth:`SynergyServer.snapshot` and :meth:`SynergyServer.restore` raise
-``NotImplementedError``.
+Durability (``durable=``): every accepted request and emitted token goes
+to a write-ahead journal before it is visible, and the server's state is
+snapshotted through :class:`~repro_torch.checkpoint.Checkpointer` on a
+step cadence (:mod:`repro_torch.soc.durable`).  A snapshot reaps the
+in-flight window first, so the caches, ``slot_pos`` and the journal offset
+describe one state; the Checkpointer copies the card's tensors to the host
+after everything queued on the card has run.  :meth:`SynergyServer.
+restore` writes the saved caches back IN PLACE (``copy_`` into the
+server's own tensors) and re-executes the journal suffix, holding every
+recomputed token bitwise against its record.
 
 Cache discipline (continuous batching): every step passes PER-SLOT
 positions to ``decode_step`` — a slot's K/V rows are written only at that
@@ -77,10 +83,15 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.device import resolve_device
 from repro_torch.engines import CAP_INT8, Dispatcher, Engine, find_engine
 from repro_torch.obs.flightrec import FlightRecorder
 from repro_torch.obs.trace import get_default_tracer
+from repro_torch.soc.durable import (CrashPlan, Durability, RequestJournal,
+                                     RestoreMismatch, SimulatedCrash,
+                                     array_to_meta, load_snapshot,
+                                     meta_to_array, register_server)
 from repro_torch.soc.qos import AdmissionRejected, Tenant
 from repro_torch.soc.qos_policy import (PREFILL_PRIORITY_OFFSET, FairShare,
                                         QosTag)
@@ -94,10 +105,6 @@ __all__ = ["Request", "PrefillJob", "DecodeJob", "ServeStats",
 #: tile for the serving-side job accounting (decode GEMMs are tiny; the
 #: paper-faithful TS=32 keeps their jobsets non-degenerate)
 _SERVE_TILE = 32
-
-_NO_DURABILITY = ("durable serving (the request journal, snapshots, "
-                  "restore and the SIGTERM drain) is the durability "
-                  "sub-slice of ROADMAP Queue 1 item 3, not ported yet")
 
 
 class ServeTimeoutError(RuntimeError):
@@ -266,6 +273,17 @@ class ServeStats:
     shed_engagements: int = 0
     #: decode steps that ran with at least one int8-degraded slot group
     shed_degraded_steps: int = 0
+    #: tokens recomputed from the journal during a restore's replay —
+    #: already delivered by the crashed process, NOT fresh throughput
+    #: (the no-double-count invariant: restored ``tokens_out`` +
+    #: ``replayed_tokens`` equals the uninterrupted run's ``tokens_out``)
+    replayed_tokens: int = 0
+    #: runtime/dispatcher tile jobs executed under replay accounting
+    replayed_jobs: int = 0
+    #: crash-consistent snapshots taken (cadence + close())
+    snapshots: int = 0
+    #: successful snapshot+journal restores this ServeStats survived
+    restores: int = 0
 
     @property
     def slot_efficiency(self) -> float:
@@ -335,9 +353,11 @@ class _PrefillProgress:
 
 
 def _leaves(tree):
+    """A tree's tensors, dict keys in sorted order (``repro``'s leaf order,
+    which numbers a snapshot's ``cache_NNNN`` leaves)."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
     elif isinstance(tree, torch.Tensor):
         yield tree
 
@@ -384,8 +404,14 @@ class SynergyServer:
     ``params``;
     device: where the server, its params, caches and runtime live (the
     card by default; raises without one);
-    durable / crash_plan: not in this port yet — anything but None raises
-    ``NotImplementedError``.
+    durable: :class:`~repro_torch.soc.durable.Durability` — write-ahead
+    journal every accepted request and emitted token, snapshot server
+    state through :class:`~repro_torch.checkpoint.Checkpointer` every
+    ``snapshot_every`` steps, and enable :meth:`restore` / :meth:`close`
+    / SIGTERM drain; ``None`` keeps the ephemeral server;
+    crash_plan: :class:`~repro_torch.soc.durable.CrashPlan` —
+    deterministic test harness: raise :class:`~repro_torch.soc.durable.
+    SimulatedCrash` at the start of the given engine step.
     """
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 64,
@@ -402,14 +428,13 @@ class SynergyServer:
                  tenants: Optional[Sequence[Tenant]] = None,
                  max_pending: Optional[int] = None,
                  tracer=None, flight_recorder=None, metrics=None,
-                 durable=None, crash_plan=None,
+                 durable: Optional[Durability] = None,
+                 crash_plan: Optional[CrashPlan] = None,
                  cnn_params: Optional[dict] = None,
                  decode_weight: Optional[torch.Tensor] = None,
                  device: str | torch.device | None = "cuda"):
         from repro_torch.models import decode_step, init_cache
         from repro_torch.models.cnn import init_cnn
-        if durable is not None or crash_plan is not None:
-            raise NotImplementedError(_NO_DURABILITY)
         if admission not in ("wave", "single"):
             raise ValueError(f"admission must be 'wave'|'single': {admission!r}")
         if decode_mode not in ("batched", "per-slot"):
@@ -498,8 +523,29 @@ class SynergyServer:
         self._progress: Optional[_PrefillProgress] = None
         self._inflight: collections.deque[_Inflight] = collections.deque()
         self.decode_gemm_outputs: list = []
+
+        # durability: journal + checkpointer + replay/drain flags.  The
+        # flags exist on EVERY server (one attribute check per site);
+        # only a Durability allocates the journal and checkpointer.
+        self.durable = durable
+        self._crash_plan = crash_plan
+        self._journal: Optional[RequestJournal] = None
+        self._ck: Optional[Checkpointer] = None
+        self._replaying = False
+        self._replay_q: Optional[collections.deque] = None
         self._closing = False
         self._drain_requested = False
+        #: rid -> Request rebuilt by restore() (snapshot + journal) — the
+        #: restored analog of the caller-held Request objects, since the
+        #: crashed process's objects died with it
+        self.restored_requests: dict[int, Request] = {}
+        if durable is not None:
+            self._journal = RequestJournal(durable.journal_path,
+                                           fsync=durable.fsync)
+            self._ck = Checkpointer(durable.snapshot_dir,
+                                    keep=durable.keep,
+                                    async_write=durable.async_snapshots)
+            register_server(self)
         self._decode = (
             lambda p, c, t, pos: decode_step(cfg, p, c, t, pos))
 
@@ -544,6 +590,7 @@ class SynergyServer:
             if (self.max_pending is not None
                     and len(q) >= self.max_pending):
                 raise self._reject("default", req)
+            self._journal_submit(req)
             q.append(req)
             return
         if req.tenant not in self.tenants:
@@ -560,6 +607,7 @@ class SynergyServer:
         if bound is not None and len(q) >= bound:
             self._tstats(t.name).rejected += 1
             raise self._reject(t.name, req)
+        self._journal_submit(req)
         q.append(req)
 
     def _reject(self, tname: str, req: Request) -> AdmissionRejected:
@@ -640,9 +688,24 @@ class SynergyServer:
         admission by one bounded chunk AND decode the live batch in the
         SAME step.  Returns True if any work was done (in-flight
         submissions may still be outstanding — ``run()``/``drain()``
-        reap them).  A requested drain stops admission first."""
+        reap them).  Durable servers: fires a due :class:`CrashPlan`
+        BEFORE any work (the boundary a between-steps SIGKILL lands on),
+        engages a requested drain, and snapshots on the
+        ``snapshot_every`` cadence after the step's work."""
+        if (self._crash_plan is not None and not self._replaying
+                and self._crash_plan.due(self.stats.engine_steps)):
+            plan, self._crash_plan = self._crash_plan, None
+            raise SimulatedCrash(f"CrashPlan(at_step={plan.at_step})")
         if self._drain_requested:
             self._closing = True
+        worked = self._step_inner()
+        every = self.durable.snapshot_every if self.durable else 0
+        if (self._ck is not None and not self._replaying and every
+                and self.stats.engine_steps % every == 0):
+            self.snapshot()
+        return worked
+
+    def _step_inner(self) -> bool:
         self.stats.engine_steps += 1
         if self.prefill_chunk_macs is None:
             live = any(r is not None for r in self.slot_req)
@@ -655,8 +718,16 @@ class SynergyServer:
                 return True
             return False
         worked = False
+        if (self._progress is not None and self._replaying
+                and self._replay_next_is_admit()):
+            # replay alignment: the recorded run's chunk chain had already
+            # completed (conv graph timing is wall-clock, token values are
+            # not) and the next journaled event is an admission — force the
+            # chain to the same boundary so the wave slots free up now
+            self._force_finish_progress()
+            worked = True
         if self._progress is not None:
-            worked = self._advance_prefill(self._progress)
+            worked = self._advance_prefill(self._progress) or worked
         elif self._admit_wave():
             worked = True
         if any(r is not None for r in self.slot_req):
@@ -667,8 +738,8 @@ class SynergyServer:
     def run(self, until_drained: bool = True, max_steps: int = 10_000):
         while max_steps > 0:
             if self._drain_requested:
-                # request_drain landed: graceful close — finish live
-                # generations and release the pool
+                # SIGTERM (or request_drain) landed: graceful close —
+                # finish live generations, snapshot, release the pool
                 self.close()
                 return self.stats
             if not self.step():
@@ -681,18 +752,7 @@ class SynergyServer:
         """Finish any in-flight chunked admission (replay remainder plus
         the conv chunk chain, blocking under ``submit_timeout``), then
         reap every outstanding in-flight submission."""
-        prog = self._progress
-        if prog is not None:
-            if prog.tok_i < prog.span:
-                self._replay_span(prog, prog.tok_i, prog.span)
-                prog.tok_i = prog.span
-                self.stats.prefill_chunks += 1
-            if not prog.finalized:
-                self._finalize_replay(prog)
-            conv = prog.conv
-            while conv is not None and not conv.done:
-                self._harvest_conv_blocking(conv)
-            self._progress = None
+        self._force_finish_progress()
         while self._inflight:
             self._reap_one()
         return self.stats
@@ -731,6 +791,8 @@ class SynergyServer:
         global FIFO."""
         if self._closing:
             return 0
+        if self._replaying:
+            return self._replay_admit()
         free = [i for i, r in enumerate(self.slot_req)
                 if r is None and i not in self._prefilling]
         if not self._qos_enabled:
@@ -750,6 +812,7 @@ class SynergyServer:
                     raise ValueError(f"request {req.rid}: empty prompt")
                 wave.append((req, slot, toks))
             del q[:n]
+            self._journal_admit(wave)
             tr = self._tracer
             if tr is not None:
                 tr.emit("admission", "admission", outcome="admitted",
@@ -781,6 +844,7 @@ class SynergyServer:
             if self._qwait_hist is not None:
                 self._qwait_hist.labels(tname).observe(wait)
         self._update_shed()
+        self._journal_admit(wave)
         tr = self._tracer
         if tr is not None:
             tr.emit("admission", "admission", outcome="admitted",
@@ -790,23 +854,420 @@ class SynergyServer:
         return len(wave)
 
     # ----------------------------------------------------------- durability
+    def _journal_submit(self, req: Request) -> None:
+        """WAL the accepted request BEFORE it enters its queue — after
+        every admission check, so the journal holds exactly the accepted
+        set (a rejected request must not be replayed)."""
+        if self._journal is None or self._replaying:
+            return
+        self._journal.append({
+            "t": "submit", "rid": int(req.rid),
+            "tok": np.asarray(req.tokens, np.int64).tolist(),
+            "new": int(req.max_new_tokens),
+            "tenant": req.tenant, "dl": req.deadline_s})
+
+    def _journal_admit(self, wave: list) -> None:
+        """WAL one committed admission wave (rid -> slot assignment) —
+        live admission timing is wall-clock-dependent (conv completion,
+        submission interleave), so replay FORCES these assignments
+        instead of re-running the scheduler."""
+        if self._journal is None or self._replaying:
+            return
+        self._journal.append({
+            "t": "admit",
+            "wave": [[int(r.rid), int(slot)] for r, slot, _ in wave]})
+
+    def _journal_emit(self, kind: str, emits: list) -> bool:
+        """WAL one token-emission batch, or — during replay — verify the
+        recomputation bitwise against the journaled record.  Returns True
+        when the emission was a replay (already delivered; callers must
+        not re-book throughput).  An exhausted replay queue mid-step
+        means the crash interrupted that step: the events from here on
+        were never delivered, so they journal (and book) fresh."""
+        if self._journal is None:
+            return False
+        rec = {"t": kind, "e": emits}
+        if self._replaying and self._replay_q:
+            exp = self._replay_q.popleft()
+            if exp.get("t") != kind or exp.get("e") != emits:
+                self._restore_mismatch(exp, rec)
+            return True
+        self._journal.append(rec)
+        return False
+
+    def _restore_mismatch(self, expected, got) -> None:
+        if self._flight is not None:
+            self._flight.dump("restore_mismatch", stats=self.stats,
+                              context={"expected": expected, "got": got})
+        raise RestoreMismatch(expected, got)
+
+    def _replay_next_is_admit(self) -> bool:
+        return (bool(self._replay_q)
+                and self._replay_q[0].get("t") == "admit")
+
+    def _take_queued(self, rid: int):
+        """Remove and return the pending request with ``rid`` (journal
+        replay admits by identity, not queue position)."""
+        for name, q in self._queues.items():
+            for i, r in enumerate(q):
+                if r.rid == rid:
+                    del q[i]
+                    return r, name
+        return None, None
+
+    def _replay_admit(self) -> int:
+        """Force the next journaled admission wave: pop each recorded rid
+        from its queue into its recorded slot.  FairShare is charged in
+        the recorded wave order (identical virtual times afterwards), but
+        ``pick`` never runs — the journal IS the schedule.  Per-tenant
+        throughput stats are NOT re-booked (replay recomputes state, it
+        does not re-serve)."""
+        q = self._replay_q
+        if not q or q[0].get("t") != "admit":
+            return 0
+        rec = q.popleft()
+        if self._qos_enabled:
+            # the recorded pick entered every then-pending tenant at the
+            # vt floor — apply the same rule BEFORE popping wave members
+            self._fair.join(name for name, pq in self._queues.items()
+                            if pq)
+        wave = []
+        for rid, slot in rec["wave"]:
+            rid, slot = int(rid), int(slot)
+            req, tname = self._take_queued(rid)
+            if (req is None or self.slot_req[slot] is not None
+                    or slot in self._prefilling):
+                self._restore_mismatch(
+                    rec, {"rid": rid, "slot": slot,
+                          "queued": req is not None,
+                          "slot_busy": self.slot_req[slot] is not None})
+            wave.append((req, slot, req.tokens[: self.prefill_len]))
+            if (self._qos_enabled and tname is not None
+                    and tname in self.tenants):
+                self._fair.charge(tname, self.tenants[tname].qos.weight)
+        if self._qos_enabled:
+            self._update_shed()
+        self._do_prefill_wave(wave)
+        return len(wave)
+
+    def _resubmit(self, rec: dict) -> None:
+        """Replay one journaled submit: rebuild the Request and queue it
+        directly — the crashed process already ran the admission checks,
+        so bounds are bypassed (replay must never reject)."""
+        req = Request(rid=int(rec["rid"]),
+                      tokens=torch.tensor(rec["tok"], dtype=torch.int32),
+                      max_new_tokens=int(rec["new"]),
+                      tenant=rec.get("tenant"),
+                      deadline_s=rec.get("dl"))
+        self._stamp_restored(req)
+        name = (req.tenant if self._qos_enabled and req.tenant
+                else "default")
+        self._queues.setdefault(name, []).append(req)
+        if self._qos_enabled:
+            self._update_shed()
+        self.restored_requests[req.rid] = req
+
+    def _stamp_restored(self, req: Request) -> None:
+        """Fresh submit/deadline stamps for a restored request — monotonic
+        instants do not survive a process boundary, so SLO clocks restart
+        at the restore (the crash pauses deadlines, it does not consume
+        them)."""
+        now = time.monotonic()
+        req.submitted_at = now
+        dl = req.deadline_s
+        if (dl is None and self._qos_enabled
+                and req.tenant in self.tenants):
+            dl = self.tenants[req.tenant].qos.deadline_s
+        req.deadline_at = now + dl if dl is not None else math.inf
+
+    def _force_finish_progress(self) -> None:
+        """Complete the in-flight chunked admission NOW (blocking): drain
+        the remaining replay quanta and conv chunk chain.  Used by replay
+        alignment and by ``drain()``."""
+        prog = self._progress
+        if prog is None:
+            return
+        if prog.tok_i < prog.span:
+            self._replay_span(prog, prog.tok_i, prog.span)
+            prog.tok_i = prog.span
+            self.stats.prefill_chunks += 1
+        if not prog.finalized:
+            self._finalize_replay(prog)
+        conv = prog.conv
+        while conv is not None and not conv.done:
+            self._harvest_conv_blocking(conv)
+        self._progress = None
+
+    def _land_conv_chunk(self) -> None:
+        """Land an outstanding conv chunk graph so the carry is concrete,
+        but do NOT submit the next one: the chain stays at a chunk
+        boundary for the next step to resume."""
+        prog = self._progress
+        if (prog is not None and prog.conv is not None
+                and prog.conv.fut is not None):
+            conv = prog.conv
+            vals = self._graph_result(conv.fut, conv.rids,
+                                      conv.tenant_names)
+            self._book_runtime("prefill", conv.fut.accounting, conv.fut)
+            conv.x = vals[-1]
+            conv.fut = None
+
+    # ----------------------------------------------- snapshots and restore
+    @staticmethod
+    def _req_state(req: Request) -> dict:
+        return {"rid": int(req.rid),
+                "tok": np.asarray(req.tokens, np.int64).tolist(),
+                "new": int(req.max_new_tokens),
+                "out": [int(x) for x in req.out],
+                "tenant": req.tenant, "dl": req.deadline_s}
+
+    def _req_from_state(self, st: dict) -> Request:
+        req = Request(rid=int(st["rid"]),
+                      tokens=torch.tensor(st["tok"], dtype=torch.int32),
+                      max_new_tokens=int(st["new"]),
+                      out=[int(x) for x in st["out"]],
+                      tenant=st.get("tenant"),
+                      deadline_s=st.get("dl"))
+        self._stamp_restored(req)
+        self.restored_requests[req.rid] = req
+        return req
+
+    def _snapshot_state(self) -> dict:
+        """The server as a FLAT ``{key: tensor}`` Checkpointer tree: cache
+        leaves, in-flight prefill tensors, and one uint8 "meta" leaf
+        holding every scalar/structural field as JSON (scalars survive a
+        JSON round-trip bitwise; tensors go as .npy leaves).  The leaves
+        are the server's own tensors: ``Checkpointer.save`` copies them."""
+        state = {f"cache_{i:04d}": leaf
+                 for i, leaf in enumerate(_leaves(self.cache))}
+        meta: dict = {
+            "version": 1,
+            "journal_off": self._journal.offset(),
+            "stats": dataclasses.asdict(self.stats),
+            "slot_pos": [int(p) for p in self.slot_pos],
+            "slots": [self._req_state(r) if r is not None else None
+                      for r in self.slot_req],
+            "queues": {name: [self._req_state(r) for r in q]
+                       for name, q in self._queues.items()},
+            "prefilling": sorted(self._prefilling),
+            "fair": self._fair.snapshot(),
+            "shed_level": self._shed_level,
+            "calibrator": None, "runtime": None, "progress": None,
+        }
+        cal = self._calibration_engine()
+        if cal is not None and hasattr(cal, "calibrator"):
+            meta["calibrator"] = cal.calibrator.export_state()
+        if self.runtime is not None:
+            meta["runtime"] = self.runtime.state_snapshot()
+        prog = self._progress
+        if prog is not None:
+            pmeta = {
+                "wave": [[self._req_state(r), int(slot)]
+                         for r, slot, _ in prog.wave],
+                "span": int(prog.span), "tok_i": int(prog.tok_i),
+                "finalized": bool(prog.finalized),
+                "row_slots": sorted(prog.last_row), "conv": None,
+            }
+            state["prog_tok"] = prog.tok
+            state["prog_pos"] = prog.pos
+            for slot, row in prog.last_row.items():
+                state[f"prog_row_{int(slot):04d}"] = row
+            conv = prog.conv
+            if conv is not None and not conv.done:
+                pmeta["conv"] = {
+                    "wave_no": int(conv.wave), "idx": int(conv.idx),
+                    "total": int(conv.total),
+                    "n_frames": int(conv.n_frames),
+                    "in_shape": (list(conv.in_shape)
+                                 if conv.in_shape else None),
+                    "rids": [int(r) for r in conv.rids],
+                    "tenant_names": list(conv.tenant_names)}
+                state["conv_x"] = conv.x
+            meta["progress"] = pmeta
+        state["meta"] = meta_to_array(meta)
+        return state
+
     def snapshot(self) -> int:
-        raise NotImplementedError(_NO_DURABILITY)
+        """Take one crash-consistent snapshot at a quiescent boundary:
+        reap the async window, harvest (without advancing) an outstanding
+        conv chunk graph, quiesce the pool, save through the
+        Checkpointer (which holds its own host copy when this returns).
+        Returns the snapshot's step id."""
+        if self._ck is None:
+            raise RuntimeError("snapshot() needs durable=Durability(...)")
+        while self._inflight:
+            self._reap_one()
+        self._land_conv_chunk()
+        if (self.runtime is not None
+                and not self.runtime.quiesce(self.submit_timeout)):
+            raise ServeTimeoutError("snapshot/quiesce", self.submit_timeout,
+                                    {})
+        step = self.stats.engine_steps
+        self._ck.save(step, self._snapshot_state(),
+                      block=not self.durable.async_snapshots)
+        self.stats.snapshots += 1
+        tr = self._tracer
+        if tr is not None:
+            tr.emit("snapshot", "serving", step=step,
+                    journal_off=self._journal.offset())
+        return step
+
+    def _apply_snapshot(self, flat: dict) -> dict:
+        meta = array_to_meta(flat["meta"])
+        st = dict(meta["stats"])
+        tstats = st.pop("tenants", {})
+        self.stats = ServeStats(**st)
+        self.stats.tenants = {k: TenantStats(**v)
+                              for k, v in tstats.items()}
+        # in place: the caches stay the server's own tensors
+        with torch.inference_mode():
+            for i, leaf in enumerate(_leaves(self.cache)):
+                src = flat[f"cache_{i:04d}"]
+                if src.shape != leaf.shape or src.dtype != leaf.dtype:
+                    raise ValueError(
+                        f"snapshot cache_{i:04d} is {src.dtype} "
+                        f"{tuple(src.shape)}, the server's {leaf.dtype} "
+                        f"{tuple(leaf.shape)}")
+                leaf.copy_(src)
+        self.slot_pos = [int(p) for p in meta["slot_pos"]]
+        self.slot_req = [self._req_from_state(s) if s is not None else None
+                         for s in meta["slots"]]
+        queues: dict[str, list[Request]] = {n: [] for n in self.tenants}
+        for name, q in meta["queues"].items():
+            queues[name] = [self._req_from_state(s) for s in q]
+        self._queues = queues
+        self._prefilling = {int(s) for s in meta["prefilling"]}
+        self._fair.restore(meta["fair"])
+        self._shed_level = int(meta["shed_level"])
+        if meta.get("calibrator") is not None:
+            cal = self._calibration_engine()
+            if cal is not None and hasattr(cal, "calibrator"):
+                cal.calibrator.import_state(meta["calibrator"])
+        if meta.get("runtime") is not None and self.runtime is not None:
+            self.runtime.restore_state(meta["runtime"])
+        if meta.get("progress") is not None:
+            self._progress = self._rebuild_progress(meta["progress"], flat)
+        return meta
+
+    def _rebuild_progress(self, pmeta: dict, flat: dict) -> _PrefillProgress:
+        wave = []
+        for st, slot in pmeta["wave"]:
+            req = self._req_from_state(st)
+            wave.append((req, int(slot), req.tokens[: self.prefill_len]))
+        lens = [int(t.shape[0]) for _, _, t in wave]
+        prog = _PrefillProgress(
+            wave, lens, int(pmeta["span"]),
+            flat["prog_tok"].to(self.device),
+            flat["prog_pos"].to(self.device), None,
+            tok_i=int(pmeta["tok_i"]),
+            finalized=bool(pmeta["finalized"]))
+        for slot in pmeta["row_slots"]:
+            prog.last_row[int(slot)] = flat[
+                f"prog_row_{int(slot):04d}"].to(self.device)
+        if pmeta.get("conv") is not None:
+            prog.conv = self._rebuild_conv(pmeta["conv"], flat, wave)
+        return prog
+
+    def _rebuild_conv(self, cmeta: dict, flat: dict,
+                      wave: list) -> _ConvProgress:
+        """Reconstruct the chunk chain: jobsets/steps/groups are pure
+        functions of (cnn, n_frames, wave_no, chunk_macs) — recomputed,
+        not stored; only the carry tensor and the cursor come from disk."""
+        from repro_torch.models.cnn import conv_graph_steps
+        wave_no, idx = int(cmeta["wave_no"]), int(cmeta["idx"])
+        n_frames = int(cmeta["n_frames"])
+        job = PrefillJob(wave_no, tuple(int(r) for r in cmeta["rids"]),
+                         tuple(slot for _, slot, _ in wave),
+                         n_frames=n_frames, cnn=self.prefill_cnn)
+        jobsets = job.jobsets()
+        steps = conv_graph_steps(self.prefill_cnn)
+        groups = chunk_by_macs(jobsets, self.prefill_chunk_macs)
+        hint_eng = (self._affinity_hint(jobsets[0], "prefill")
+                    if jobsets else None)
+        in_shape = (tuple(cmeta["in_shape"])
+                    if cmeta.get("in_shape") else None)
+        return _ConvProgress(
+            wave_no,
+            [([steps[i] for i in g], [jobsets[i] for i in g])
+             for g in groups[idx:]],
+            flat["conv_x"].to(self.device), in_shape, n_frames,
+            hint_eng.name if hint_eng is not None else None,
+            total=int(cmeta["total"]), idx=idx,
+            qos=self._prefill_qos(wave), rids=job.rids,
+            tenant_names=tuple(cmeta["tenant_names"]))
 
     @classmethod
-    def restore(cls, cfg, params, *, durable=None, **kwargs):
-        raise NotImplementedError(_NO_DURABILITY)
+    def restore(cls, cfg, params, *, durable: Durability, **kwargs):
+        """Reconstruct a durable server from ``durable.directory``: load
+        the latest snapshot, then RE-EXECUTE the journal suffix —
+        submits requeue, admissions are forced into their recorded
+        slots, and every recomputed token is verified bitwise against
+        its journal record (:class:`~repro_torch.soc.durable.
+        RestoreMismatch` + flight dump on divergence).  Replayed tokens
+        book into ``replayed_tokens``; the returned server resumes
+        serving with nothing lost and nothing double-served.  ``kwargs``
+        are the constructor's (the pool/config must match the crashed
+        server's).  The returned server's ``restore_seconds`` gives the
+        wall seconds of the snapshot's load (disk to the server's
+        tensors) and of the replay."""
+        srv = cls(cfg, params, durable=durable, **kwargs)
+        t0 = time.perf_counter()
+        off = 0
+        if srv._ck.latest_step() is not None:
+            _, flat = load_snapshot(srv._ck)
+            meta = srv._apply_snapshot(flat)
+            off = int(meta["journal_off"])
+        t_load = time.perf_counter() - t0
+        records, _, _ = RequestJournal.scan(durable.journal_path,
+                                            start=off)
+        srv._replaying = True
+        srv._replay_q = collections.deque(records)
+        try:
+            while srv._replay_q:
+                while (srv._replay_q
+                       and srv._replay_q[0].get("t") == "submit"):
+                    srv._resubmit(srv._replay_q.popleft())
+                if not srv._replay_q:
+                    break
+                if not srv.step():
+                    srv._restore_mismatch(
+                        srv._replay_q[0],
+                        {"reason": "replay stalled: no work to run"})
+            # replay-phase runtime work reaps under replay accounting;
+            # an outstanding conv chunk lands but the chain stays at its
+            # boundary for the live steps to resume
+            while srv._inflight:
+                srv._reap_one()
+            srv._land_conv_chunk()
+        finally:
+            srv._replaying = False
+            srv._replay_q = None
+        srv.restore_seconds = {"load": t_load,
+                               "replay": time.perf_counter() - t0 - t_load}
+        srv.stats.restores += 1
+        tr = srv._tracer
+        if tr is not None:
+            tr.emit("restore", "serving", journal_off=off,
+                    records=len(records),
+                    replayed_tokens=srv.stats.replayed_tokens,
+                    **{f"{k}_s": v for k, v in srv.restore_seconds.items()})
+            if srv._journal.truncated_bytes:
+                tr.emit("journal", "serving", outcome="torn_tail",
+                        truncated_bytes=srv._journal.truncated_bytes)
+        return srv
 
     # ------------------------------------------------------ graceful drain
     def request_drain(self) -> None:
-        """Flag a graceful drain (sets a bool; the serving loop engages it
-        at its next step and ``run()`` closes)."""
+        """Flag a graceful drain (async-signal-safe: sets a bool; the
+        serving loop engages it at its next step and ``run()`` closes)."""
         self._drain_requested = True
 
     def close(self, deadline_s: float = 30.0, *,
               release_pool: bool = True) -> ServeStats:
         """Graceful shutdown: stop admission, run live generations to
-        completion while ``deadline_s`` allows, drain in-flight work, and
+        completion while ``deadline_s`` allows, drain in-flight work,
+        snapshot (durable servers — pending requests survive into the
+        snapshot for the next ``restore()``), close the journal, and
         release the pool."""
         self._closing = True
         t0 = time.monotonic()
@@ -817,6 +1278,10 @@ class SynergyServer:
             if not self.step():
                 break
         self.drain()
+        if self._ck is not None:
+            self.snapshot()
+            self._ck.wait()
+            self._journal.close()
         tr = self._tracer
         if tr is not None:
             tr.emit("drain", "serving", deadline_s=deadline_s,
@@ -846,6 +1311,9 @@ class SynergyServer:
         """No-runtime path: route the JobSet whole to the dispatcher's
         pick and book its cost-model estimate."""
         eng = self.dispatcher.select(js, job_class=kind, device=self.device)
+        if self._replaying:
+            self.stats.replayed_jobs += js.num_jobs
+            return eng
         est = eng.estimate(js, self.device)
         eng.telemetry.record(js, est)
         self.stats.job_busy_s[kind] += est
@@ -858,6 +1326,12 @@ class SynergyServer:
         ``src`` is the reaped future/graph itself, when available — its
         ``retries`` count (panels re-executed by the pool's RetryPolicy)
         rolls into ``stats.runtime_retries``."""
+        if self._replaying:
+            # replay recomputes state, it does not re-serve: the work is
+            # real but its throughput was already delivered once
+            self.stats.replayed_jobs += sum(
+                a["jobs"] for a in acct.values())
+            return
         if src is not None:
             self.stats.runtime_retries += getattr(src, "retries", 0)
         self.stats.job_busy_s[kind] += sum(a["est_s"] for a in acct.values())
@@ -1250,14 +1724,20 @@ class SynergyServer:
         firsts = torch.argmax(
             torch.stack([prog.last_row[slot] for _, slot, _ in prog.wave]),
             dim=-1).cpu().numpy()
+        replayed = False
+        if self._journal is not None:
+            emits = [[int(req.rid), int(slot), int(firsts[j])]
+                     for j, (req, slot, _) in enumerate(prog.wave)]
+            replayed = self._journal_emit("first", emits)
         for j, ((req, slot, toks), ln) in enumerate(zip(prog.wave,
                                                         prog.lens)):
             req.out.append(int(firsts[j]))
             self.slot_req[slot] = req
             self.slot_pos[slot] = ln
-            self.stats.prefills += 1
-            if self._qos_enabled and req.tenant in self.tenants:
-                self._tstats(req.tenant).prefills += 1
+            if not replayed:
+                self.stats.prefills += 1
+                if self._qos_enabled and req.tenant in self.tenants:
+                    self._tstats(req.tenant).prefills += 1
             self._prefilling.discard(slot)
         prog.finalized = True
 
@@ -1456,6 +1936,13 @@ class SynergyServer:
         self.stats.decode_steps += 1
         # ONE device argmax + ONE host sync for the whole batch
         nxt_all = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        replayed = False
+        if self._journal is not None:
+            # WAL the step's emissions BEFORE appending to the visible
+            # streams (during replay: verify bitwise instead)
+            emits = [[int(r.rid), i, int(nxt_all[i])]
+                     for i, r in enumerate(self.slot_req) if r is not None]
+            replayed = self._journal_emit("tok", emits)
         now = time.monotonic()
         for i, r in enumerate(self.slot_req):
             if r is None:
@@ -1463,16 +1950,20 @@ class SynergyServer:
             nxt = int(nxt_all[i])
             r.out.append(nxt)
             self.slot_pos[i] += 1
-            self.stats.tokens_out += 1
-            if self._qos_enabled and r.tenant in self.tenants:
-                self._tstats(r.tenant).tokens_out += 1
+            if replayed:
+                self.stats.replayed_tokens += 1
+            else:
+                self.stats.tokens_out += 1
+                if self._qos_enabled and r.tenant in self.tenants:
+                    self._tstats(r.tenant).tokens_out += 1
             done = (len(r.out) >= r.max_new_tokens
                     or self.slot_pos[i] >= self.max_len - 1)
             if done:
                 # stamped on EVERY server so attainment is computable
                 # post-hoc even without tenancy
                 r.done_at = now
-                if (self._qos_enabled and r.tenant in self.tenants
+                if (not replayed and self._qos_enabled
+                        and r.tenant in self.tenants
                         and math.isfinite(r.deadline_at)):
                     ts = self._tstats(r.tenant)
                     hit = now <= r.deadline_at

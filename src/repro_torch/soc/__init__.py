@@ -15,10 +15,14 @@ identical cost models.
     print(rt.stats()["total_steals"])
 
 Dataflow graphs (:mod:`repro_torch.soc.graph`) go through
-``SynergyRuntime.submit_graph``.  ``repro``'s durable serving state
-(``soc.durable``) is not ported yet.
+``SynergyRuntime.submit_graph``.  Durable serving — the request journal,
+crash plans, snapshot loading and the SIGTERM drain — is
+:mod:`repro_torch.soc.durable`.
 """
 
+from .durable import (CrashPlan, Durability, RequestJournal,
+                      RestoreMismatch, SimulatedCrash,
+                      install_sigterm_drain, install_sigterm_handler)
 from .faults import (FAULT_KINDS, CorruptOutput, DroppedCompletion,
                      FaultPlan, FaultSpec, FaultyEngine, InjectedFault,
                      PanelRetryExhausted, RetryPolicy, WorkerKilled,
@@ -48,4 +52,6 @@ __all__ = [
     "FAULT_KINDS", "FaultPlan", "FaultSpec", "FaultyEngine", "RetryPolicy",
     "InjectedFault", "CorruptOutput", "WorkerKilled", "DroppedCompletion",
     "PanelRetryExhausted", "wrap_pool",
+    "Durability", "RequestJournal", "CrashPlan", "SimulatedCrash",
+    "RestoreMismatch", "install_sigterm_handler", "install_sigterm_drain",
 ]

@@ -21,7 +21,9 @@ and CIFAR_Alex+ wave graphs over K1 + K3 bitwise the dispatcher's conv
 front-end, with a graph cancel draining queued panels on the card.  The
 continuous-batching server over K1 + K3 on the card: the CPU's tokens,
 batched decode bitwise per-slot, decode GEMMs within 1e-5·sqrt(k) of the
-CPU's.
+CPU's.  Durable serving: card tensors (fp32, bf16) through the
+Checkpointer bitwise, and the reduced granite server crashed and restored
+on the card giving the CPU's uninterrupted tokens.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -39,6 +41,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import ARCHS, PAPER_CNNS, reduced
 from repro_torch.core import ThreadedPipeline
 from repro_torch.core.job import JobSet
@@ -59,7 +62,9 @@ from repro_torch.models import (decode_fn, init_cache, init_model,
 from repro_torch.models.cnn import cnn_forward, conv_jobsets, init_cnn
 from repro_torch.quant import (QuantizedEngine, quantize_weights, rel_err)
 from repro_torch.quant.act import one_shot_act_scale, quantize_activations
-from repro_torch.soc import GraphCancelled, SynergyRuntime
+from repro_torch.core.serving import SynergyServer
+from repro_torch.soc import (CrashPlan, Durability, GraphCancelled,
+                             SimulatedCrash, SynergyRuntime)
 
 POOL = ["cuda-tiled", "neon-vpu"]
 
@@ -777,3 +782,76 @@ def test_server_on_the_card_matches_the_cpu_and_its_decode_modes(cuda):
     assert dense["per_slot_launches"]["tiled_mm"] > 0
     assert dense["decode_steps"] > 0
     assert not any(dense["cpu_launches"].values())
+
+
+# ------------------------------------------------------------ durability
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_checkpoint_round_trips_card_tensors_bitwise(cuda, tmp_path, dtype):
+    """Card tensors through the Checkpointer, bitwise: an async save is a
+    host copy taken after every stream's queued work, so a kernel that
+    writes the tensor in place right after ``save`` returns (as the next
+    decode step writes the caches) does not reach the file; ``restore``
+    gives them back on the card."""
+    g = torch.Generator(cuda).manual_seed(23)
+    state = {"cache": {"k": _rand(g, 4, 3, 64, 80, dtype=dtype),
+                       "ssm": _rand(g, 2, 4, 8, 64, 64, dtype=dtype)},
+             "pos": torch.arange(4, dtype=torch.int32, device=cuda)}
+    saved = {"k": state["cache"]["k"].clone() * 3.0,
+             "ssm": state["cache"]["ssm"].clone()}
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):             # queued on another stream
+        state["cache"]["k"].mul_(3.0)
+    ck = Checkpointer(str(tmp_path), async_write=True)
+    ck.save(1, state)
+    state["cache"]["k"].add_(1.0)
+    state["cache"]["ssm"].zero_()
+    ck.wait()
+    got = ck.restore(state, device=cuda)
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    for k in ("k", "ssm"):
+        t = got["cache"][k]
+        assert t.device.type == "cuda" and t.dtype == dtype
+        assert torch.equal(bits(t), bits(saved[k]))
+    assert torch.equal(got["pos"], state["pos"])
+
+
+def test_durable_server_on_the_card_restores_the_cpu_tokens(cuda, tmp_path):
+    """``chip_smoke.py``'s reduced granite server with ``Durability`` on the
+    card: a crash at engine step 6 (a snapshot taken, decode live,
+    requests queued) and a restore on a fresh runtime give every request
+    the CPU server's uninterrupted tokens, with each token served once."""
+    cs = _chip_smoke()
+    cfg, params, cnn = cs.dense_model()
+    cpu = cs.serve_run(cfg, params, POOL, device="cpu", cnn_params=cnn)
+    kw = dict(slots=cs.SERVE_SLOTS, max_len=cs.SERVE_MAX_LEN,
+              prefill_len=cs.SERVE_PROMPT, cnn_params=_to(cnn, cuda),
+              device=cuda)
+    params = _to(params, cuda)
+    d = Durability(str(tmp_path), snapshot_every=4, keep=2)
+    reqs = cs.serve_requests(cfg)
+    with SynergyRuntime(POOL, name="durable-card", device=cuda) as rt:
+        srv = SynergyServer(cfg, params, runtime=rt, durable=d,
+                            crash_plan=CrashPlan(at_step=6), **kw)
+        with pytest.raises(SimulatedCrash):
+            for r in reqs:
+                srv.submit(r)
+            srv.run()
+        assert srv.stats.snapshots and srv.pending
+        srv._ck.wait()
+    with SynergyRuntime(POOL, name="durable-card-2", device=cuda) as rt:
+        srv2 = SynergyServer.restore(cfg, params, durable=d, runtime=rt,
+                                     **kw)
+        assert srv2.stats.replayed_tokens > 0
+        assert srv2.cache["k"].device.type == "cuda"
+        srv2.run()
+        srv2._ck.wait()
+    got = {rid: list(r.out) for rid, r in srv2.restored_requests.items()}
+    assert [got.get(r.rid, list(r.out)) for r in reqs] == cpu["tokens"]
+    assert (srv2.stats.tokens_out + srv2.stats.replayed_tokens
+            == cpu["stats"].tokens_out)
+    assert srv2.stats.restores == 1

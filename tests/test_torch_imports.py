@@ -29,6 +29,9 @@ def _forbidden(name: str) -> bool:
 def test_the_port_has_modules():
     assert len(FILES) > 10
     assert ROOT / "src" / "repro_torch" / "core" / "serving.py" in FILES
+    for mod in ("checkpoint/__init__.py", "checkpoint/checkpoint.py",
+                "soc/durable.py"):
+        assert ROOT / "src" / "repro_torch" / mod in FILES, mod
 
 
 @pytest.mark.parametrize("path", FILES,

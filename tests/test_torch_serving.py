@@ -895,15 +895,18 @@ def test_bystander_slots_stay_bitwise_untouched_by_a_wave():
 
 
 def test_durability_is_not_ported_yet():
-    cfg, tp = _model(*GRANITE)[1], _model(*GRANITE)[3]
-    for kw in ({"durable": object()}, {"crash_plan": object()}):
-        with pytest.raises(NotImplementedError, match="durability"):
-            SynergyServer(cfg, tp, device="cpu", **kw)
-    srv = SynergyServer(cfg, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="durability"):
-        srv.snapshot()
-    with pytest.raises(NotImplementedError, match="durability"):
-        SynergyServer.restore(cfg, tp, durable=object())
+    """Durability is ported (tests/test_torch_durable.py): a server
+    without a ``Durability`` keeps no journal and no snapshots, and its
+    ``snapshot()`` refuses, as repro's does."""
+    js, ts = servers()
+    for srv in (js, ts):
+        assert srv.durable is None
+        assert srv._journal is None and srv._ck is None
+        with pytest.raises(RuntimeError, match="durable="):
+            srv.snapshot()
+    _, _, _, stats = serve_both(js, ts, n=2, max_new=3)
+    assert (stats.snapshots, stats.restores, stats.replayed_tokens) \
+        == (0, 0, 0)
 
 
 def test_the_server_runs_on_the_card_unless_told():
