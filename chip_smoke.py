@@ -110,6 +110,27 @@ Phases, in order; each raises on failure and nothing is caught:
    them, equal the card's uninterrupted run.  Snapshot bytes, ms per
    snapshot (host copy, wait on the writer), restore ms (load, replay),
    replayed tokens and jobs, torn-tail bytes and the phase's seconds.
+   Slice 10, ``training`` (after phase 5's LM times, as the last user of
+   the LM parameters): zamba2-2.7b at full width and depth, 2 x 1,024
+   tokens a step from ``synthetic_batches(seed=0)`` through ``prefetch``,
+   remat per scanned block.  In fp32 compute one forward and backward
+   through K4 and K5 (``impl="auto"``, counts set to 0 just before and
+   read just after: K4 9, K5 108, K1-K3 0) and one through the plain
+   formulations (an op variant ``plain`` of both mixers): every leaf's
+   gradient non-zero in both and within ||diff|| / ||plain|| 3e-2.  Then
+   3 bf16 AdamW steps (``build_train_step``, the state written in place),
+   counts set to 0 just before each and read just after (K4 9, K5 108,
+   K1-K3 0): loss and grad norm finite, the first loss within 1 of
+   ln(vocab), after step 1 every leaf moved and its first moment finite
+   and non-zero; ms per step, tokens/s, the share of the bf16 dense peak
+   at 6·N·D, peak memory, and one more step under ``torch.profiler``
+   (busy share, the five largest device ops, K4's and K5's backward
+   device time).  The reduced zamba2 (4 layers, fp32) trained 3 steps on
+   the card and on the CPU from one CPU state (losses and every state
+   leaf within 1e-4 of the CPU leaf's largest entry), and resumed:
+   ``train_loop`` with a ``Checkpointer`` every 2 steps under
+   ``run_with_recovery``, a failure after step 3, bitwise equal to an
+   uninterrupted 4-step run.
 5. Times (CUDA events, warm-up, median of 25): per Alex+ GEMM, each kernel,
    its plain version, ``torch.addmm`` + ReLU as the library yardstick, and
    the bound; both kernels also at the runtime's panel shapes, weighted by
@@ -155,8 +176,9 @@ Phases, in order; each raises on failure and nothing is caught:
    path, times, bound and library time over the LM GEMMs; K1's and K3's
    give ``pipeline``, ``runtime_steal`` and ``graph``: their launches in
    slice 7's runs; every kernel's gives ``serving``: its launches in each
-   of slice 8's serving runs, and ``durability``: in each of slice 9's
-   restored runs.
+   of slice 8's serving runs, ``durability``: in each of slice 9's
+   restored runs, and ``training``: per train step (K4's and K5's also
+   their backward's time per call and per step).
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -225,6 +247,17 @@ from repro_torch.core.serving import Request, SynergyServer  # noqa: E402
 from repro_torch.soc import (CrashPlan, Durability,  # noqa: E402
                              GraphCancelled, RequestJournal, SimulatedCrash,
                              SynergyRuntime)
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.configs.base import ShapeCell  # noqa: E402
+from repro_torch.data import prefetch, synthetic_batches  # noqa: E402
+from repro_torch.engines import register_op_impl  # noqa: E402
+from repro_torch.launch import (build_train_step,  # noqa: E402
+                                loss_and_grads, make_train_state, train_loop)
+from repro_torch.models import model_flops  # noqa: E402
+from repro_torch.models.attention import flash_attention_torch  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.runtime import run_with_recovery  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 DEVICE = "cuda"
 
@@ -375,6 +408,39 @@ DUR_KILL_TIMEOUT = 300
 #: the child: ``python3 -c KILL_CHILD <checkout> <directory>``
 KILL_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); "
               "import chip_smoke; chip_smoke.kill_child(sys.argv[2])")
+#: slice 10, the training path: LM_ARCH at its published widths and all 54
+#: layers, param fp32, compute bf16, remat per scanned block, AdamW with
+#: repro's defaults, 2 x 1,024-token batches from synthetic_batches(seed=0)
+#: through prefetch (examples/train_lm.py drives repro the same way)
+TRAIN_CELL = ShapeCell("train", 1024, 2, "train")
+TRAIN_STEPS = 3
+#: fp32 gradients, kernels (impl="auto") vs the plain formulations:
+#: ||a - b|| / ||b|| per leaf, the tolerance the fp32 prefill is held to
+TRAIN_GRAD_TOL = 3e-2
+#: K4's and K5's backward (their Functions) against autograd of their
+#: plain versions on the same inputs: the training path's calls (zamba2's
+#: shared block, bf16; its SSD layers, fp32 as the conv promotes them) and
+#: the reduced configs' shapes.  K4: (label, B, Hq, Hkv, S, Sk, D, causal,
+#: dtype); K5: (label, B, L, H, P, N, chunk, dtype)
+BWD_FA_CASES = [
+    ("zamba2 training", 2, 32, 32, 1024, 1024, 80, True, torch.bfloat16),
+    ("zamba2 training", 2, 32, 32, 1024, 1024, 80, True, torch.float32),
+    ("reduced D 16", 2, 4, 4, 64, 64, 16, True, torch.float32),
+    ("reduced D 16", 2, 4, 4, 64, 64, 16, True, torch.bfloat16),
+]
+BWD_SSD_CASES = [
+    ("zamba2 training", 2, 1024, 80, 64, 64, 128, torch.float32),
+    ("zamba2 training", 2, 1024, 80, 64, 64, 128, torch.bfloat16),
+    ("reduced P 16 N 16", 2, 64, 8, 16, 16, 16, torch.float32),
+]
+#: the reduced LM_ARCH (fp32) trained on the card and on the CPU from one
+#: state made on the CPU; and resumed after a failure at TRAIN_FAIL_AT
+TRAIN_REDUCED_LAYERS = 4
+TRAIN_REDUCED_CELL = ShapeCell("train", 64, 2, "train")
+TRAIN_REDUCED_TOL = 1e-4
+TRAIN_RESUME_STEPS = 4
+TRAIN_CKPT_EVERY = 2
+TRAIN_FAIL_AT = 3
 
 
 #: K1's and K3's plain versions sum in float64 and round once to fp32, so a
@@ -2054,7 +2120,7 @@ def phase_lm(card: str) -> dict:
                    "tiled_mm": 6 * groups + 1}
     per_step = {"flash_attention": 0, "ssd": 0, "tiled_mm": 6 * groups + 1}
     params, init_s = timed(lambda: init_model(cfg, 0, device=DEVICE))
-    n_params = sum(t.numel() for t in leaves(params))
+    n_params = sum(t.numel() for t in tree_leaves(params))
     g = torch.Generator(device=DEVICE).manual_seed(13)
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
                            device=DEVICE, generator=g)
@@ -2192,14 +2258,6 @@ def mixer_errors(cfg, params: dict, tokens: torch.Tensor) -> dict:
         raise AssertionError(f"mixer probe: mixers (got, want) {got}, "
                              f"{want}")
     return errs
-
-
-def leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from leaves(v)
-    else:
-        yield tree
 
 
 def flash_bound(b: int, hq: int, hkv: int, s: int, sk: int, d: int,
@@ -3112,6 +3170,431 @@ def phase_durability(card: str, lm: dict, serving: dict) -> dict:
                          for name, _ in DUR_RUNS}}
 
 
+def norm_rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """||got - want|| / ||want|| (inf when want is all zero)."""
+    den = float(torch.linalg.vector_norm(want.float()))
+    num = float(torch.linalg.vector_norm(got.float() - want.float()))
+    return num / den if den else math.inf
+
+
+def grads_of(out: tuple, upstream: tuple, inputs: tuple) -> tuple:
+    return torch.autograd.grad(out, inputs, upstream, retain_graph=True)
+
+
+def phase_kernel_backward(card: str) -> dict:
+    """Phase 3, slice 10: K4's and K5's backward on the card.  At every
+    BWD_FA_CASES / BWD_SSD_CASES shape, the input gradients of
+    ``flash_attention_cuda`` and ``ssd(impl="cuda")`` under autograd (the
+    kernel's forward, ``FlashAttentionFunction`` / ``SSDFunction``'s
+    backward: the plain formulation's VJP) against autograd of the plain
+    versions (``attention_ref``; ``ssd(impl="torch")``, the chunked torch
+    path) on the same inputs and upstream gradients (K5's reach y and the
+    final state), within fp32 2e-5·sqrt(Sk or L), bf16 3e-2, relative to
+    max|ref|.  At the training path's calls (the first case of each) the
+    backward's time per call (CUDA events, median of REPS, the forward's
+    graph kept) beside the plain version's.  Returns ``{kernel: {...}}``."""
+    g = torch.Generator(device=DEVICE).manual_seed(20)
+    out = {}
+    for i, (label, b, hq, hkv, s, sk, d, causal, dtype) in \
+            enumerate(BWD_FA_CASES):
+        q, k, v = (t.requires_grad_() for t in
+                   fa_inputs(g, b, hq, hkv, s, sk, d, dtype))
+        go = torch.randn(b, hq, s, d, device=DEVICE, generator=g).to(dtype)
+        o = flash_attention_cuda(q, k, v, causal=causal)
+        r = attention_ref(q, k, v, causal=causal)
+        if type(o.grad_fn).__name__ != "FlashAttentionFunctionBackward":
+            raise AssertionError(f"flash_attention {label}: no Function "
+                                 f"under autograd ({o.grad_fn})")
+        got, want = grads_of(o, go, (q, k, v)), grads_of(r, go, (q, k, v))
+        torch.cuda.synchronize()
+        tol = fa_tol(sk, dtype)
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        if not max(errs) <= tol:
+            raise AssertionError(f"flash_attention backward {label} {dtype}:"
+                                 f" rel_err dq, dk, dv {errs} > {tol:.3g}")
+        entry = {"case": label, "shape": [b, hq, hkv, s, sk, d],
+                 "dtype": str(dtype), "rel_err_dq_dk_dv": errs, "tol": tol}
+        if i == 0:
+            entry["backward_ms_per_call"] = median_ms(
+                lambda: grads_of(o, go, (q, k, v)))
+            entry["plain_backward_ms_per_call"] = median_ms(
+                lambda: grads_of(r, go, (q, k, v)))
+            out["flash_attention"] = entry
+        emit({"kernel_backward_check": "flash_attention", **entry})
+    for i, (label, b, l, h, p, n, chunk, dtype) in enumerate(BWD_SSD_CASES):
+        inp = tuple(t.requires_grad_() for t in
+                    ssd_inputs(g, b, l, h, p, n, dtype))
+        gy = torch.randn(b, l, h, p, device=DEVICE, generator=g).to(dtype)
+        gs = torch.randn(b, h, p, n, device=DEVICE, generator=g)
+        y, st = ssd(*inp, chunk=chunk, impl="cuda")
+        ry, rst = ssd(*inp, chunk=chunk, impl="torch")
+        got = grads_of((y, st), (gy, gs), inp)
+        want = grads_of((ry, rst), (gy, gs), inp)
+        torch.cuda.synchronize()
+        tol = 2e-5 * math.sqrt(l) if dtype == torch.float32 else BF16_TOL
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        if not max(errs) <= tol:
+            raise AssertionError(f"ssd backward {label} {dtype}: rel_err "
+                                 f"dx, ddt, da, dB, dC {errs} > {tol:.3g}")
+        entry = {"case": label, "shape": [b, l, h, p, n], "chunk": chunk,
+                 "dtype": str(dtype), "rel_err_dx_ddt_da_dB_dC": errs,
+                 "tol": tol}
+        if i == 0:
+            entry["backward_ms_per_call"] = median_ms(
+                lambda: grads_of((y, st), (gy, gs), inp))
+            entry["plain_backward_ms_per_call"] = median_ms(
+                lambda: grads_of((ry, rst), (gy, gs), inp))
+            out["ssd"] = entry
+        emit({"kernel_backward_check": "ssd", **entry})
+    print(f"backward: flash_attention ({len(BWD_FA_CASES)} cases) and ssd "
+          f"({len(BWD_SSD_CASES)}) under autograd agree with autograd of "
+          f"their plain versions; per call at the training shapes "
+          f"{out['flash_attention']['backward_ms_per_call']:.3f} and "
+          f"{out['ssd']['backward_ms_per_call']:.3f} ms; card {card}",
+          flush=True)
+    return out
+
+
+def register_plain_variants() -> str:
+    """The training check's plain run: an op variant ``plain`` of both
+    mixers, never picked by ``auto`` — ``attention_scores`` on
+    ``flash_attention_torch`` (the counterpart of repro's ``flash_xla``,
+    which repro differentiates) and ``ssd`` on ``ssd_chunked`` (of
+    ``ssd_chunked_xla``).  Returns the variant's name."""
+    register_op_impl(
+        "attention_scores", "plain",
+        lambda q, k, v, *, causal, blk_q, blk_k: flash_attention_torch(
+            q, k, v, causal=causal, blk_q=blk_q, blk_k=blk_k),
+        priority=-100, override=True)
+    register_op_impl(
+        "ssd", "plain",
+        lambda xdt, dta, bm, cm, *, chunk: ssd_chunked(xdt, dta, bm, cm,
+                                                       chunk=chunk),
+        priority=-100, override=True)
+    return "plain"
+
+
+def train_counts(cfg, steps: int = 1) -> dict:
+    """The launches of ``steps`` train steps of ``cfg`` with remat: K4
+    once per application of the shared block (not remat'd), K5 twice per
+    SSD layer (the forward and its recomputation), K1-K3 never (every
+    GEMM is differentiated and takes the grad-safe engine)."""
+    groups = cfg.n_layers // cfg.attn_every
+    return {"tiled_mm": 0, "vpu_mm": 0, "qmm": 0,
+            "flash_attention": groups * steps,
+            "ssd": (2 if cfg.remat else 1) * cfg.n_layers * steps}
+
+
+def sample_leaves(tree) -> list:
+    """A copy of the first 4,096 entries of every leaf (the witness that a
+    leaf moved)."""
+    return [t.reshape(-1)[:4096].clone() for t in tree_leaves(tree)]
+
+
+def phase_training(card: str, lm: dict) -> dict:
+    """Slice 10, ``training``: LM_ARCH at full width and depth on the LM
+    phase's parameters (taken over: this phase is their last user).
+
+    1. fp32 gradients: one forward and backward in fp32 compute with
+       ``impl="auto"`` (K4 and K5, launches counted) and one with the
+       plain formulations; every leaf's gradient from both is non-zero
+       and within ``norm_rel_err`` TRAIN_GRAD_TOL.
+    2. TRAIN_STEPS bf16 train steps (``build_train_step``, donate): loss
+       and grad norm finite, the first loss within 1 of ln(vocab), after
+       step 1 every leaf moved and its first moment (0.1 x its clipped
+       gradient) finite and non-zero; launches per step exactly
+       :func:`train_counts`; ms per step (median of steps 2-3), tokens/s,
+       the share of the bf16 dense peak at 6·N·D, peak memory; one more
+       step under ``torch.profiler``: busy share, the five largest device
+       ops and the device time of K4's and K5's backward.
+    3. The reduced LM_ARCH (fp32) trained on the card and on the CPU from
+       one CPU state: losses, parameters and optimizer state within
+       TRAIN_REDUCED_TOL of the leaf's largest entry.
+    4. The reduced resume: ``train_loop`` with a ``Checkpointer`` every
+       TRAIN_CKPT_EVERY steps under ``run_with_recovery``, a failure after
+       step TRAIN_FAIL_AT, bitwise equal to an uninterrupted run."""
+    t_phase = time.perf_counter()
+    cfg = lm["cfg"]
+    params = lm.pop("params")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batches = prefetch(synthetic_batches(cfg, TRAIN_CELL, seed=0,
+                                         device=DEVICE), depth=2)
+    first = next(batches)
+
+    # 1. fp32 gradients through the kernels against the plain formulations
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    plain = register_plain_variants()
+    reset_launches()
+    loss_k, grads_k = loss_and_grads(cfg32, params, first)
+    torch.cuda.synchronize()
+    fp32_counts = expect_counts("fp32 forward and backward",
+                                train_counts(cfg))
+    _, grads_p = loss_and_grads(cfg32, params, first, impl=plain)
+    expect_counts("fp32 plain forward and backward",
+                  {"flash_attention": fp32_counts["flash_attention"],
+                   "ssd": fp32_counts["ssd"]})
+    names = leaf_names(params)
+    worst = (0.0, None)
+    for name, a, b in zip(names, tree_leaves(grads_k), tree_leaves(grads_p)):
+        if not (float(a.abs().max()) > 0 and float(b.abs().max()) > 0):
+            raise AssertionError(f"fp32 gradients: {name} has none")
+        err = norm_rel_err(a, b)
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"fp32 gradient of {name}: ||kernels - "
+                                 f"plain|| / ||plain|| {err:.4g} > "
+                                 f"{TRAIN_GRAD_TOL}")
+        worst = max(worst, (err, name))
+    del grads_k, grads_p
+    grad_check = {"leaves": len(names), "max_rel_err": worst[0],
+                  "leaf": worst[1], "tol": TRAIN_GRAD_TOL,
+                  "loss": float(loss_k), "launches": fp32_counts}
+    print(f"training: fp32 gradients of all {len(names)} leaves through K4 "
+          f"and K5 within {TRAIN_GRAD_TOL} of the plain formulations' "
+          f"(largest ||diff||/||plain|| {worst[0]:.3g} at {worst[1]})",
+          flush=True)
+
+    # 2. bf16 train steps, the state's tensors written in place
+    step_fn, _, _ = build_train_step(cfg, TRAIN_CELL)
+    state = {"params": params, "opt": adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+    del params
+    before = sample_leaves(state["params"])
+    per_step = train_counts(cfg)
+    losses, norms, step_s, batch = [], [], [], first
+    for i in range(TRAIN_STEPS):
+        batch = batch if i == 0 else next(batches)
+        reset_launches()
+        (state, metrics), s = timed(lambda: step_fn(state, batch))
+        expect_counts(f"train step {i + 1}", per_step)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        step_s.append(s)
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            raise AssertionError(f"train step {i + 1}: loss {losses[-1]}, "
+                                 f"grad norm {norms[-1]}")
+        if i == 0:
+            for name, m, old, new in zip(
+                    names, tree_leaves(state["opt"]["m"]), before,
+                    sample_leaves(state["params"])):
+                if not (bool(torch.isfinite(m).all())
+                        and float(m.abs().max()) > 0):
+                    raise AssertionError(f"train step 1: the gradient of "
+                                         f"{name} is zero or not finite")
+                if torch.equal(old, new):
+                    raise AssertionError(f"train step 1: {name} did not "
+                                         f"move")
+    ln_vocab = math.log(cfg.vocab_size)
+    if not abs(losses[0] - ln_vocab) <= 1.0:
+        raise AssertionError(f"first loss {losses[0]:.4f} is not within 1 "
+                             f"of ln(vocab) {ln_vocab:.4f}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = 1e3 * statistics.median(step_s[1:])
+    tokens = TRAIN_CELL.global_batch * TRAIN_CELL.seq_len
+    flops = model_flops(cfg, TRAIN_CELL)
+    profile = train_profile(lambda: step_fn(state, next(batches)))
+    steps = {"steps": TRAIN_STEPS, "losses": losses, "grad_norms": norms,
+             "step_ms": [1e3 * t for t in step_s], "ms_per_step": ms,
+             "tokens_per_step": tokens, "tokens_per_s": tokens / (ms / 1e3),
+             "model_flops_per_step": flops,
+             "bf16_peak_share_at_6ND": flops / (ms / 1e3) / BF16_PEAK_FLOPS,
+             "peak_memory_gb": peak_gb, "launches_per_step": per_step,
+             "profile": profile}
+    print(f"training: {LM_ARCH} {TRAIN_STEPS} bf16 steps of {tokens} tokens, "
+          f"losses {[round(x, 4) for x in losses]}, {ms:.1f} ms per step "
+          f"(median of steps 2-{TRAIN_STEPS}), {tokens / (ms / 1e3):,.0f} "
+          f"tokens/s, {100 * steps['bf16_peak_share_at_6ND']:.2f}% of the "
+          f"bf16 dense peak at 6·N·D, peak memory {peak_gb:.2f} GB, launches "
+          f"per step {per_step}; card {card}", flush=True)
+    del state, batch, first, before
+    torch.cuda.empty_cache()
+
+    reduced_run = phase_training_reduced()
+    resume = phase_training_resume()
+    result = {"training": LM_ARCH, "cell": dataclasses.asdict(TRAIN_CELL),
+              "param_dtype": cfg.param_dtype, "compute_dtype":
+              cfg.compute_dtype, "remat": cfg.remat, "optimizer": "adamw",
+              "fp32_gradients": grad_check, "bf16_steps": steps,
+              "reduced_card_vs_cpu": reduced_run, "reduced_resume": resume,
+              "peak": BF16_NOTE, "phase_s": time.perf_counter() - t_phase,
+              "timer": "host clock around synchronize; ms per step the "
+                       "median of steps 2-3",
+              "card": card}
+    emit(result)
+    return {"launches_per_step": per_step,
+            "backward_device_ms_per_step": profile["backward_device_ms"]}
+
+
+def leaf_names(tree, prefix: str = "") -> list:
+    """The leaves' paths in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def train_profile(step) -> dict:
+    """One train step under ``torch.profiler``: the card's busy share, the
+    five largest device ops by total time, and the device time of the
+    kernels' Functions' backward (K4's and K5's VJP, the plain
+    formulations') from autograd's node ranges."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, wall = timed(step)
+    ops, intervals, backward = {}, [], {}
+    nodes = {"flash_attention": "FlashAttentionFunctionBackward",
+             "ssd": "SSDFunctionBackward"}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            ms = (ev.time_range.end - ev.time_range.start) / 1e3
+            op = ops.setdefault(ev.name[:80], {"count": 0, "device_ms": 0.0})
+            op["count"] += 1
+            op["device_ms"] += ms
+            intervals.append((ev.time_range.start, ev.time_range.end))
+            continue
+        for kernel, node in nodes.items():
+            parent = ev.cpu_parent
+            if ev.name.endswith(node) and not (
+                    parent is not None and parent.name.endswith(node)):
+                b = backward.setdefault(kernel, {"calls": 0,
+                                                 "device_ms": 0.0})
+                b["calls"] += 1
+                b["device_ms"] += ev.device_time_total / 1e3
+    busy_ms = union_us(intervals) / 1e3 if intervals else None
+    top = sorted(ops.items(), key=lambda kv: -kv[1]["device_ms"])[:5]
+    return {"wall_ms_under_profiler": 1e3 * wall,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": None if busy_ms is None
+            else busy_ms / (1e3 * wall),
+            "top5_device_ops": dict(top),
+            "backward_device_ms": backward}
+
+
+def copy_state(state: dict, device) -> dict:
+    return tree_map(lambda t: t.to(device, copy=True), state)
+
+
+def phase_training_reduced() -> dict:
+    """The reduced LM_ARCH (TRAIN_REDUCED_LAYERS layers, fp32) from one
+    state made on the CPU: TRAIN_STEPS steps on the card (launches
+    counted) and on the CPU; losses and every leaf of the state within
+    TRAIN_REDUCED_TOL of the CPU leaf's largest entry."""
+    cfg = reduced(ARCHS[LM_ARCH], n_layers=TRAIN_REDUCED_LAYERS)
+    state0 = make_train_state(cfg, 21, device="cpu")
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        state = copy_state(state0, dev)
+        step_fn, _, _ = build_train_step(cfg, TRAIN_REDUCED_CELL)
+        losses = []
+        reset_launches()
+        for step, batch in zip(range(TRAIN_STEPS), synthetic_batches(
+                cfg, TRAIN_REDUCED_CELL, seed=3, device=dev)):
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+        runs[dev] = (state, losses, launch_counts())
+    (cpu, cpu_losses, _), (card, card_losses, counts) = runs["cpu"], \
+        runs[DEVICE]
+    want = train_counts(cfg, TRAIN_STEPS)
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"reduced training on the card: launches "
+                             f"{counts}, expected {want}")
+    worst = max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses))
+    names = leaf_names(cpu)
+    for name, a, b in zip(names, tree_leaves(card), tree_leaves(cpu)):
+        err = rel_err(a.cpu(), b) if b.dim() else \
+            abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+        worst = max(worst, err)
+        if not err <= TRAIN_REDUCED_TOL:
+            raise AssertionError(f"reduced training, card vs CPU: {name} "
+                                 f"rel_err {err:.3g} > {TRAIN_REDUCED_TOL}")
+    print(f"training: reduced {LM_ARCH} ({TRAIN_REDUCED_LAYERS} layers, fp32) "
+          f"{TRAIN_STEPS} steps on the card within {TRAIN_REDUCED_TOL} of the "
+          f"CPU (largest rel_err {worst:.3g} over losses and {len(names)} "
+          f"state leaves), launches {want}", flush=True)
+    return {"arch": LM_ARCH, "n_layers": TRAIN_REDUCED_LAYERS,
+            "cell": dataclasses.asdict(TRAIN_REDUCED_CELL),
+            "steps": TRAIN_STEPS, "losses_card": card_losses,
+            "losses_cpu": cpu_losses, "max_rel_err": worst,
+            "tol": TRAIN_REDUCED_TOL, "launches": want}
+
+
+class InjectedFault(RuntimeError):
+    pass
+
+
+def phase_training_resume() -> dict:
+    """The reduced LM_ARCH on the card through ``train_loop`` (donate) with
+    a ``Checkpointer`` every TRAIN_CKPT_EVERY steps under
+    ``run_with_recovery``, a failure injected after step TRAIN_FAIL_AT;
+    the supervisor restores the last checkpoint and runs to
+    TRAIN_RESUME_STEPS.  The final state must be bitwise that of an
+    uninterrupted run from the same CPU state."""
+    cfg = reduced(ARCHS[LM_ARCH], n_layers=TRAIN_REDUCED_LAYERS)
+    cell = TRAIN_REDUCED_CELL
+    state0 = make_train_state(cfg, 22, device="cpu")
+    straight, _ = train_loop(
+        cfg, steps=TRAIN_RESUME_STEPS, cell=cell,
+        state=copy_state(state0, DEVICE),
+        batch_iter=synthetic_batches(cfg, cell, seed=4, device=DEVICE))
+    workdir = tempfile.mkdtemp(prefix="train_ckpt_")
+    try:
+        ck = Checkpointer(workdir, keep=2, async_write=True)
+        fired, starts = [], []
+
+        def on_step(step, metrics):
+            if step == TRAIN_FAIL_AT and not fired:
+                fired.append(step)
+                ck.wait()        # the last checkpoint is on disk
+                raise InjectedFault(f"injected after step {step}")
+
+        def run_steps(start, end, state):
+            starts.append(start)
+            it = prefetch(synthetic_batches(cfg, cell, seed=4,
+                                            start_step=start, device=DEVICE))
+            state, _ = train_loop(cfg, steps=end - start, cell=cell,
+                                  state=copy_state(state, DEVICE),
+                                  batch_iter=it, checkpointer=ck,
+                                  ckpt_every=TRAIN_CKPT_EVERY,
+                                  on_step=on_step)
+            ck.wait()
+            return state
+
+        resumed, failures = run_with_recovery(
+            steps=TRAIN_RESUME_STEPS, run_steps=run_steps, checkpointer=ck,
+            state0=state0)
+        saved = ck.all_steps()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    restored = TRAIN_FAIL_AT - TRAIN_FAIL_AT % TRAIN_CKPT_EVERY
+    if len(failures) != 1 or starts != [0, restored] \
+            or int(resumed["step"]) != TRAIN_RESUME_STEPS:
+        raise AssertionError(f"resume: failures {failures}, runs from "
+                             f"{starts}, step {int(resumed['step'])}")
+    names = leaf_names(straight)
+    differ = [n for n, a, b in zip(names, tree_leaves(resumed),
+                                   tree_leaves(straight))
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"resume: {len(differ)} leaves differ from the "
+                             f"uninterrupted run, first {differ[:4]}")
+    print(f"training: reduced {LM_ARCH} failed after step {TRAIN_FAIL_AT}, "
+          f"restored the checkpoint of step {restored} and ran to step "
+          f"{TRAIN_RESUME_STEPS} (checkpoints kept {saved}), bitwise the "
+          f"uninterrupted run ({len(names)} leaves)", flush=True)
+    return {"steps": TRAIN_RESUME_STEPS, "ckpt_every": TRAIN_CKPT_EVERY,
+            "failed_after": TRAIN_FAIL_AT, "restored_step": restored,
+            "checkpoints": saved, "bitwise_leaves": len(names)}
+
+
+def training_launches(training: dict, name: str) -> dict:
+    return {"launches_per_step": training["launches_per_step"][name],
+            "per": f"one {LM_ARCH} train step of "
+                   f"{TRAIN_CELL.global_batch} x {TRAIN_CELL.seq_len} "
+                   f"tokens (remat)"}
+
+
 def summary(t: dict) -> dict:
     """The kernels line's time keys from per-forward totals."""
     return {"ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3163,6 +3646,7 @@ def main() -> int:
     qmm_err = phase_qmm_kernel()
     flash_err = phase_flash_kernel()
     ssd_err = phase_ssd_kernel()
+    backward = phase_kernel_backward(card)
 
     # phase 4: the main paths (fp32, then int8)
     main = phase_main_path()
@@ -3190,6 +3674,8 @@ def main() -> int:
     lm_totals = phase_lm_kernel_times(card, lm)
     lm_gemms = phase_lm_gemm_times(card, lm)
     lm_profiled = phase_lm_profile(card, lm)
+    # slice 10: the training path, last user of the LM phase's parameters
+    training = phase_training(card, lm)
 
     # phase 6: the kernels line, the card, the result
     on_runtime = (f"one CIFAR_Alex+ forward at {FRAMES} frames through the "
@@ -3223,7 +3709,8 @@ def main() -> int:
                        f"the conv front-end of CIFAR_Alex+ x{FRAMES} as "
                        f"{FRAMES // MICRO} wave graphs")},
                    "serving": serving_launches(serving, name),
-                   "durability": durability_launches(durability, name)}
+                   "durability": durability_launches(durability, name),
+                   "training": training_launches(training, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -3277,7 +3764,8 @@ def main() -> int:
                     "runtime": {**q_runtime, "launches_by_path":
                                 decode["runtime_paths"]},
                     "serving": serving_launches(serving, "qmm"),
-                    "durability": durability_launches(durability, "qmm")}})
+                    "durability": durability_launches(durability, "qmm"),
+                    "training": training_launches(training, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -3302,7 +3790,16 @@ def main() -> int:
                 "lm_decode": {"launches_per_step":
                               lm["decode"]["launches_per_step"][name]},
                 "serving": serving_launches(serving, name),
-                "durability": durability_launches(durability, name)}})
+                "durability": durability_launches(durability, name),
+                "training": {**training_launches(training, name),
+                             "backward": {
+                                 "is": "the plain formulation's VJP "
+                                       "(attention_ref / ssd_chunked), "
+                                       "recomputed from the saved inputs",
+                                 **backward[name],
+                                 "device_ms_per_step": training[
+                                     "backward_device_ms_per_step"].get(
+                                     name)}}}})
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,10 @@ cross-attention."""
 
 from .flash_attention import (HEAD_DIMS, flash_attention_library,
                               load_flash_attention)
-from .ops import flash_attention, flash_attention_cuda
+from .ops import (FlashAttentionFunction, flash_attention,
+                  flash_attention_cuda)
 from .ref import attention_ref
 
-__all__ = ["flash_attention", "flash_attention_cuda", "attention_ref",
+__all__ = ["FlashAttentionFunction", "flash_attention",
+           "flash_attention_cuda", "attention_ref",
            "flash_attention_library", "load_flash_attention", "HEAD_DIMS"]

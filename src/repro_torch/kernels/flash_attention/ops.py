@@ -8,7 +8,13 @@ A CPU tensor takes the plain version (:func:`attention_ref`); a CUDA tensor
 launches the kernel or raises.  ``cuda`` is registered as always
 available and routes on the operands' device, so ``"auto"`` resolves to
 it on every machine.  ``flash_attention_cuda.launches`` counts kernel
-launches and nothing else, under the lock the other kernels' counts use."""
+launches and nothing else, under the lock the other kernels' counts use.
+
+Under autograd ``flash_attention_cuda`` runs through
+:class:`FlashAttentionFunction`: the forward is the kernel (the same bits
+as inference), the backward the VJP of :func:`attention_ref` recomputed
+from the saved inputs, as ``repro`` differentiates its ``xla`` variant (it
+has no backward kernel)."""
 
 from __future__ import annotations
 
@@ -23,7 +29,8 @@ from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
 from .flash_attention import HEAD_DIMS, load_flash_attention
 from .ref import attention_ref
 
-__all__ = ["check_kernel_shape", "flash_attention", "flash_attention_cuda"]
+__all__ = ["FlashAttentionFunction", "check_kernel_shape",
+           "flash_attention", "flash_attention_cuda"]
 
 
 def _check(q, k, v, causal: bool) -> None:
@@ -65,21 +72,15 @@ def check_kernel_shape(b: int, hq: int, s: int, sk: int, d: int) -> None:
                          f"grid's 65535, or S/Sk exceeds 2**31 - 1")
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True,
-                         scale: float | None = None) -> torch.Tensor:
-    """softmax(Q Kᵀ · scale) V per (batch, q-head), fp32 accumulation,
-    output in q's dtype; q-head h reads kv head ``h // (Hq // Hkv)``, so
-    K/V are never repeated.  Any S and Sk: the ragged edges are masked in
-    the kernel."""
-    _check(q, k, v, causal)
-    b, hq, s, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool, scale: float) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    b, hq, s, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     check_kernel_shape(b, hq, s, sk, d)
     out = torch.empty_like(q)
     if q.numel() == 0:
@@ -101,6 +102,46 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"{tuple(k.shape)}")
     count_launch(flash_attention_cuda)
     return out
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K4 under autograd.  Forward: :func:`_flash_forward` (the kernel on
+    the card, the plain version on the CPU), saving only q, k and v.
+    Backward: the VJP of :func:`attention_ref` recomputed from them, a
+    gradient for each of q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return _flash_forward(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, go):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            out = attention_ref(*inputs, causal=ctx.causal, scale=ctx.scale)
+            grads = list(torch.autograd.grad(
+                out, [t for t in inputs if t.requires_grad], go))
+        return (*(grads.pop(0) if n else None for n in need), None, None)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         scale: float | None = None) -> torch.Tensor:
+    """softmax(Q Kᵀ · scale) V per (batch, q-head), fp32 accumulation,
+    output in q's dtype; q-head h reads kv head ``h // (Hq // Hkv)``, so
+    K/V are never repeated.  Any S and Sk: the ragged edges are masked in
+    the kernel.  When autograd records the call it runs through
+    :class:`FlashAttentionFunction`."""
+    _check(q, k, v, causal)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[3])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFunction.apply(q, k, v, causal, scale)
+    return _flash_forward(q, k, v, causal, scale)
 
 
 flash_attention_cuda.launches = 0

@@ -16,20 +16,21 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   scale: float | None = None) -> torch.Tensor:
     """q (B, Hq, S, D); k/v (B, Hkv, Sk, D) -> (B, Hq, S, D) in q's dtype,
-    computed in fp32.  q-head h reads kv head ``h // (Hq // Hkv)``; the
-    causal mask aligns the last query with the last key, as ``repro``'s
-    does (the same as row >= col when S == Sk)."""
+    computed in fp32 (float64 operands, as gradcheck passes, in float64).
+    q-head h reads kv head ``h // (Hq // Hkv)``; the causal mask aligns the
+    last query with the last key, as ``repro``'s does (the same as row >=
+    col when S == Sk)."""
     b, hq, s, d = q.shape
     _, hkv, sk, _ = k.shape
     group = hq // hkv
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
-    qg = q.to(torch.float32).reshape(b, hkv, group, s, d)
-    s_mat = torch.einsum("bhgqd,bhkd->bhgqk", qg,
-                         k.to(torch.float32)) * scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qg = q.to(acc).reshape(b, hkv, group, s, d)
+    s_mat = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(acc)) * scale
     if causal:
         mask = torch.ones((s, sk), dtype=torch.bool,
                           device=q.device).tril(diagonal=sk - s)
         s_mat = s_mat.masked_fill(~mask, float("-inf"))
     p = torch.softmax(s_mat, dim=-1)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(acc))
     return out.reshape(b, hq, s, d).to(q.dtype)

@@ -9,7 +9,12 @@ Variants of the ``ssd`` op: ``cuda`` (:func:`ssd_cuda`), ``torch``
 always available and routes on the operands' device: a CPU tensor takes
 the plain version (:func:`ssd_chunked`), a CUDA tensor launches the kernel
 or raises.  ``ssd_cuda.launches`` counts kernel launches and nothing else,
-under the lock the other kernels' counts use."""
+under the lock the other kernels' counts use.
+
+Under autograd ``ssd_cuda`` runs through :class:`SSDFunction`: the forward
+is the kernel (the same bits as inference), the backward the VJP of
+:func:`ssd_chunked` recomputed from the saved inputs, as ``repro``
+differentiates ``ssd_chunked_xla`` (it has no backward kernel)."""
 
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
 from .ref import ssd_ref
 from .ssd import SSD_MAX_CHUNK, SSD_SHAPES, load_ssd
 
-__all__ = ["check_kernel_shape", "ssd", "ssd_chunked", "ssd_cuda"]
+__all__ = ["SSDFunction", "check_kernel_shape", "ssd", "ssd_chunked",
+           "ssd_cuda"]
 
 
 def _prescale(x, dt, a):
@@ -43,7 +49,8 @@ def ssd_chunked(xdt, dta, bm, cm, *, chunk: int = 128):
     ``chunk`` -> y (B,H,L,P) in xdt's dtype, final state (B,H,P,N) fp32."""
     b, h, l, p = xdt.shape
     n = bm.shape[-1]
-    f32 = torch.float32
+    # fp32 accumulation (float64 operands, as gradcheck passes, keep theirs)
+    f32 = torch.promote_types(xdt.dtype, torch.float32)
     cdt = xdt.dtype                         # compute dtype (bf16/f32)
     q = chunk
     tril = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
@@ -117,13 +124,10 @@ def check_kernel_shape(b: int, h: int, l: int, p: int, n: int,
         raise ValueError("ssd: a dimension exceeds the grid")
 
 
-def ssd_cuda(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
-             cm: torch.Tensor, *, chunk: int = 128
-             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The chunked SSD scan by the CUDA kernel: xdt (B,H,L,P), dta (B,H,L)
-    fp32, bm/cm (B,L,N) in xdt's dtype, L a multiple of ``chunk`` ->
-    y (B,H,L,P) in xdt's dtype and the final state (B,H,P,N) fp32."""
-    _check(xdt, dta, bm, cm, chunk)
+def _ssd_forward(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
+                 cm: torch.Tensor, chunk: int
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
     if xdt.device.type == "cpu":
         return ssd_chunked(xdt, dta, bm, cm, chunk=chunk)
     if xdt.device.type != "cuda":
@@ -147,6 +151,49 @@ def ssd_cuda(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
                            f"chunk={chunk}")
     count_launch(ssd_cuda)
     return y, state
+
+
+class SSDFunction(torch.autograd.Function):
+    """K5 under autograd.  Forward: :func:`_ssd_forward` (the kernel on the
+    card, the plain version on the CPU), saving only the inputs.  Backward:
+    the VJP of :func:`ssd_chunked` recomputed from them, a gradient for
+    each of xdt, dta, bm and cm; the final state is differentiable too
+    (its gradient, when one reaches it, joins y's in the same VJP)."""
+
+    @staticmethod
+    def forward(ctx, xdt, dta, bm, cm, chunk):
+        ctx.save_for_backward(xdt, dta, bm, cm)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return _ssd_forward(xdt, dta, bm, cm, chunk)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        need = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n)
+                      for t, n in zip(ctx.saved_tensors, need)]
+            outs = ssd_chunked(*inputs, chunk=ctx.chunk)
+            pairs = [(o, g) for o, g in zip(outs, (gy, gstate))
+                     if g is not None]
+            grads = list(torch.autograd.grad(
+                [o for o, _ in pairs], [t for t in inputs if t.requires_grad],
+                [g for _, g in pairs], allow_unused=True))
+        return (*(grads.pop(0) if n else None for n in need), None)
+
+
+def ssd_cuda(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
+             cm: torch.Tensor, *, chunk: int = 128
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The chunked SSD scan by the CUDA kernel: xdt (B,H,L,P), dta (B,H,L)
+    fp32, bm/cm (B,L,N) in xdt's dtype, L a multiple of ``chunk`` ->
+    y (B,H,L,P) in xdt's dtype and the final state (B,H,P,N) fp32.  When
+    autograd records the call it runs through :class:`SSDFunction`."""
+    _check(xdt, dta, bm, cm, chunk)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xdt, dta, bm, cm)):
+        return SSDFunction.apply(xdt, dta, bm, cm, chunk)
+    return _ssd_forward(xdt, dta, bm, cm, chunk)
 
 
 ssd_cuda.launches = 0

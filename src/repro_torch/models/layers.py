@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from repro_torch.core.synergy_mm import synergy_matmul
 
 __all__ = ["rms_norm", "layer_norm", "rope", "dense", "glu_mlp",
-           "init_dense", "init_glu_mlp", "softmax_xent", "normal"]
+           "init_dense", "init_glu_mlp", "softmax_xent", "normal", "MetaKey"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -54,10 +54,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # init helpers / dense / MLP
 # ---------------------------------------------------------------------------
 
-def normal(g: torch.Generator, shape: tuple, scale: float,
+class MetaKey:
+    """Takes a ``torch.Generator``'s place in init on the ``meta`` device
+    (which has no generator): :func:`normal` draws nothing from it."""
+
+    device = torch.device("meta")
+
+
+def normal(g: torch.Generator | MetaKey, shape: tuple, scale: float,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """N(0, scale^2) of ``shape`` drawn from ``g`` on ``g``'s device, cast
-    to ``dtype``."""
+    to ``dtype``; on the ``meta`` device an empty stand-in."""
+    if g.device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     return (torch.randn(shape, generator=g, device=g.device)
             * scale).to(dtype)
 

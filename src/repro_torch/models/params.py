@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["tensor_from_numpy", "lm_params_from_jax"]
+__all__ = ["tensor_from_numpy", "lm_params_from_jax", "train_state_from_jax"]
 
 
 def tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
@@ -23,11 +23,7 @@ def tensor_from_numpy(arr, device: torch.device) -> torch.Tensor:
     return torch.tensor(arr, device=device)
 
 
-def lm_params_from_jax(tree: dict, device: str | torch.device | None = None
-                       ) -> dict:
-    """Parameters of ``repro.models.init_model`` (a nested dict of arrays,
-    handed over as numpy) as tensors on ``device`` (default the card), with
-    the same keys, shapes, dtypes and stacked (L, ...) layouts."""
+def _tensors(tree: dict, device) -> dict:
     dev = resolve_device(device)
 
     def conv(node):
@@ -36,3 +32,20 @@ def lm_params_from_jax(tree: dict, device: str | torch.device | None = None
         return tensor_from_numpy(node, dev)
 
     return conv(tree)
+
+
+def lm_params_from_jax(tree: dict, device: str | torch.device | None = None
+                       ) -> dict:
+    """Parameters of ``repro.models.init_model`` (a nested dict of arrays,
+    handed over as numpy) as tensors on ``device`` (default the card), with
+    the same keys, shapes, dtypes and stacked (L, ...) layouts."""
+    return _tensors(tree, device)
+
+
+def train_state_from_jax(state: dict,
+                         device: str | torch.device | None = None) -> dict:
+    """A train state of ``repro.launch.train.make_train_state`` ({"params",
+    "opt", "step"}: AdamW's {"m", "v", "step"} or Adafactor's {"stats",
+    "step"}; handed over as numpy) as the port's: tensors on ``device``
+    (default the card) with the same keys, the steps 0-dim int32."""
+    return _tensors(state, device)

@@ -15,6 +15,8 @@ stacked (L, ...) layout, so weights carry across key for key
 ``lax.scan`` over the stack is a loop over the layer index here.  Serving
 (``prefill``, ``decode_step``, ``prepare_cross_cache``) runs under
 ``torch.inference_mode``; ``decode_step`` writes the caches in place.
+Training rematerializes each scanned block when ``cfg.remat`` is set
+(``torch.utils.checkpoint``, where ``repro`` uses ``jax.checkpoint``).
 """
 
 from __future__ import annotations
@@ -22,13 +24,16 @@ from __future__ import annotations
 from typing import Any, Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, torch_dtype
 from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
+from repro_torch.tree import tree_leaves, tree_map
 from .attention import (attention, decode_attend, decode_project_kv,
                         init_attention, is_scalar_pos, project_kv)
-from .layers import glu_mlp, init_glu_mlp, normal, rms_norm, softmax_xent
+from .layers import (MetaKey, glu_mlp, init_glu_mlp, normal, rms_norm,
+                     softmax_xent)
 from .moe import init_moe, moe_ffn
 from .ssm import (init_mamba2, init_mamba2_state, mamba2_block,
                   mamba2_decode_step)
@@ -37,20 +42,12 @@ __all__ = ["init_lm", "lm_forward", "lm_loss", "init_cache", "decode_step",
            "prefill", "prepare_cross_cache"]
 
 
-def _tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts (``rest``: same structure)."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
 def _layer_slice(tree, l: int):
-    return _tree_map(lambda a: a[l], tree)
+    return tree_map(lambda a: a[l], tree)
 
 
 def _grouped(tree, groups: int):
-    return _tree_map(
+    return tree_map(
         lambda a: a.reshape((groups, a.shape[0] // groups) + a.shape[1:]),
         tree)
 
@@ -152,8 +149,10 @@ def _mamba_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor,
 def _generator(key, device) -> torch.Generator:
     if isinstance(key, torch.Generator):
         return key
-    return torch.Generator(device=resolve_device(device)).manual_seed(
-        int(key))
+    dev = resolve_device(device)
+    if dev.type == "meta":
+        return MetaKey()
+    return torch.Generator(device=dev).manual_seed(int(key))
 
 
 def init_lm(cfg: ArchConfig, key: int | torch.Generator = 0, *,
@@ -161,7 +160,9 @@ def init_lm(cfg: ArchConfig, key: int | torch.Generator = 0, *,
     """Random parameters for ``cfg`` on ``device`` (default the card),
     drawn from ``key``: an int seed, or a ``torch.Generator`` (which then
     decides the device).  Same keys, shapes and dtypes as ``repro``'s
-    ``init_lm``; not the same numbers (``jax.random`` cannot be replayed)."""
+    ``init_lm``; not the same numbers (``jax.random`` cannot be replayed).
+    On the ``meta`` device nothing is drawn or allocated: the tree holds
+    stand-ins of the same shapes and dtypes."""
     g = _generator(key, device)
     dt = cfg.param_torch_dtype
     n = cfg.n_layers
@@ -193,9 +194,26 @@ def init_lm(cfg: ArchConfig, key: int | torch.Generator = 0, *,
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def _scan_blocks(body, x, stacked, n: int):
+def _records(x: torch.Tensor, stacked: dict) -> bool:
+    """True when autograd records a block applied to ``x`` with the
+    ``stacked`` parameters."""
+    return torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad
+                               for t in tree_leaves(stacked)))
+
+
+def _scan_blocks(body, x, stacked, n: int, remat: bool = False):
+    """``body`` over the ``n`` stacked layers.  With ``remat``, a block that
+    autograd records keeps only its input and recomputes its activations
+    in the backward (``repro``'s ``jax.checkpoint`` per scanned block)."""
+    remat = remat and _records(x, stacked)
+    # one unbind per leaf: its backward stacks the n layers' gradients
+    # once, where a slice per layer would add n zero-padded stacks
+    layers = tree_map(torch.unbind, stacked)
     for l in range(n):
-        x = body(_layer_slice(stacked, l), x)
+        p = tree_map(lambda t: t[l], layers)
+        x = (checkpoint(body, p, x, use_reentrant=False) if remat
+             else body(p, x))
     return x
 
 
@@ -204,21 +222,23 @@ def _backbone(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
               impl: str = "auto") -> torch.Tensor:
     if cfg.family in ("dense", "moe", "vlm"):
         body = lambda p, h: _attn_block_fwd(cfg, p, h, impl=impl)
-        x = _scan_blocks(body, x, params["blocks"], cfg.n_layers)
+        x = _scan_blocks(body, x, params["blocks"], cfg.n_layers, cfg.remat)
     elif cfg.family == "ssm":
         body = lambda p, h: _mamba_block_fwd(cfg, p, h, impl=impl)
-        x = _scan_blocks(body, x, params["blocks"], cfg.n_layers)
+        x = _scan_blocks(body, x, params["blocks"], cfg.n_layers, cfg.remat)
     elif cfg.family == "hybrid":
         groups = cfg.n_layers // cfg.attn_every
-        stacked = _grouped(params["blocks"], groups)
+        per_group = tree_map(torch.unbind,
+                              _grouped(params["blocks"], groups))
         inner = lambda p, h: _mamba_block_fwd(cfg, p, h, impl=impl)
         for grp in range(groups):
-            x = _scan_blocks(inner, x, _layer_slice(stacked, grp),
-                             cfg.attn_every)
+            x = _scan_blocks(inner, x, tree_map(lambda t: t[grp], per_group),
+                             cfg.attn_every, cfg.remat)
+            # the shared block is applied outside the scan: not remat'd
             x = _attn_block_fwd(cfg, params["shared"], x, impl=impl)
     elif cfg.family == "audio":
         body = lambda p, h: _attn_block_fwd(cfg, p, h, enc=enc, impl=impl)
-        x = _scan_blocks(body, x, params["blocks"], cfg.n_layers)
+        x = _scan_blocks(body, x, params["blocks"], cfg.n_layers, cfg.remat)
     return x
 
 
@@ -226,7 +246,7 @@ def _encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
     body = lambda p, h: _attn_block_fwd(cfg, p, h, causal=False, impl=impl)
     enc = _scan_blocks(body, enc_embeds.to(cfg.compute_torch_dtype),
-                       params["encoder"], cfg.encoder_layers)
+                       params["encoder"], cfg.encoder_layers, cfg.remat)
     return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
 
@@ -385,12 +405,12 @@ def _decode_mamba_inplace(cfg, p, x, mcache, l, pos=None):
                                eps=cfg.norm_eps)
     if pos is not None and not is_scalar_pos(pos):
         keep = pos.to(x.device) >= 0
-        st = _tree_map(
+        st = tree_map(
             lambda new, old: torch.where(
                 keep.reshape((-1,) + (1,) * (old.dim() - 1)),
                 new.to(old.dtype), old),
             st, st_old)
-    _tree_map(lambda old, new: old.copy_(new), st_old, st)
+    tree_map(lambda old, new: old.copy_(new), st_old, st)
     return x + y
 
 

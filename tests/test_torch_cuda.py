@@ -23,7 +23,10 @@ continuous-batching server over K1 + K3 on the card: the CPU's tokens,
 batched decode bitwise per-slot, decode GEMMs within 1e-5·sqrt(k) of the
 CPU's.  Durable serving: card tensors (fp32, bf16) through the
 Checkpointer bitwise, and the reduced granite server crashed and restored
-on the card giving the CPU's uninterrupted tokens.
+on the card giving the CPU's uninterrupted tokens.  Training: K4's and
+K5's backward (their autograd Functions) against autograd of the plain
+versions, and two train steps of the reduced zamba2 on the card against
+the CPU.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -855,3 +858,97 @@ def test_durable_server_on_the_card_restores_the_cpu_tokens(cuda, tmp_path):
     assert (srv2.stats.tokens_out + srv2.stats.replayed_tokens
             == cpu["stats"].tokens_out)
     assert srv2.stats.restores == 1
+
+
+# ---------------------------------------------------------- the training path
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,causal", [(4, True), (2, True), (1, False)])
+def test_flash_attention_backward_matches_plain_autograd(cuda, hkv, causal,
+                                                         dtype):
+    """K4 under autograd (``FlashAttentionFunction``: the kernel forward,
+    ``attention_ref``'s VJP) against autograd of ``attention_ref``, at the
+    reduced configs' head dim 16."""
+    g = torch.Generator(cuda).manual_seed(30)
+    q, k, v = (torch.randn(2, 4 if i == 0 else hkv, 64, 16, device=cuda,
+                           generator=g).to(dtype).requires_grad_()
+               for i in range(3))
+    go = torch.randn(2, 4, 64, 16, device=cuda, generator=g).to(dtype)
+    before = flash_attention_cuda.launches
+    o = flash_attention_cuda(q, k, v, causal=causal)
+    assert flash_attention_cuda.launches == before + 1
+    assert type(o.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    got = torch.autograd.grad(o, (q, k, v), go)
+    want = torch.autograd.grad(attention_ref(q, k, v, causal=causal),
+                               (q, k, v), go)
+    tol = 2e-5 * math.sqrt(64) if dtype == torch.float32 else 3e-2
+    for a, b in zip(got, want):
+        assert rel_err(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_matches_plain_autograd(cuda, dtype):
+    """K5 under autograd (``SSDFunction``: the kernel forward,
+    ``ssd_chunked``'s VJP) against autograd of ``impl="torch"``, through
+    y and the final state, at the reduced configs' P 16, N 16, chunk 16."""
+    g = torch.Generator(cuda).manual_seed(31)
+    b, l, h, p, n = 2, 64, 8, 16, 16
+    x = (torch.randn(b, l, h, p, device=cuda, generator=g) * 0.5).to(dtype)
+    dt = F.softplus(torch.randn(b, l, h, device=cuda, generator=g) - 1.0)
+    a = -torch.exp(torch.randn(h, device=cuda, generator=g) * 0.5)
+    bm = (torch.randn(b, l, n, device=cuda, generator=g) * 0.3).to(dtype)
+    cm = (torch.randn(b, l, n, device=cuda, generator=g) * 0.3).to(dtype)
+    inp = tuple(t.requires_grad_() for t in (x, dt, a, bm, cm))
+    gy = torch.randn(b, l, h, p, device=cuda, generator=g).to(dtype)
+    gs = torch.randn(b, h, p, n, device=cuda, generator=g)
+    before = ssd_cuda.launches
+    y, s = ssd(*inp, chunk=16, impl="cuda")
+    assert ssd_cuda.launches == before + 1
+    got = torch.autograd.grad((y, s), inp, (gy, gs))
+    ry, rs = ssd(*inp, chunk=16, impl="torch")
+    want = torch.autograd.grad((ry, rs), inp, (gy, gs))
+    tol = 2e-5 * math.sqrt(l) if dtype == torch.float32 else 3e-2
+    for a_, b_ in zip(got, want):
+        assert rel_err(a_, b_) <= tol
+
+
+def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two train steps of the reduced zamba2 (4 layers, fp32, remat) from
+    one CPU state, on the card (K4 once per group, K5 twice per layer, K1
+    never) and on the CPU: losses and every state leaf within 1e-4 of the
+    CPU leaf's largest entry."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.launch import build_train_step, make_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduced(ARCHS["zamba2-2.7b"], n_layers=4)
+    cell = ShapeCell("t", 64, 2, "train")
+    state0 = make_train_state(cfg, 5, device="cpu")
+    step_fn, _, _ = build_train_step(cfg, cell)
+    runs = {}
+    for dev in ("cpu", cuda):
+        state = tree_map(lambda t: t.to(dev, copy=True), state0)
+        before = (flash_attention_cuda.launches, ssd_cuda.launches,
+                  tiled_matmul.launches)
+        losses = []
+        for i in range(2):
+            state, m = step_fn(state, make_batch(cfg, cell, 1, i,
+                                                 device=dev))
+            losses.append(float(m["loss"]))
+        runs[str(dev)] = (state, losses, (
+            flash_attention_cuda.launches - before[0],
+            ssd_cuda.launches - before[1],
+            tiled_matmul.launches - before[2]))
+    (cpu, cpu_losses, _), (card, card_losses, counts) = runs["cpu"], \
+        runs[str(cuda)]
+    groups = cfg.n_layers // cfg.attn_every
+    assert counts == (2 * groups, 2 * 2 * cfg.n_layers, 0)
+    for a, b in zip(card_losses, cpu_losses):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for a, b in zip(tree_leaves(card), tree_leaves(cpu)):
+        assert a.device.type == "cuda"
+        if b.dim():
+            assert rel_err(a.cpu(), b) <= 1e-4
+        else:
+            assert int(a) == int(b)

@@ -30,7 +30,10 @@ def test_the_port_has_modules():
     assert len(FILES) > 10
     assert ROOT / "src" / "repro_torch" / "core" / "serving.py" in FILES
     for mod in ("checkpoint/__init__.py", "checkpoint/checkpoint.py",
-                "soc/durable.py"):
+                "soc/durable.py", "optim/__init__.py", "optim/adamw.py",
+                "optim/adafactor.py", "optim/compress.py", "optim/quant.py",
+                "data/__init__.py", "data/pipeline.py", "launch/__init__.py",
+                "launch/train.py", "runtime/straggler.py", "tree.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES, mod
 
 

@@ -8,7 +8,9 @@ The pools mix simulated PEs with ``cuda-tiled`` and ``neon-vpu``, which
 run their kernels' plain versions on CPU tensors.  Tolerances: 1e-5 for
 one split GEMM (fp32, panels summed in another order than one matmul),
 1e-4 for CNN logits (five GEMMs).  Every wait has a timeout and every
-runtime is shut down by ``with``; heartbeat timeouts are >= 1 s."""
+runtime is shut down by ``with``; heartbeat timeouts are >= 1 s.  Also the
+between-step straggler rebalancer, its shares and job splits exactly
+repro's."""
 
 import random
 import sys
@@ -28,6 +30,7 @@ import repro.kernels.vpu_mm.ops  # noqa: F401
 from repro.configs.paper_cnns import PAPER_CNNS as JAX_CNNS
 from repro.core.job import JobSet as JaxJobSet
 from repro.models import cnn as jax_cnn
+from repro.runtime import StragglerRebalancer as JaxRebalancer
 from repro.soc import SynergyRuntime as JaxSynergyRuntime
 from repro_torch.configs import PAPER_CNNS
 from repro_torch.core.job import JobSet
@@ -37,6 +40,7 @@ from repro_torch.kernels.common.gemm import count_launch
 from repro_torch.kernels.tiled_mm import tiled_matmul
 from repro_torch.kernels.vpu_mm import vpu_matmul
 from repro_torch.models import cnn
+from repro_torch.runtime import StragglerRebalancer
 from repro_torch.soc import (FaultPlan, FaultSpec, RetryPolicy,
                              SynergyRuntime, current_runtime, runtime_scope,
                              wrap_pool)
@@ -368,3 +372,36 @@ def test_workers_rank_engines_on_the_runtime_device():
         w = rt._workers["neon-vpu"]
         assert w.rate == get_engine("neon-vpu").cost_on("cpu").macs_per_s
         assert w.stream is None
+
+
+# ---------------------------------------------------------------------------
+# the between-step straggler rebalancer (runtime/straggler.py), against
+# repro's: shares and job splits exactly equal
+# ---------------------------------------------------------------------------
+
+def test_straggler_rebalancer_shifts_work():
+    """Cluster 1 runs at half speed; its share should fall toward 1/3."""
+    rb, jrb = StragglerRebalancer(2, ema=0.5), JaxRebalancer(2, ema=0.5)
+    shares = rb.shares
+    for _ in range(40):
+        times = [shares[0] / 1.0, shares[1] / 0.5]
+        shares = rb.observe(times)
+        assert shares == jrb.observe(times)
+    assert abs(shares[0] - 2 / 3) < 0.05
+    assert rb.history == jrb.history
+    counts = rb.split_jobs(90)
+    assert counts == jrb.split_jobs(90)
+    assert sum(counts) == 90
+    assert counts[0] > counts[1]
+
+
+def test_split_jobs_exact():
+    rb, jrb = StragglerRebalancer(3), JaxRebalancer(3)
+    for n in (100, 7, 0, 1, 2):
+        assert rb.split_jobs(n) == jrb.split_jobs(n)
+        assert sum(rb.split_jobs(n)) == n
+    times = [0.3, 0.1, 0.2]
+    assert rb.observe(times) == jrb.observe(times)
+    for n in (100, 7, 5):
+        assert rb.split_jobs(n) == jrb.split_jobs(n)
+        assert sum(rb.split_jobs(n)) == n
