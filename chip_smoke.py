@@ -6,8 +6,9 @@
 Phases, in order; each raises on failure and nothing is caught:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
-2. Build: compiles the five hand-written kernels from ``src/repro_torch``,
-   one ``nvcc`` per source, all started together (set-up time, printed).
+2. Build: compiles the five hand-written kernels from ``src/repro_torch``
+   and K5's frozen witness, one ``nvcc`` per source, all started together
+   (set-up time, printed).
 3. Kernels against their plain PyTorch versions, on the card, at every GEMM
    shape of CIFAR_Alex+ at 256 frames, at ragged shapes, for fp32 and bf16
    inputs and every fused epilogue.  TF32 is off for both matmul and cuDNN.
@@ -35,6 +36,9 @@ Phases, in order; each raises on failure and nothing is caught:
    every operand at -128 or 127, and both kernels on a row panel cut from a
    k = 75 GEMM (a base off every 16-byte boundary) bitwise the whole GEMM's
    rows; K2's SASS holds IMMA and no IDP (dp4a), K3's FFMA and no *MMA.
+   Slice 11: K5 bitwise (``torch.equal`` on y and the final state) its
+   frozen witness, ``csrc/ssd_witness.cu`` (its first version), at every
+   SSD_CASES and BWD_SSD_CASES shape in fp32 and bf16.
 4. Main path, dispatcher (slice 1): ``cnn_forward`` of CIFAR_Alex+ at its
    published widths on 256 frames, with launch counts set to 0 just before
    and read just after; logits are held against the same forward with
@@ -143,7 +147,9 @@ Phases, in order; each raises on failure and nothing is caught:
    both fp32 forwards; one profiled runtime decode forward.  Slice 4:
    prefill ms and tokens/s (median of 3), decode ms per step and tokens/s
    (median of 32); K4 and K5 at the main path's call beside their plain
-   versions, the bound and (K4) ``F.scaled_dot_product_attention``; one
+   versions, the bound and (K4) ``F.scaled_dot_product_attention``; K5
+   also at the training step's call, both beside its witness (slice 11:
+   witness, kernel, kernel, witness, the faster of each pair); one
    prefill and one decode step under ``torch.profiler``.  Slice 5: K1 at
    every GEMM of one prefill and one decode step (recorded by an engine
    pinned with ``engine_scope``), beside its plain version, one bf16
@@ -228,6 +234,8 @@ from repro_torch.kernels.qmm.qmm import PATHS as QMM_PATHS  # noqa: E402
 from repro_torch.kernels.ssd import (load_ssd, ssd, ssd_chunked,  # noqa: E402
                                      ssd_cuda)
 from repro_torch.kernels.ssd.ops import _prescale  # noqa: E402
+from repro_torch.kernels.ssd.ref import ssd_witness  # noqa: E402
+from repro_torch.kernels.ssd.ssd import load_ssd_witness  # noqa: E402
 from repro_torch.kernels.tiled_mm import (PATHS,  # noqa: E402
                                           ffma_chain_ref, load_tiled_mm,
                                           tiled_matmul, tiled_mm_library,
@@ -2071,6 +2079,71 @@ def phase_ssd_kernel() -> float:
     return errs[0]
 
 
+def ssd_operands(x, dt, a, bm, cm, chunk: int) -> tuple:
+    """The kernel's operands as ``ssd`` hands them over: the chunk cut to
+    L, L padded with zeros to a chunk multiple, xdt and dta pre-scaled,
+    all contiguous.  Returns (xdt, dta, bm, cm, chunk)."""
+    l = x.shape[1]
+    chunk = min(chunk, max(1, l))
+    pad = (-l) % chunk
+    if pad:
+        padl = lambda t: F.pad(t, [0, 0] * (t.ndim - 2) + [0, pad])  # noqa: E731
+        x, dt, bm, cm = padl(x), padl(dt), padl(bm), padl(cm)
+    xdt, dta = _prescale(x, dt, a)
+    return (xdt.contiguous(), dta.contiguous(), bm.contiguous(),
+            cm.contiguous(), chunk)
+
+
+def first_mismatch(got: torch.Tensor, want: torch.Tensor) -> str:
+    """How many elements differ and the first index that does."""
+    diff = (got != want) & ~(torch.isnan(got) & torch.isnan(want))
+    idx = diff.nonzero()
+    if not len(idx):
+        return "0 differ"
+    first = tuple(idx[0].tolist())
+    return (f"{len(idx)} of {got.numel()} differ, first at {first}: "
+            f"{got[first].item()!r} vs {want[first].item()!r}")
+
+
+def witness_shapes() -> list:
+    """Every (label, B, L, H, P, N, chunk) of SSD_CASES and BWD_SSD_CASES,
+    once each."""
+    seen = {}
+    for label, *shape, _ in SSD_CASES + BWD_SSD_CASES:
+        seen.setdefault(tuple(shape), label)
+    return [(label, *shape) for shape, label in seen.items()]
+
+
+def phase_ssd_witness() -> int:
+    """Phase 3, K5: the kernel bitwise against its frozen witness (its
+    first version, ``csrc/ssd_witness.cu``) at every SSD_CASES and
+    BWD_SSD_CASES shape in fp32 and bf16: ``torch.equal`` on y and on the
+    final state.  Returns the number of cases."""
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    cases = 0
+    for label, b, l, h, p, n, chunk in witness_shapes():
+        for dtype in (torch.float32, torch.bfloat16):
+            xdt, dta, bm, cm, q = ssd_operands(
+                *ssd_inputs(g, b, l, h, p, n, dtype), chunk)
+            y, st = ssd_cuda(xdt, dta, bm, cm, chunk=q)
+            wy, wst = ssd_witness(xdt, dta, bm, cm, chunk=q)
+            torch.cuda.synchronize()
+            same = torch.equal(y, wy) and torch.equal(st, wst)
+            emit({"kernel_witness": "ssd", "case": label,
+                  "shape": [b, l, h, p, n], "chunk": q, "dtype": str(dtype),
+                  "y_equal": torch.equal(y, wy),
+                  "state_equal": torch.equal(st, wst)})
+            if not same:
+                raise AssertionError(
+                    f"ssd {label} {dtype}: not bitwise the witness; y "
+                    f"{first_mismatch(y, wy)}; state "
+                    f"{first_mismatch(st, wst)}")
+            cases += 1
+    print(f"ssd: bitwise its witness (y and state, torch.equal) in "
+          f"{cases} cases", flush=True)
+    return cases
+
+
 def expect_counts(stage: str, want: dict) -> dict:
     """The launch counts since the last reset; raises unless each kernel
     of ``want`` ran exactly that often."""
@@ -2300,7 +2373,9 @@ def phase_lm_kernel_times(card: str, lm: dict) -> dict:
     (K4: ``F.scaled_dot_product_attention(is_causal=True,
     enable_gqa=True)``; K5: none, no single PyTorch call computes SSD) and
     the bound; per call and per prefill (times the calls one prefill
-    makes)."""
+    makes).  K5 also at the training step's call (BWD_SSD_CASES[0]), and
+    at both shapes beside its frozen witness, the kernel's first version,
+    timed in turns with it."""
     cfg = lm["cfg"]
     g = torch.Generator(device=DEVICE).manual_seed(14)
     out = {}
@@ -2317,17 +2392,28 @@ def phase_lm_kernel_times(card: str, lm: dict) -> dict:
                                                  causal, q.element_size())
     out["flash_attention"] = (per_call, bound_by, [b, hq, hkv, s, sk, d],
                               str(dtype), "F.scaled_dot_product_attention")
-    _, b, l, h, p, n, chunk, dtype = SSD_CASES[0]
-    x, dt, a, bm, cm = ssd_inputs(g, b, l, h, p, n, dtype)
-    xdt, dta = (t.contiguous() for t in _prescale(x, dt, a))
-    per_call = {
-        "ms": median_ms(lambda: ssd_cuda(xdt, dta, bm, cm, chunk=chunk)),
-        "plain_ms": median_ms(lambda: ssd_chunked(xdt, dta, bm, cm,
-                                                  chunk=chunk)),
-        "library_ms": None}
-    per_call["bound_ms"], bound_by = ssd_bound(b, l, h, p, n,
-                                               x.element_size())
-    out["ssd"] = (per_call, bound_by, [b, l, h, p, n], str(dtype), None)
+    ssd_calls = {}
+    for key, case in (("lm_prefill", SSD_CASES[0]),
+                      ("training", BWD_SSD_CASES[0])):
+        _, b, l, h, p, n, chunk, dtype = case
+        xdt, dta, bm, cm, chunk = ssd_operands(
+            *ssd_inputs(g, b, l, h, p, n, dtype), chunk)
+        # the witness (the kernel's first version) in turns with the kernel
+        # on the same inputs: witness, kernel, kernel, witness
+        runs = {"ms": [], "witness_ms": []}
+        for name in ("witness_ms", "ms", "ms", "witness_ms"):
+            fn = ssd_cuda if name == "ms" else ssd_witness
+            runs[name].append(median_ms(
+                lambda: fn(xdt, dta, bm, cm, chunk=chunk)))
+        per_call = {"ms": min(runs["ms"]),
+                    "witness_ms": min(runs["witness_ms"]),
+                    "plain_ms": median_ms(lambda: ssd_chunked(
+                        xdt, dta, bm, cm, chunk=chunk)),
+                    "library_ms": None}
+        per_call["bound_ms"], bound_by = ssd_bound(b, l, h, p, n,
+                                                   xdt.element_size())
+        ssd_calls[key] = (per_call, bound_by, [b, l, h, p, n], str(dtype))
+    out["ssd"] = (*ssd_calls["lm_prefill"], None)
     totals = {}
     for name, (per_call, bound_by, shape, dt_name, library) in out.items():
         calls = lm["per_prefill"][name]
@@ -2339,6 +2425,14 @@ def phase_lm_kernel_times(card: str, lm: dict) -> dict:
               "calls_per_prefill": calls,
               "peak": BF16_NOTE if dt_name == "torch.bfloat16" else PEAK_NOTE,
               "library": library, "card": card})
+    # K5 per call at the prefill's and the training step's shapes, beside
+    # its witness (the kernel's first version) timed in turns with it
+    totals["ssd"]["per_call"] = {
+        key: {**per_call, "bound_by": bound_by, "shape": shape,
+              "dtype": dt_name}
+        for key, (per_call, bound_by, shape, dt_name) in ssd_calls.items()}
+    emit({"lm_kernel": "ssd", "per_call_by_path": totals["ssd"]["per_call"],
+          "card": card})
     return totals
 
 
@@ -3422,6 +3516,7 @@ def phase_training(card: str, lm: dict) -> dict:
               "card": card}
     emit(result)
     return {"launches_per_step": per_step,
+            "kernel_device_ms_per_step": profile["kernel_device_ms"],
             "backward_device_ms_per_step": profile["backward_device_ms"]}
 
 
@@ -3435,7 +3530,8 @@ def leaf_names(tree, prefix: str = "") -> list:
 
 def train_profile(step) -> dict:
     """One train step under ``torch.profiler``: the card's busy share, the
-    five largest device ops by total time, and the device time of the
+    five largest device ops by total time, the device time of the port's
+    kernels (their forward launches, booked by ``kernel_name``) and of the
     kernels' Functions' backward (K4's and K5's VJP, the plain
     formulations') from autograd's node ranges."""
     from torch.profiler import ProfilerActivity, profile
@@ -3443,15 +3539,17 @@ def train_profile(step) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, wall = timed(step)
-    ops, intervals, backward = {}, [], {}
+    ops, intervals, backward, kernels = {}, [], {}, {}
     nodes = {"flash_attention": "FlashAttentionFunctionBackward",
              "ssd": "SSDFunctionBackward"}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             ms = (ev.time_range.end - ev.time_range.start) / 1e3
-            op = ops.setdefault(ev.name[:80], {"count": 0, "device_ms": 0.0})
-            op["count"] += 1
-            op["device_ms"] += ms
+            for key, table in ((ev.name[:80], ops),
+                               (kernel_name(ev.name), kernels)):
+                op = table.setdefault(key, {"count": 0, "device_ms": 0.0})
+                op["count"] += 1
+                op["device_ms"] += ms
             intervals.append((ev.time_range.start, ev.time_range.end))
             continue
         for kernel, node in nodes.items():
@@ -3469,6 +3567,8 @@ def train_profile(step) -> dict:
             "device_busy_share": None if busy_ms is None
             else busy_ms / (1e3 * wall),
             "top5_device_ops": dict(top),
+            "kernel_device_ms": {k: v for k, v in kernels.items()
+                                 if k != "other"},
             "backward_device_ms": backward}
 
 
@@ -3627,15 +3727,16 @@ def main() -> int:
 
     threads = [threading.Thread(target=build, args=(load,))
                for load in (load_tiled_mm, load_vpu_mm, load_qmm,
-                            load_flash_attention, load_ssd)]
+                            load_flash_attention, load_ssd,
+                            load_ssd_witness)]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         raise errors[0]
-    print(f"set-up: tiled_mm, vpu_mm, qmm, flash_attention and ssd built "
-          f"and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"set-up: tiled_mm, vpu_mm, qmm, flash_attention, ssd and ssd's "
+          f"witness built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernels against their plain versions
     main_err = phase_kernels()
@@ -3646,6 +3747,7 @@ def main() -> int:
     qmm_err = phase_qmm_kernel()
     flash_err = phase_flash_kernel()
     ssd_err = phase_ssd_kernel()
+    phase_ssd_witness()
     backward = phase_kernel_backward(card)
 
     # phase 4: the main paths (fp32, then int8)
@@ -3792,6 +3894,12 @@ def main() -> int:
                 "serving": serving_launches(serving, name),
                 "durability": durability_launches(durability, name),
                 "training": {**training_launches(training, name),
+                             "profiled": {
+                                 **training["kernel_device_ms_per_step"].get(
+                                     name, {}),
+                                 "per": "device time of the forward "
+                                        "launches of one profiled train "
+                                        "step"},
                              "backward": {
                                  "is": "the plain formulation's VJP "
                                        "(attention_ref / ssd_chunked), "

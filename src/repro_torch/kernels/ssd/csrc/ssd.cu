@@ -14,105 +14,267 @@
 // index: every head of a batch row reads the same (L x N) rows.
 //
 // What bounds it on an H100: at zamba2's prefill (B 4, H 80, L 1024,
-// P 64, N 64, Q 128) the model hands it fp32 (its conv weights are fp32):
-// xdt and y are 84 MB each and the state 5 MB, 53 us at 3.35 TB/s, while
-// the chunked products (~10.8 GFLOP) take 161 us at the CUDA cores' 67
-// TFLOP/s, so the operations bound it (in bf16: 27 us by bytes).
+// P 64, N 64, Q 128) the model hands it fp32 (its conv weights are fp32).
+// xdt and y are 84 MB each, 50 us at 3.35 TB/s, while the chunked
+// products take ~8.8 GFLOP, 0.13 ms at the CUDA cores' 67 TFLOP/s: the
+// FFMA rate bounds it (in bf16: 25 us by bytes).  Its first version lost
+// most of that rate in three places: one block per (batch, head) gave 320
+// blocks of ~106 KB shared memory (two a SM, a second wave of 56 at
+// prefill, 61 % of the places at the training shape's 160), C B^T was
+// computed once per head though it has no head index, and its inner loops
+// read one to three shared words per fmaf.
 //
-// What the design does about it: this first version is simple and right.
-// One 256-thread block owns one (batch, head) and walks its chunks in
-// order, so the state stays in shared memory from the first chunk to the
-// last and is written to device memory once.  Per chunk it stages xdt
-// (Q x P) and B (Q x N) as fp32; the (Q x Q) tile is built in blocks of
-// R = 32 rows, each with its 32 rows of C, so that at Q = 128 and N = 128
-// (mamba2-130m) the staging takes 166 KB of the 227 KB a block may use
-// (a whole fp32 Q x Q tile and all of C would not fit).  A row block only
-// needs the columns up to its last row (the rest of the causal tile is 0),
-// so it skips them.  Rows of B, C and S are stored with a stride of N + 1
-// words, so the 32 rows a warp reads at one column fall in 32 banks.  The
-// chunk's cumsum runs on one warp (four steps a lane, then a shuffle scan).
-// Tensor cores, TMA and sharing CB across the heads of a batch row are
-// later work.  The reduced configs' P = 16 and N = 16 (chunk 16) take the
-// same kernel: y's columns tx + 32 c past P are idle lanes, and P N = 256
-// state elements are one per thread.
+// What this design does about it:
+// - ssd_cb_kernel computes the causal half of CB = C B^T once per (batch
+//   row, chunk), each element the fmaf chain over n = 0 .. N-1 from 0.0f,
+//   into a fp32 workspace of B (L/Q) Q^2 floats that the caller allocates.
+// - ssd_kernel splits P into slabs of PS columns (no sum in SSD runs over
+//   p): the grid is (P/PS x H, B), 640 blocks at prefill and 320 at the
+//   training shape with PS = 32.  Each block walks its head's chunks in
+//   order and keeps its (PS x N) slab of the state in registers.
+// - Register blocking: warp w owns a row block of 16 rows of y and of the
+//   decay tile G = T(CB * exp(seg_i - seg_j)), which it builds in place
+//   over the CB rows staged for it (rows packed to the causal width, 36 KB
+//   at Q = 128); a lane holds 4 x 4 (P = 16: 2 x 4) outputs of G xdt and
+//   of C S^T, fed by 128-bit loads (8 loads per 64 fmaf).  The state
+//   update multiplies w = exp(total - seg_j) xdt_j once per (j, p) and
+//   holds a 2 x 4 (N = 128: 4 x 4) tile of the slab a thread.  Warps pair
+//   a short row block with a long one on each scheduler.
+// - Staging with cp.async: B goes in over C once y is done, the next
+//   chunk's CB rows over G while the state updates, and its xdt slab and C
+//   right after.  At N = 64 a block takes 94 KB, so two fit on an SM.
 //
-// Interface: plain C, bound with ctypes.  The launch goes on the caller's
-// stream, allocates nothing and does not synchronise; the function returns
-// the CUDA error of the launch so that a refused launch is reported.
+// The bits are the first version's (kept as ssd_witness.cu, which the card
+// tests hold this kernel to with torch.equal): the same one-warp cumsum,
+// the same exps, the same fmaf chains in the same order (G xdt over j,
+// C S^T over n, the state update over j, all from 0.0f; the G xdt chain
+// skips only products by the masked zeros), and the two contractions nvcc
+// made there written as fmaf: y = fmaf(exp(seg_i), C S^T, G xdt) and
+// S = fmaf(exp(total), S, sum).  No fast-math flag.  Tensor cores would
+// change the bits (fp32 needs 3xTF32) and are later work.  The reduced
+// configs' P = 16 and N = 16 take one slab of all of P.
+//
+// Interface: plain C, bound with ctypes.  The launches go on the caller's
+// stream, allocate nothing and do not synchronise; the function returns
+// the first CUDA error so that a refused launch is reported.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "epilogue.cuh"
+#include "ptx.cuh"
 
 namespace {
 
 using namespace synergy;
 
 constexpr int THREADS = 256;
-constexpr int R = 32;               // rows of the Q x Q tile built at once
+constexpr int WARPS = THREADS / 32;
 constexpr int QMAX = 128;           // largest chunk
+constexpr int RB = 16;              // rows of y and G a warp owns
+constexpr int CBT = 32;             // ssd_cb_kernel's tile: CBT x CBT of CB
+static_assert(RB * WARPS == QMAX, "one row block per warp");
 
-template <int P, int N>
-size_t smem_bytes(int q) {
-  const int nld = N + 1;
-  return sizeof(float) *
-         (size_t)(P * nld + q * P + q * nld + R * nld + R * q + 3 * q);
+
+// G packed by row blocks: row block r holds its RB rows at the causal
+// width RB (r + 1), from float g_base(r) on
+__host__ __device__ constexpr int g_base(int r) {
+  return RB * RB * r * (r + 1) / 2;
+}
+constexpr int G_FLOATS = g_base(QMAX / RB);
+
+template <int P, int N, int PS>
+constexpr size_t smem_floats() {
+  return G_FLOATS + QMAX * PS + QMAX * N + N * PS + 3 * QMAX;
 }
 
-template <typename T, int P, int N>
+// ------------------------------------------------------------- helpers
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float at(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// four neighbouring elements of a row, p aligned to four: one vector store
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(v[0], v[1]);
+  q[1] = __floats2bfloat162_rn(v[2], v[3]);
+}
+
+// rows x cols of a row-major source (row stride lds elements) into fp32
+// shared rows of stride ldd, by the threads tid0, tid0 + nthr, ...: fp32
+// by cp.async, 16 bytes a copy when cols, lds and the source are aligned
+// to four, else 4; bf16 by plain loads converted to fp32
+__device__ __forceinline__ void stage(float* dst, int ldd, const float* src,
+                                      int64_t lds, int rows, int cols,
+                                      int tid0, int nthr) {
+  if ((cols & 3) == 0 && (lds & 3) == 0 &&
+      (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int c4 = cols / 4;
+    for (int v = tid0; v < rows * c4; v += nthr) {
+      const int r = v / c4, c = 4 * (v % c4);
+      cp_async16(dst + r * ldd + c, src + r * lds + c, 16);
+    }
+  } else {
+    for (int v = tid0; v < rows * cols; v += nthr) {
+      const int r = v / cols, c = v % cols;
+      cp_async4(dst + r * ldd + c, src + r * lds + c, 4);
+    }
+  }
+}
+__device__ __forceinline__ void stage(float* dst, int ldd,
+                                      const __nv_bfloat16* src, int64_t lds,
+                                      int rows, int cols, int tid0,
+                                      int nthr) {
+  // cols and lds are multiples of four (P, N and the slab width are)
+  const int c4 = cols / 4;
+  for (int v = tid0; v < rows * c4; v += nthr) {
+    const int r = v / c4, c = 4 * (v % c4);
+    const __nv_bfloat162* s =
+        reinterpret_cast<const __nv_bfloat162*>(src + r * lds + c);
+    const float2 a = __bfloat1622float2(s[0]);
+    const float2 b = __bfloat1622float2(s[1]);
+    *reinterpret_cast<float4*>(dst + r * ldd + c) =
+        make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// ----------------------------------------------- CB = C B^T, once per chunk
+
+// grid (tiles x chunks, B): tile (ti, tj), tj <= ti, of the causal half of
+// a chunk's CB; each thread 4 rows x 1 column, the witness's chain
+template <typename T, int N>
 __global__ void __launch_bounds__(THREADS)
+ssd_cb_kernel(const T* __restrict__ bm, const T* __restrict__ cm,
+              float* __restrict__ cbw, int l, int q) {
+  constexpr int NLD = N + 1;
+  __shared__ float Cs[CBT * NLD];
+  __shared__ float Bs[CBT * NLD];
+  const int nt = (q + CBT - 1) / CBT;
+  const int tiles = nt * (nt + 1) / 2;
+  const int c = blockIdx.x / tiles;
+  int k = blockIdx.x % tiles, ti = 0;
+  while (k > ti) k -= ++ti;
+  const int tj = k;
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, ty = tid / 32, tx = tid % 32;
+  const int i0 = CBT * ti, j0 = CBT * tj;
+  const int64_t row0 = (int64_t)b * l + (int64_t)c * q;
+  for (int idx = tid; idx < CBT * N; idx += THREADS) {
+    const int r = idx / N, n = idx % N;
+    Cs[r * NLD + n] = i0 + r < q ? to_f32(cm[(row0 + i0 + r) * N + n]) : 0.0f;
+    Bs[r * NLD + n] = j0 + r < q ? to_f32(bm[(row0 + j0 + r) * N + n]) : 0.0f;
+  }
+  __syncthreads();
+  float g[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 8
+  for (int n = 0; n < N; ++n) {
+    const float bv = Bs[tx * NLD + n];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[i] = fmaf(Cs[(4 * ty + i) * NLD + n], bv, g[i]);
+  }
+  float* out = cbw + row0 * q;    // chunk (b, c) starts at row b l + c q
+  const int j = j0 + tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int gi = i0 + 4 * ty + i;
+    if (gi < q && j <= gi) out[(int64_t)gi * q + j] = g[i];
+  }
+}
+
+// ------------------------------------------------------- the chunked scan
+
+template <typename T, int P, int N, int PS>
+__global__ void __launch_bounds__(THREADS, 2)
 ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
            const T* __restrict__ bm, const T* __restrict__ cm,
-           T* __restrict__ y, float* __restrict__ state, int h, int l,
-           int q) {
-  constexpr int NLD = N + 1;
-  constexpr int PC = (P + 31) / 32; // y columns per thread (P < 32: one)
-  constexpr int SE = P * N / THREADS;   // state elements per thread
-  static_assert((P % 32 == 0 || P < 32) && (P * N) % THREADS == 0,
+           const float* __restrict__ cbw, T* __restrict__ y,
+           float* __restrict__ state, int h, int l, int q) {
+  // y: a warp's RB rows x PS columns, YI rows x 4 columns a lane
+  constexpr int YPG = PS / 4;
+  constexpr int YI = RB * YPG / 32;
+  // the state update: SP p x SN n a thread, p fastest across threads
+  constexpr int SN = PS * N >= 4 * THREADS ? 4 : 1;
+  constexpr int SP = PS * N / (THREADS * SN);
+  constexpr int PG = PS / SP;
+  static_assert(P % PS == 0 && PS % 4 == 0 && N % 4 == 0 && YI >= 1 &&
+                    YI * 32 == RB * YPG && SP >= 1 &&
+                    SP * SN * THREADS == PS * N && PG * (N / SN) == THREADS,
                 "tile shape");
-  extern __shared__ float smem[];
-  float* S = smem;                  // P x NLD, the carried state
-  float* X = S + P * NLD;           // q x P, this chunk's xdt
-  float* Bs = X + q * P;            // q x NLD, this chunk's B
-  float* Cs = Bs + q * NLD;         // R x NLD, a row block of C
-  float* G = Cs + R * NLD;          // R x q, a row block of T(CB * decay)
-  float* seg = G + R * q;           // q: cumsum(dta)
-  float* eseg = seg + q;            // q: exp(seg)
-  float* wexp = eseg + q;           // q: exp(total - seg)
+  extern __shared__ __align__(16) float smem[];
+  float* G = smem;                  // packed rows: CB, then T(CB * decay)
+  float* X = G + G_FLOATS;          // q x PS: xdt's slab, then w
+  float* CBs = X + QMAX * PS;       // q x N: C, then B
+  float* Ss = CBs + QMAX * N;       // N x PS: the state before the chunk
+  float* seg = Ss + N * PS;         // q: cumsum(dta)
+  float* eseg = seg + QMAX;         // q: exp(seg)
+  float* wexp = eseg + QMAX;        // q: exp(total - seg)
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 32;          // rows 4 ty .. 4 ty + 3 of a row block
-  const int tx = tid % 32;          // cols tx + 32 j
-  // a y column this lane reads (an idle lane past P reads column 0 and
-  // stores nothing)
-  auto ycol = [&](int c) { return tx + 32 * c < P ? tx + 32 * c : 0; };
-  const int hh = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  constexpr int NS = P / PS;
+  const int p0 = PS * (blockIdx.x % NS);
+  const int hh = blockIdx.x / NS;
   const int b = blockIdx.y;
   const int64_t bh = (int64_t)b * h + hh;
-  const T* xp = xdt + bh * l * P;
+  const int nc = l / q;
+  const T* xp = xdt + bh * l * P + p0;
   const float* dp = dta + bh * l;
   const T* bp = bm + (int64_t)b * l * N;
   const T* cp = cm + (int64_t)b * l * N;
-  T* yp = y + bh * l * P;
+  const float* cbp = cbw + (int64_t)b * l * q;
+  T* yp = y + bh * l * P + p0;
 
-  for (int e = tid; e < P * N; e += THREADS) S[(e / N) * NLD + e % N] = 0.0f;
+  // this warp's row block: warps w and w + 4 (one scheduler) take a short
+  // and a long one
+  const int rb = warp < WARPS / 2 ? warp : 3 * WARPS / 2 - 1 - warp;
+  const int r0 = RB * rb;
+  const int wg = RB * (rb + 1);     // its causal width
+  float* Gw = G + g_base(rb);
+  const int yr = (lane / YPG) * YI; // first row (in the block) of a lane
+  const int yc = (lane % YPG) * 4;  // first column of a lane
+  const int sp = (tid % PG) * SP;   // first p of the state tile
+  const int sn = (tid / PG) * SN;   // first n of the state tile
 
-  for (int c0 = 0; c0 < l; c0 += q) {
-    __syncthreads();                // the last chunk's state update is done
-    for (int idx = tid; idx < q * P; idx += THREADS) {
-      X[idx] = to_f32(xp[(int64_t)c0 * P + idx]);
+  // CB's rows of this warp's row block (causal width) into G, C into CBs,
+  // the xdt slab into X
+  auto stage_cb = [&](int c) {
+    if (r0 < q) {
+      stage(Gw, wg, cbp + ((int64_t)c * q + r0) * q, q, min(RB, q - r0),
+            min(wg, q), lane, 32);
     }
-    for (int idx = tid; idx < q * N; idx += THREADS) {
-      Bs[(idx / N) * NLD + idx % N] = to_f32(bp[(int64_t)c0 * N + idx]);
-    }
-    if (tid < 32) {                 // seg = cumsum(dta) over the chunk
+  };
+  auto stage_xc = [&](int c) {
+    stage(X, PS, xp + (int64_t)c * q * P, P, q, PS, tid, THREADS);
+    stage(CBs, N, cp + (int64_t)c * q * N, N, q, N, tid, THREADS);
+  };
+
+  float s[SP][SN];
+#pragma unroll
+  for (int a = 0; a < SP; ++a)
+#pragma unroll
+    for (int e = 0; e < SN; ++e) s[a][e] = 0.0f;
+  for (int e = tid; e < N * PS; e += THREADS) Ss[e] = 0.0f;
+  stage_cb(0);
+  stage_xc(0);
+  cp_async_commit();
+
+  for (int c = 0; c < nc; ++c) {
+    const int c0 = c * q;
+    cp_async_wait<0>();
+    __syncthreads();                // X, C, CB staged; Ss is S_prev
+    if (warp == 0) {                // seg = cumsum(dta), as the witness
       float v[4];
       float run = 0.0f;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const int i = 4 * tid + t;
+        const int i = 4 * lane + t;
         run += i < q ? dp[c0 + i] : 0.0f;
         v[t] = run;
       }
@@ -120,13 +282,13 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
 #pragma unroll
       for (int off = 1; off < 32; off *= 2) {
         const float up = __shfl_up_sync(0xffffffffu, incl, off);
-        if (tid >= off) incl += up;
+        if (lane >= off) incl += up;
       }
       float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (tid == 0) excl = 0.0f;
+      if (lane == 0) excl = 0.0f;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        const int i = 4 * tid + t;
+        const int i = 4 * lane + t;
         if (i < q) seg[i] = excl + v[t];
       }
     }
@@ -136,151 +298,173 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
       eseg[i] = expf(seg[i]);
       wexp[i] = expf(total - seg[i]);
     }
-
-    for (int r0 = 0; r0 < q; r0 += R) {
-      __syncthreads();              // the last block's readers of Cs, G
-      for (int idx = tid; idx < R * N; idx += THREADS) {
-        const int r = idx / N, n = idx % N;
-        Cs[r * NLD + n] =
-            r0 + r < q ? to_f32(cp[(int64_t)(c0 + r0 + r) * N + n]) : 0.0f;
-      }
-      __syncthreads();
-
-      // G = T(C_blk B^T * decay), columns j < jend (the rest are 0)
-      const int jend = min(q, r0 + R);
-      const int njj = (jend + 31) / 32;
-      float g[4][QMAX / 32];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < QMAX / 32; ++jj) g[i][jj] = 0.0f;
-      for (int n = 0; n < N; ++n) {
-        float ca[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ca[i] = Cs[(4 * ty + i) * NLD + n];
-#pragma unroll
-        for (int jj = 0; jj < QMAX / 32; ++jj) {
-          if (jj < njj) {
-            const int j = min(tx + 32 * jj, q - 1);
-            const float bv = Bs[j * NLD + n];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) g[i][jj] = fmaf(ca[i], bv, g[i][jj]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gi = r0 + 4 * ty + i;
-#pragma unroll
-        for (int jj = 0; jj < QMAX / 32; ++jj) {
-          const int j = tx + 32 * jj;
-          if (j < jend) {
-            G[(4 * ty + i) * q + j] =
-                (gi < q && j <= gi)
-                    ? round_as<T>(g[i][jj] * expf(seg[gi] - seg[j]))
-                    : 0.0f;
-          }
-        }
-      }
-      __syncthreads();
-
-      // y rows of this block: the intra-chunk product and the state term
-      float ya[4][PC], yi[4][PC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < PC; ++c) ya[i][c] = yi[i][c] = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < jend; ++j) {
-        float ga[4], xv[PC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ga[i] = G[(4 * ty + i) * q + j];
-#pragma unroll
-        for (int c = 0; c < PC; ++c) xv[c] = X[j * P + ycol(c)];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < PC; ++c) ya[i][c] = fmaf(ga[i], xv[c], ya[i][c]);
-      }
-#pragma unroll 4
-      for (int n = 0; n < N; ++n) {
-        float ca[4], sv[PC];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) ca[i] = Cs[(4 * ty + i) * NLD + n];
-#pragma unroll
-        for (int c = 0; c < PC; ++c) sv[c] = S[ycol(c) * NLD + n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < PC; ++c) yi[i][c] = fmaf(ca[i], sv[c], yi[i][c]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int gi = r0 + 4 * ty + i;
-        if (gi >= q) continue;
-        T* yrow = yp + (int64_t)(c0 + gi) * P;
-#pragma unroll
-        for (int c = 0; c < PC; ++c) {
-          if (tx + 32 * c < P) {
-            store(&yrow[tx + 32 * c], ya[i][c] + eseg[gi] * yi[i][c]);
-          }
-        }
+    // G = T(CB * decay) in place, 0 above the diagonal and past q
+    if (r0 < q) {
+      for (int e = lane; e < RB * wg; e += 32) {
+        const int i = r0 + e / wg, j = e % wg;
+        float g = 0.0f;
+        if (i < q && j <= i) g = round_as<T>(Gw[e] * expf(seg[i] - seg[j]));
+        Gw[e] = g;
       }
     }
-    __syncthreads();                // every row block has read S
+    __syncthreads();                // eseg; G (each warp reads its own)
 
-    // S = exp(total) S + sum_j (exp(total - seg_j) xdt_j)^T B_j
+    if (r0 < q) {
+      // ya = G xdt over j (the masked zeros past the row are skipped up
+      // to the row block's width), yi = C S_prev^T over n
+      float ya[YI][4], yi[YI][4];
+#pragma unroll
+      for (int a = 0; a < YI; ++a)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ya[a][e] = yi[a][e] = 0.0f;
+      const float* grow = Gw + yr * wg;
+      const int jend = min(q, wg);
+      int j = 0;
+#pragma unroll 2
+      for (; j + 4 <= jend; j += 4) {
+        float4 gv[YI], xv[4];
+#pragma unroll
+        for (int a = 0; a < YI; ++a) gv[a] = lds4(grow + a * wg + j);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) xv[k] = lds4(X + (j + k) * PS + yc);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int a = 0; a < YI; ++a)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              ya[a][e] = fmaf(at(gv[a], k), at(xv[k], e), ya[a][e]);
+      }
+      for (; j < jend; ++j) {
+        const float4 xv = lds4(X + j * PS + yc);
+#pragma unroll
+        for (int a = 0; a < YI; ++a) {
+          const float gv = grow[a * wg + j];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) ya[a][e] = fmaf(gv, at(xv, e), ya[a][e]);
+        }
+      }
+      const float* crow = CBs + (r0 + yr) * N;
+#pragma unroll 2
+      for (int n = 0; n < N; n += 4) {
+        float4 cv[YI], sv[4];
+#pragma unroll
+        for (int a = 0; a < YI; ++a) cv[a] = lds4(crow + a * N + n);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sv[k] = lds4(Ss + (n + k) * PS + yc);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int a = 0; a < YI; ++a)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              yi[a][e] = fmaf(at(cv[a], k), at(sv[k], e), yi[a][e]);
+      }
+#pragma unroll
+      for (int a = 0; a < YI; ++a) {
+        const int i = r0 + yr + a;
+        if (i >= q) continue;
+        const float es = eseg[i];
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[e] = fmaf(es, yi[a][e], ya[a][e]);
+        store4(yp + (int64_t)(c0 + i) * P + yc, v);
+      }
+    }
+    __syncthreads();                // G, C and X read
+
+    // B over C; the next chunk's CB over G, while w and the state update
+    // run
+    stage(CBs, N, bp + (int64_t)c0 * N, N, q, N, tid, THREADS);
+    cp_async_commit();
+    if (c + 1 < nc) stage_cb(c + 1);
+    cp_async_commit();
+    for (int e = tid; e < q * PS; e += THREADS) X[e] = wexp[e / PS] * X[e];
+    cp_async_wait<1>();
+    __syncthreads();                // w and B
+
+    // S = exp(total) S + sum_j w_j^T B_j, the slab tile in registers
     const float etot = expf(total);
+    float acc[SP][SN];
 #pragma unroll
-    for (int u = 0; u < SE; ++u) {
-      const int e = tid + u * THREADS;
-      const int p = e / N, n = e % N;
-      float acc = 0.0f;
-      for (int j = 0; j < q; ++j) {
-        const float w = wexp[j] * X[j * P + p];
-        acc = fmaf(w, Bs[j * NLD + n], acc);
-      }
-      S[p * NLD + n] = etot * S[p * NLD + n] + acc;
+    for (int a = 0; a < SP; ++a)
+#pragma unroll
+      for (int e = 0; e < SN; ++e) acc[a][e] = 0.0f;
+#pragma unroll 4
+    for (int j = 0; j < q; ++j) {
+      float wv[SP], bv[SN];
+#pragma unroll
+      for (int a = 0; a < SP; ++a) wv[a] = X[j * PS + sp + a];
+#pragma unroll
+      for (int e = 0; e < SN; ++e) bv[e] = CBs[j * N + sn + e];
+#pragma unroll
+      for (int a = 0; a < SP; ++a)
+#pragma unroll
+        for (int e = 0; e < SN; ++e) acc[a][e] = fmaf(wv[a], bv[e], acc[a][e]);
     }
+#pragma unroll
+    for (int a = 0; a < SP; ++a)
+#pragma unroll
+      for (int e = 0; e < SN; ++e) s[a][e] = fmaf(etot, s[a][e], acc[a][e]);
+    __syncthreads();                // w and B read
+#pragma unroll
+    for (int a = 0; a < SP; ++a)
+#pragma unroll
+      for (int e = 0; e < SN; ++e) Ss[(sn + e) * PS + sp + a] = s[a][e];
+    if (c + 1 < nc) stage_xc(c + 1);
+    cp_async_commit();
   }
 
-  // each thread stores the state elements it updated last
-  float* sp = state + bh * P * N;
+  float* stp = state + (bh * P + p0) * N;
 #pragma unroll
-  for (int u = 0; u < SE; ++u) {
-    const int e = tid + u * THREADS;
-    sp[e] = S[(e / N) * NLD + e % N];
-  }
+  for (int a = 0; a < SP; ++a)
+#pragma unroll
+    for (int e = 0; e < SN; ++e) stp[(sp + a) * N + sn + e] = s[a][e];
 }
 
 template <typename T, int P, int N>
 int launch(const void* xdt, const void* dta, const void* bm, const void* cm,
-           void* y, void* state, int b, int h, int l, int q,
+           void* y, void* state, void* cbw, int b, int h, int l, int q,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes<P, N>(q);
-  auto kernel = ssd_kernel<T, P, N>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // a P-slab of 32 columns at P = 64 (16 took 1.6x as long at prefill:
+  // scripts/ssd_probe.py --variants slab16), all of P at P = 16
+  constexpr int PS = P == 64 ? 32 : P;
+  const int nt = (q + CBT - 1) / CBT;
+  const dim3 cb_grid(nt * (nt + 1) / 2 * (l / q), b);
+  ssd_cb_kernel<T, N><<<cb_grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(bm), static_cast<const T*>(cm),
+      static_cast<float*>(cbw), l, q);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(h, b);
+  const size_t smem = sizeof(float) * smem_floats<P, N, PS>();
+  auto kernel = ssd_kernel<T, P, N, PS>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P / PS) * h, b);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(xdt), static_cast<const float*>(dta),
       static_cast<const T*>(bm), static_cast<const T*>(cm),
-      static_cast<T*>(y), static_cast<float*>(state), h, l, q);
+      static_cast<const float*>(cbw), static_cast<T*>(y),
+      static_cast<float*>(state), h, l, q);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_n(int p, int n, const void* xdt, const void* dta, const void* bm,
-             const void* cm, void* y, void* state, int b, int h, int l,
-             int q, cudaStream_t st) {
+             const void* cm, void* y, void* state, void* cbw, int b, int h,
+             int l, int q, cudaStream_t st) {
   if (p == 16 && n == 16) {
-    return launch<T, 16, 16>(xdt, dta, bm, cm, y, state, b, h, l, q, st);
+    return launch<T, 16, 16>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
   }
   if (p != 64) return (int)cudaErrorInvalidValue;
   switch (n) {
-    case 64: return launch<T, 64, 64>(xdt, dta, bm, cm, y, state, b, h, l, q, st);
-    case 128: return launch<T, 64, 128>(xdt, dta, bm, cm, y, state, b, h, l, q, st);
+    case 64:
+      return launch<T, 64, 64>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
+    case 128:
+      return launch<T, 64, 128>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
+                                st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -288,20 +472,23 @@ int launch_n(int p, int n, const void* xdt, const void* dta, const void* bm,
 }  // namespace
 
 // xdt: (b, h, l, p) of dtype; dta: (b, h, l) fp32; bm, cm: (b, l, n) of
-// dtype; y: like xdt; state: (b, h, p, n) fp32; all contiguous.  l is a
-// multiple of the chunk q (1 <= q <= 128); (p, n) one of (64, 64),
-// (64, 128), (16, 16).
+// dtype; y: like xdt; state: (b, h, p, n) fp32; cbw: the fp32 workspace of
+// b (l / q) q^2 floats for C B^T; all contiguous.  l is a multiple of the
+// chunk q (1 <= q <= 128); (p, n) one of (64, 64), (64, 128), (16, 16).
 extern "C" int ssd(const void* xdt, const void* dta, const void* bm,
-                   const void* cm, void* y, void* state, int b, int h, int l,
-                   int p, int n, int q, int dtype, void* stream) {
+                   const void* cm, void* y, void* state, void* cbw, int b,
+                   int h, int l, int p, int n, int q, int dtype,
+                   void* stream) {
   if (b < 1 || h < 1 || l < 1 || q < 1 || q > QMAX || l % q != 0 ||
-      b > 65535 || (dtype != DT_F32 && dtype != DT_BF16)) {
+      b > 65535 || (int64_t)h * (p / 16) > 0x7fffffff ||
+      (dtype != DT_F32 && dtype != DT_BF16)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DT_F32) {
-    return launch_n<float>(p, n, xdt, dta, bm, cm, y, state, b, h, l, q, st);
+    return launch_n<float>(p, n, xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
+                           st);
   }
-  return launch_n<__nv_bfloat16>(p, n, xdt, dta, bm, cm, y, state, b, h, l,
-                                 q, st);
+  return launch_n<__nv_bfloat16>(p, n, xdt, dta, bm, cm, y, state, cbw, b, h,
+                                 l, q, st);
 }

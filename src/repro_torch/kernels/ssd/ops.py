@@ -8,8 +8,9 @@ Variants of the ``ssd`` op: ``cuda`` (:func:`ssd_cuda`), ``torch``
 ``repro``'s ``pallas``, ``xla`` and ``ref``.  ``cuda`` is registered as
 always available and routes on the operands' device: a CPU tensor takes
 the plain version (:func:`ssd_chunked`), a CUDA tensor launches the kernel
-or raises.  ``ssd_cuda.launches`` counts kernel launches and nothing else,
-under the lock the other kernels' counts use.
+or raises.  ``ssd_cuda.launches`` counts calls of the kernel's entry point
+(one per call: its two device kernels, C·Bᵀ and the scan, count once) and
+nothing else, under the lock the other kernels' counts use.
 
 Under autograd ``ssd_cuda`` runs through :class:`SSDFunction`: the forward
 is the kernel (the same bits as inference), the backward the VJP of
@@ -28,8 +29,8 @@ from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
 from .ref import ssd_ref
 from .ssd import SSD_MAX_CHUNK, SSD_SHAPES, load_ssd
 
-__all__ = ["SSDFunction", "check_kernel_shape", "ssd", "ssd_chunked",
-           "ssd_cuda"]
+__all__ = ["SSDFunction", "cb_workspace", "check_kernel_shape", "ssd",
+           "ssd_chunked", "ssd_cuda"]
 
 
 def _prescale(x, dt, a):
@@ -124,6 +125,15 @@ def check_kernel_shape(b: int, h: int, l: int, p: int, n: int,
         raise ValueError("ssd: a dimension exceeds the grid")
 
 
+def cb_workspace(b: int, l: int, chunk: int,
+                 device: torch.device) -> torch.Tensor:
+    """The kernel's scratch for the causal half of C·Bᵀ: one (Q x Q) fp32
+    tile per batch row and chunk, B·(L/Q)·Q² elements, uninitialised (the
+    kernel writes every element it reads)."""
+    return torch.empty(b * (l // chunk) * chunk * chunk,
+                       dtype=torch.float32, device=device)
+
+
 def _ssd_forward(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
                  cm: torch.Tensor, chunk: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -139,12 +149,14 @@ def _ssd_forward(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
     state = torch.zeros((b, h, p, n), dtype=torch.float32, device=xdt.device)
     if xdt.numel() == 0:
         return y, state
+    cbw = cb_workspace(b, l, chunk, xdt.device)
     entry = load_ssd().ssd
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream
         rc = entry(xdt.data_ptr(), dta.data_ptr(), bm.data_ptr(),
-                   cm.data_ptr(), y.data_ptr(), state.data_ptr(), b, h, l,
-                   p, n, chunk, _DTYPE_CODES[xdt.dtype], stream)
+                   cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                   cbw.data_ptr(), b, h, l, p, n, chunk,
+                   _DTYPE_CODES[xdt.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"ssd: kernel launch failed with CUDA error {rc} "
                            f"for xdt {tuple(xdt.shape)}, N={n}, "

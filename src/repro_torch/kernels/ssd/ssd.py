@@ -1,7 +1,11 @@
-"""Build and bind the CUDA ``ssd`` kernel (``csrc/ssd.cu``).
+"""Build and bind the CUDA ``ssd`` kernel (``csrc/ssd.cu``) and its frozen
+witness (``csrc/ssd_witness.cu``).
 
 The kernel replaces ``repro``'s Pallas ``ssd_pallas``, the Mamba2 SSD
-chunked scan.  It is built with ``nvcc`` for ``sm_90a`` at first use and
+chunked scan.  The witness is the kernel's first version, kept verbatim
+(only its names changed and its shared helpers inlined) so that the card
+tests can hold the redesigned kernel to its bits; nothing on a main path
+calls it.  Both are built with ``nvcc`` for ``sm_90a`` at first use and
 bound with ``ctypes`` (:mod:`repro_torch.kernels.common.build`).  Nothing
 here runs at import time: the CPU tests import this module on machines with
 no CUDA toolkit.
@@ -14,13 +18,19 @@ from pathlib import Path
 
 from repro_torch.kernels.common.build import load_library
 
-__all__ = ["SSD_ARGTYPES", "SSD_SHAPES", "SSD_MAX_CHUNK", "load_ssd"]
+__all__ = ["SSD_ARGTYPES", "SSD_SHAPES", "SSD_MAX_CHUNK",
+           "SSD_WITNESS_ARGTYPES", "load_ssd", "load_ssd_witness"]
 
-_SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCE = _CSRC / "ssd.cu"
+_WITNESS = _CSRC / "ssd_witness.cu"
 
-#: (xdt, dta, bm, cm, y, state, b, h, l, p, n, chunk, dtype, stream)
-#: -> cudaError
-SSD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: (xdt, dta, bm, cm, y, state, cb_workspace, b, h, l, p, n, chunk, dtype,
+#: stream) -> cudaError
+SSD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+#: the witness's entry point: the same without the workspace
+SSD_WITNESS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                        + [ctypes.c_void_p])
 
 #: the (head dim P, state size N) pairs the kernel is instantiated for:
 #: the zoo's SSM configs (P 64; N 64 zamba2, 128 mamba2-130m) and their
@@ -32,3 +42,9 @@ SSD_MAX_CHUNK = 128
 def load_ssd() -> ctypes.CDLL:
     """The bound library, built on the first call in this process."""
     return load_library("ssd", _SOURCE, SSD_ARGTYPES)
+
+
+def load_ssd_witness() -> ctypes.CDLL:
+    """The witness's bound library, built on the first call in this
+    process."""
+    return load_library("ssd_witness", _WITNESS, SSD_WITNESS_ARGTYPES)

@@ -56,6 +56,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_library)
 from repro_torch.kernels.qmm import qmm_library, qmm_matmul, qmm_ref
 from repro_torch.kernels.ssd import ssd, ssd_cuda
+from repro_torch.kernels.ssd.ref import ssd_witness
 from repro_torch.kernels.tiled_mm import (PATHS, ffma_chain_ref,
                                           tiled_matmul, tiled_mm_library,
                                           tiled_mm_ref)
@@ -600,6 +601,36 @@ def test_ssd_kernel_matches_plain(cuda, case, dtype):
     tol = 2e-5 * math.sqrt(l) if dtype == torch.float32 else 3e-2
     assert rel_err(y, ry) <= tol
     assert rel_err(s, rs) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [(2, 3, 256, 64, 64, 128),
+                                  (1, 2, 256, 64, 128, 128),
+                                  (2, 2, 1000, 64, 64, 128),
+                                  (1, 3, 192, 64, 64, 64),
+                                  (1, 2, 16, 64, 64, 16),
+                                  (2, 3, 48, 16, 16, 16),
+                                  (2, 80, 1024, 64, 64, 128)],
+                         ids=lambda c: "x".join(map(str, c)))
+def test_ssd_kernel_is_bitwise_the_witness(cuda, case, dtype):
+    """K5 against its frozen witness (its first version, csrc/
+    ssd_witness.cu) on the operands ``ssd`` hands it: y and the final
+    state equal bit for bit.  (2, 80, 1024, 64, 64, 128) is the training
+    step's call."""
+    b, h, l, p, n, chunk = case
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = (_rand(g, b, l, h, p) * 0.5).to(dtype)
+    dt = F.softplus(_rand(g, b, l, h) - 1.0)
+    a = -torch.exp(_rand(g, h) * 0.5)
+    bm = (_rand(g, b, l, n) * 0.3).to(dtype)
+    cm = (_rand(g, b, l, n) * 0.3).to(dtype)
+    xdt, dta, bm, cm, q = _chip_smoke().ssd_operands(x, dt, a, bm, cm, chunk)
+    before = ssd_cuda.launches
+    y, s = ssd_cuda(xdt, dta, bm, cm, chunk=q)
+    wy, ws = ssd_witness(xdt, dta, bm, cm, chunk=q)
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    assert torch.equal(y, wy) and torch.equal(s, ws)
 
 
 # ------------------------------------------------------ the LM zoo

@@ -5,6 +5,14 @@ inputs as repro's Pallas kernel (interpret mode), its chunked XLA path and
 its recurrence oracle.  Tolerance 2e-5 (tests/test_ssd.py).  Chunks 16-64,
 L padded to a chunk multiple, the zoo's state sizes, gradients."""
 
+import ctypes
+import hashlib
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +24,11 @@ from repro.kernels.ssd.ops import _prescale as j_prescale
 from repro.kernels.ssd.ops import ssd_chunked_xla
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.kernels.ssd import ssd, ssd_chunked, ssd_cuda, ssd_ref
-from repro_torch.kernels.ssd.ops import _prescale, check_kernel_shape
-from repro_torch.kernels.ssd.ssd import SSD_MAX_CHUNK, SSD_SHAPES
+from repro_torch.kernels.ssd.ops import (_prescale, cb_workspace,
+                                         check_kernel_shape)
+from repro_torch.kernels.ssd.ref import ssd_witness
+from repro_torch.kernels.ssd.ssd import (SSD_ARGTYPES, SSD_MAX_CHUNK,
+                                         SSD_SHAPES, SSD_WITNESS_ARGTYPES)
 
 TOL = 2e-5
 
@@ -174,3 +185,58 @@ def test_wrapper_checks():
                  cm, chunk=16)
     with pytest.raises(ValueError):
         ssd_cuda(xdt, dta[:, :1], bm, cm, chunk=16)
+
+
+# ------------------------------------------- the kernel's frozen witness
+
+#: SHA-256 of csrc/ssd_witness.cu: the kernel's first version with only its
+#: entry point's and device function's names changed and epilogue.cuh's
+#: helpers inlined.  The card tests hold the kernel to it bit for bit, so
+#: it must not drift.
+WITNESS_SHA256 = ("21fbb1f4501219fd17ee39acccecc20a"
+                  "22519226bb7aaaebf500ebb319507e62")
+
+
+def test_witness_source_is_pinned():
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+           / "kernels" / "ssd" / "csrc" / "ssd_witness.cu")
+    assert hashlib.sha256(src.read_bytes()).hexdigest() == WITNESS_SHA256
+
+
+@pytest.mark.parametrize("b,l,chunk", [(4, 1024, 128), (2, 1024, 128),
+                                       (2, 96, 16), (1, 15, 5)])
+def test_workspace_is_one_cb_tile_per_batch_row_and_chunk(b, l, chunk):
+    """The wrapper's C·Bᵀ scratch: B·(L/Q)·Q² fp32 elements, passed as the
+    entry point's seventh pointer (the witness's entry point has none)."""
+    want = b * (l // chunk) * chunk * chunk
+    ws = cb_workspace(b, l, chunk, torch.device("cpu"))
+    assert ws.dtype == torch.float32 and ws.numel() == want
+    assert len(SSD_ARGTYPES) == 15 and len(SSD_WITNESS_ARGTYPES) == 14
+    assert SSD_ARGTYPES[:7] == [ctypes.c_void_p] * 7
+    assert SSD_ARGTYPES[7:14] == [ctypes.c_int] * 7
+
+
+def test_importing_the_kernel_modules_builds_nothing():
+    """Importing ssd.py, ref.py and the package builds and loads no
+    library: the witness, like the kernel, is built at first use."""
+    code = textwrap.dedent("""
+        from repro_torch.kernels.common import build
+        calls = []
+        build.build_library = lambda *a, **k: calls.append(a)
+        import repro_torch.kernels.ssd.ssd, repro_torch.kernels.ssd.ref
+        import repro_torch.kernels.ssd
+        assert not calls and not build._libs, (calls, build._libs)
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve()
+                                           .parents[1] / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_witness_takes_cuda_tensors_only():
+    x, dt, a, bm, cm = _t(*_inputs(1, 32, 2, 16, 16))
+    xdt, dta = (t.contiguous() for t in _prescale(x, dt, a))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ssd_witness(xdt, dta, bm, cm, chunk=16)
