@@ -168,7 +168,24 @@ Phases, in order; each raises on failure and nothing is caught:
    before, read just after) and as a chain with a reap after every layer,
    every wave BITWISE the dispatcher's conv4 output, a ``cancel()`` that
    drains queued panels, frames/s of both and the card's busy share of a
-   profiled graph run.
+   profiled graph run.  Slice 12, ``mesh`` (after phase 5's LM profile,
+   on the LM parameters; the train step after ``training``): a process
+   group of one NCCL rank, ``make_test_mesh(data=1, model=1)``.
+   ``build_prefill_step`` on the LM prefill's 4 x 1,024 tokens,
+   ``build_decode_step`` (donate) 8 steps from a fresh cache, and 2 bf16
+   AdamW steps of ``build_train_step(cfg, cell, mesh)`` on a state made
+   from seed 0 and placed by its specs, each ``torch.equal`` to the
+   unsharded function on the same inputs (the train step: losses, grad
+   norms and every state leaf's digest and first 4,096 entries; the
+   unsharded run first, its state freed before the mesh's is made), with
+   the same launches, counts set to 0 just before and read just after
+   (prefill K1 55, K4 9, K5 54; decode K1 55 a step; train K4 9, K5 108 a
+   step); the decode cache written into the tensors ``init_cache`` made.
+   ``build_pp_forward`` on a one-stage mesh, granite-3-2b at its
+   published widths and 4 layers, ``torch.equal`` to the sequential
+   blocks; ``sync_pods_compressed`` with one pod bitwise ``anchor +
+   dequantize(quantize(delta))``.  Wall times of both sides and peak
+   memory; a mesh of one rank measures nothing about scaling.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
    that their plain times are of a float64-summed GEMM.  A kernel's
@@ -183,8 +200,9 @@ Phases, in order; each raises on failure and nothing is caught:
    give ``pipeline``, ``runtime_steal`` and ``graph``: their launches in
    slice 7's runs; every kernel's gives ``serving``: its launches in each
    of slice 8's serving runs, ``durability``: in each of slice 9's
-   restored runs, and ``training``: per train step (K4's and K5's also
-   their backward's time per call and per step).
+   restored runs, ``training``: per train step (K4's and K5's also
+   their backward's time per call and per step), and ``mesh``: in slice
+   12's runs over the one-rank mesh.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -193,7 +211,9 @@ outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -209,7 +229,9 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import init_device_mesh
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -266,6 +288,18 @@ from repro_torch.models.attention import flash_attention_torch  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.runtime import run_with_recovery  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
+                                place_tree)
+from repro_torch.launch.sharding import axes_of, gather_over  # noqa: E402
+from repro_torch.launch.pipeline_mode import (  # noqa: E402
+    build_pp_forward, split_stages)
+from repro_torch.launch.serve import (build_decode_step,  # noqa: E402
+                                      build_prefill_step)
+from repro_torch.models.transformer import (_attn_block_fwd,  # noqa: E402
+                                            _scan_blocks)
+from repro_torch.optim.compress import (dequantize_int8,  # noqa: E402
+                                        init_error_feedback, quantize_int8)
+from repro_torch.runtime import sync_pods_compressed  # noqa: E402
 
 DEVICE = "cuda"
 
@@ -449,6 +483,18 @@ TRAIN_REDUCED_TOL = 1e-4
 TRAIN_RESUME_STEPS = 4
 TRAIN_CKPT_EVERY = 2
 TRAIN_FAIL_AT = 3
+
+#: slice 12, ``mesh``: the launchers over a mesh of ONE rank (one NCCL rank
+#: on the card), held bitwise to the unsharded functions.  A mesh of one
+#: rank shows the mesh path's bits and its cost, and measures nothing
+#: about scaling.
+MESH_NOTE = ("a mesh of one rank: the mesh path's bits and its overhead "
+             "over the unsharded step; it measures nothing about scaling")
+MESH_DECODE = 8
+MESH_MAX_LEN = 64
+MESH_TRAIN_STEPS = 2
+MESH_REPS = 3
+PP_ARCH, PP_LAYERS, PP_MICRO, PP_TOKENS = "granite-3-2b", 4, 4, 1024
 
 
 #: K1's and K3's plain versions sum in float64 and round once to fp32, so a
@@ -3688,6 +3734,346 @@ def phase_training_resume() -> dict:
             "checkpoints": saved, "bitwise_leaves": len(names)}
 
 
+@contextlib.contextmanager
+def one_rank_group():
+    """A process group of one rank for the phase (NCCL on the card, gloo
+    on the CPU), destroyed at its end so later phases run as before."""
+    if DEVICE == "cuda":
+        torch.cuda.set_device(torch.cuda.current_device())
+        dist.init_process_group(
+            "nccl", store=dist.HashStore(), rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def leaf_digest(t: torch.Tensor) -> tuple:
+    """Two integer sums of a leaf's bit patterns (plain and position-
+    weighted, in int64 with wraparound), computed on its device: equal
+    leaves give equal digests, and the bits of a different leaf almost
+    surely change them."""
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view({8: torch.int64, 4: torch.int32, 2: torch.int16,
+                      1: torch.int8}[flat.element_size()]).to(torch.int64)
+    w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+    return int(bits.sum()), int((bits * w).sum())
+
+
+def in_turns(fns: dict, reps: int = MESH_REPS) -> dict:
+    """Each function's wall times (host clock around synchronize), run in
+    turns ``reps`` times."""
+    out = {k: [] for k in fns}
+    for _ in range(reps):
+        for k, fn in fns.items():
+            out[k].append(timed(fn)[1])
+    return out
+
+
+def ms_of(times: dict) -> dict:
+    return {k: {"ms": [1e3 * t for t in v],
+                "median_ms": 1e3 * statistics.median(v)}
+            for k, v in times.items()}
+
+
+def phase_mesh(card: str, lm: dict) -> dict:
+    """Slice 12, ``mesh``: the mesh launchers over a mesh of one rank
+    (one NCCL rank, ``make_test_mesh(data=1, model=1)``), on the LM
+    phase's zamba2-2.7b parameters at full width and depth:
+
+    1. ``build_prefill_step`` on the LM phase's 4 x 1,024 tokens, the
+       parameters placed once before: logits ``torch.equal`` to
+       ``prefill_fn``'s; launches exactly the prefill's (K4 9, K5 54, K1
+       55, all on wgmma), counts set to 0 just before and read just
+       after.  Timed in turns with the unsharded prefill and with the
+       mesh's own parts alone: placing the parameters (once, before the
+       steps), gathering them (each step) and the logits' gather.
+    2. ``build_decode_step`` (donate) MESH_DECODE greedy steps from a fresh
+       cache of MESH_MAX_LEN, beside ``decode_fn`` on a cache of its own:
+       logits ``torch.equal`` every step, every cache leaf ``torch.equal``
+       at the end and written into the very tensors ``init_cache`` made;
+       launches per step K1 55, K4 0, K5 0.
+    3. ``build_pp_forward`` on a one-stage mesh for PP_ARCH at its
+       published widths, depth cut to PP_LAYERS: ``torch.equal`` to the
+       sequential ``_scan_blocks`` over each of PP_MICRO microbatches,
+       with the same launches.
+    4. ``sync_pods_compressed`` with one pod: bitwise ``anchor +
+       dequantize(quantize(delta))`` and its error feedback.
+    Wall times of both sides in turns, and peak memory.  The
+    steps take trees placed once, as a caller places them."""
+    t_phase = time.perf_counter()
+    cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
+    per_prefill = lm["per_prefill"]
+    per_step = {"flash_attention": 0, "ssd": 0,
+                "tiled_mm": per_prefill["tiled_mm"]}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with one_rank_group():
+        mesh = make_test_mesh(data=1, model=1, device_type=DEVICE)
+
+        # 1. prefill, the parameters placed once; how many of the
+        # gathered leaves are the placed tensors themselves
+        prefill, (_, pspecs), (_, bspecs) = build_prefill_step(
+            cfg, ShapeCell("prefill", LM_PROMPT, LM_BATCH, "prefill"), mesh)
+        placed = place_tree(params, pspecs, mesh)
+        shared = sum(g.data_ptr() == t.data_ptr() for g, t in zip(
+            tree_leaves(gather_tree(placed)), tree_leaves(params)))
+        axes = axes_of(bspecs["tokens"][0])
+        want = prefill_fn(cfg, params, tokens=tokens)
+        reset_launches()
+        got = prefill(placed, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_counts = expect_counts("mesh prefill", per_prefill)
+        expect_paths("mesh prefill", per_prefill["tiled_mm"])
+        if not torch.equal(got, want):
+            raise AssertionError(f"mesh prefill: logits differ from "
+                                 f"prefill_fn's by up to "
+                                 f"{(got - want).abs().max().item():.3g}")
+        prefill_ms = ms_of(in_turns({
+            "unsharded": lambda: prefill_fn(cfg, params, tokens=tokens),
+            "mesh": lambda: prefill(placed, {"tokens": tokens}),
+            "place_tree": lambda: place_tree(params, pspecs, mesh),
+            "gather_tree": lambda: gather_tree(placed),
+            "gather_logits": lambda: gather_over(want, axes, mesh)}))
+        del got, placed
+
+        # 2. decode from a fresh cache, the cache written in place
+        decode, (_, dspecs), (_, bspecs) = build_decode_step(
+            cfg, ShapeCell("decode", MESH_MAX_LEN, LM_BATCH, "decode"), mesh)
+        placed = place_tree(params, dspecs, mesh)
+        ref_cache = init_cache(cfg, LM_BATCH, MESH_MAX_LEN, device=DEVICE)
+        fresh = init_cache(cfg, LM_BATCH, MESH_MAX_LEN, device=DEVICE)
+        cache = place_tree(fresh, bspecs["cache"], mesh)
+        tok = want[:, -1].argmax(dim=-1, keepdim=True)
+        step_s = {"unsharded": [], "mesh": []}
+        for i in range(MESH_DECODE):
+            (w, ref_cache), s_ref = timed(
+                lambda: decode_fn(cfg, params, ref_cache, tok, i))
+            reset_launches()
+            (g, cache), s = timed(lambda: decode(placed, cache, tok, i))
+            expect_counts(f"mesh decode step {i}", per_step)
+            expect_paths(f"mesh decode step {i}", per_step["tiled_mm"])
+            if not torch.equal(g, w):
+                raise AssertionError(f"mesh decode step {i}: logits differ")
+            step_s["unsharded"].append(s_ref)
+            step_s["mesh"].append(s)
+            tok = w[:, -1].argmax(dim=-1, keepdim=True)
+        for name, a, b, f in zip(leaf_names(ref_cache), tree_leaves(cache),
+                                 tree_leaves(ref_cache), tree_leaves(fresh)):
+            if not torch.equal(a.to_local(), b):
+                raise AssertionError(f"mesh decode: cache leaf {name} "
+                                     f"differs from decode_fn's")
+            if a.to_local().data_ptr() != f.data_ptr():
+                raise AssertionError(f"mesh decode: cache leaf {name} was "
+                                     f"not written in place")
+        del ref_cache, cache, fresh, placed
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        # 3. pipeline mode on a one-stage mesh
+        pipeline = mesh_pipeline()
+        # 4. local SGD with one pod
+        sgd = mesh_local_sgd(params)
+
+    decode_ms = ms_of(step_s)
+    result = {
+        "mesh": "make_test_mesh(data=1, model=1): one NCCL rank"
+                if DEVICE == "cuda" else "one gloo rank",
+        "lm": LM_ARCH, "note": MESH_NOTE,
+        "prefill": {"tokens": [LM_BATCH, LM_PROMPT], "bitwise": True,
+                    "launches": prefill_counts, **prefill_ms},
+        "decode": {"steps": MESH_DECODE, "max_len": MESH_MAX_LEN,
+                   "bitwise_logits_and_cache": True, "cache_in_place": True,
+                   "launches_per_step": per_step, **decode_ms},
+        "serve_peak_memory_gb": serve_peak_gb,
+        "gathered_leaves_sharing_the_placed_storage": [
+            shared, len(tree_leaves(params))],
+        "pipeline": pipeline, "local_sgd": sgd,
+        "timer": f"host clock around synchronize; prefill {MESH_REPS} "
+                 f"runs of each side and of the mesh's parts alone "
+                 f"(place_tree once before the steps, gather_tree and "
+                 f"gather_logits in each) in turns, decode each step of "
+                 f"both",
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    print(f"mesh: {LM_ARCH} prefill {LM_BATCH} x {LM_PROMPT} tokens "
+          f"bitwise, median {prefill_ms['mesh']['median_ms']:.1f} ms on "
+          f"the mesh vs {prefill_ms['unsharded']['median_ms']:.1f} ms "
+          f"unsharded (placing once "
+          f"{prefill_ms['place_tree']['median_ms']:.3f} ms, gathering "
+          f"the params {prefill_ms['gather_tree']['median_ms']:.3f} and "
+          f"the logits {prefill_ms['gather_logits']['median_ms']:.3f} ms "
+          f"a step); {MESH_DECODE} decode steps bitwise, cache in place, "
+          f"median {decode_ms['mesh']['median_ms']:.1f} vs "
+          f"{decode_ms['unsharded']['median_ms']:.1f} ms; pipeline mode "
+          f"and local SGD bitwise; peak memory {serve_peak_gb:.2f} GB; "
+          f"{MESH_NOTE}; card {card}", flush=True)
+    return {"prefill": prefill_counts, "decode_per_step": per_step,
+            "pipeline": pipeline["launches"]}
+
+
+def mesh_pipeline() -> dict:
+    """``build_pp_forward`` on a one-stage ('pod',) mesh: PP_ARCH at its
+    published widths and PP_LAYERS layers (random weights from a seed),
+    PP_MICRO microbatches of 1 x PP_TOKENS tokens in the compute dtype,
+    against the sequential ``_scan_blocks`` on each."""
+    cfg = dataclasses.replace(ARCHS[PP_ARCH], n_layers=PP_LAYERS)
+    params = init_model(cfg, 0, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(17)
+    mbs = torch.randn((PP_MICRO, 1, PP_TOKENS, cfg.d_model), generator=g,
+                      device=DEVICE).to(cfg.compute_torch_dtype)
+    stage = init_device_mesh(DEVICE, (1,), mesh_dim_names=("pod",))
+    fn, stages = build_pp_forward(cfg, stage, stage_axis="pod",
+                                  microbatches=PP_MICRO)
+    body = lambda p, h: _attn_block_fwd(cfg, p, h)
+    with torch.inference_mode():
+        reset_launches()
+        want = torch.stack([_scan_blocks(body, mbs[i], params["blocks"],
+                                         cfg.n_layers)
+                            for i in range(PP_MICRO)])
+        torch.cuda.synchronize()
+        seq_counts = launch_counts()
+        reset_launches()
+        got = fn(split_stages(params, stages), mbs)
+        torch.cuda.synchronize()
+        pp_counts = launch_counts()
+    if stages != 1 or not torch.equal(got, want):
+        raise AssertionError("pipeline mode: the one-stage pipeline differs "
+                             "from the sequential blocks")
+    if pp_counts != seq_counts or not (pp_counts["tiled_mm"]
+                                       and pp_counts["flash_attention"]):
+        raise AssertionError(f"pipeline mode: launches {pp_counts}, the "
+                             f"sequential blocks' {seq_counts}")
+    return {"arch": PP_ARCH, "layers": PP_LAYERS, "microbatches": PP_MICRO,
+            "tokens_per_microbatch": PP_TOKENS, "bitwise": True,
+            "launches": pp_counts}
+
+
+def mesh_local_sgd(params: dict) -> dict:
+    """``sync_pods_compressed`` over a (pod 1, data 1) mesh on two of the
+    LM's largest leaves with a random drift: bitwise ``anchor +
+    dequantize(quantize(delta))`` and ``delta - dequantize(...)``."""
+    mesh = init_device_mesh(DEVICE, (1, 1), mesh_dim_names=("pod", "data"))
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    anchor = {"embed": params["embed"],
+              "out_proj": params["blocks"]["mixer"]["out_proj"]}
+    cur = tree_map(lambda a: a + 1e-3 * torch.randn(
+        a.shape, generator=g, device=DEVICE, dtype=a.dtype), anchor)
+    err = init_error_feedback(anchor)
+    (new_p, new_a, new_e), s = timed(
+        lambda: sync_pods_compressed(cur, anchor, err, mesh=mesh))
+    for name in anchor:
+        p, a, e = cur[name], anchor[name], err[name]
+        delta = (p - a).to(torch.float32) + e
+        deq = dequantize_int8(*quantize_int8(delta), p.shape)
+        want_p = (a.to(torch.float32) + deq).to(p.dtype)
+        if not (torch.equal(new_p[name], want_p) and new_a is new_p
+                and torch.equal(new_e[name], delta - deq)):
+            raise AssertionError(f"local SGD: {name} is not anchor + "
+                                 f"dequantize(quantize(delta)) bit for bit")
+    n = sum(t.numel() for t in anchor.values())
+    return {"leaves": sorted(anchor), "elements": n, "bitwise": True,
+            "ms": 1e3 * s}
+
+
+def phase_mesh_training(card: str) -> dict:
+    """Slice 12, ``mesh``, the train step: LM_ARCH at full width and depth,
+    MESH_TRAIN_STEPS bf16 AdamW steps of TRAIN_CELL from the state of
+    seed 0, first unsharded (``build_train_step(cfg, cell)``), then, the
+    state freed and made again from the seed, over a one-rank mesh
+    (``build_train_step(cfg, cell, mesh)``, the state placed by its
+    specs).  Launches per step exactly :func:`train_counts` on both; each
+    step's loss and grad norm bitwise, and every state leaf's digest
+    (:func:`leaf_digest`) and first 4,096 entries equal after the last
+    step.  The two states never share the card."""
+    t_phase = time.perf_counter()
+    cfg = ARCHS[LM_ARCH]
+    per_step = train_counts(cfg)
+    batches = list(itertools.islice(
+        synthetic_batches(cfg, TRAIN_CELL, seed=0, device=DEVICE),
+        MESH_TRAIN_STEPS))
+
+    def run(kind, step_fn, place=None):
+        state = make_train_state(cfg, 0, device=DEVICE)
+        if place is not None:
+            state = place(state)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, secs = [], [], []
+        for i, batch in enumerate(batches):
+            reset_launches()
+            (state, m), s = timed(lambda: step_fn(state, batch))
+            expect_counts(f"{kind} train step {i + 1}", per_step)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(s)
+        leaves = [t.to_local() if place is not None else t
+                  for t in tree_leaves(state)]
+        out = {"losses": losses, "grad_norms": norms,
+               "step_ms": [1e3 * t for t in secs],
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "digests": [leaf_digest(t) for t in leaves],
+               "samples": [t.reshape(-1)[:4096].cpu() for t in leaves]}
+        del state, leaves
+        torch.cuda.empty_cache()
+        return out
+
+    ref = run("unsharded", build_train_step(cfg, TRAIN_CELL)[0])
+    with one_rank_group():
+        mesh = make_test_mesh(data=1, model=1, device_type=DEVICE)
+        step_fn, (_, sspecs), _ = build_train_step(cfg, TRAIN_CELL, mesh)
+        got = run("mesh", step_fn,
+                  lambda state: place_tree(state, sspecs, mesh))
+    names = leaf_names(make_train_state(cfg, 0, device="meta"))
+    if got["losses"] != ref["losses"] or got["grad_norms"] != ref[
+            "grad_norms"]:
+        raise AssertionError(f"mesh train steps: losses {got['losses']} / "
+                             f"{ref['losses']}, grad norms "
+                             f"{got['grad_norms']} / {ref['grad_norms']}")
+    for name, a, b, x, y in zip(names, got["digests"], ref["digests"],
+                                got["samples"], ref["samples"]):
+        if a != b or not torch.equal(x, y):
+            raise AssertionError(f"mesh train steps: state leaf {name} "
+                                 f"differs from the unsharded step's")
+    result = {"mesh": "make_test_mesh(data=1, model=1)", "lm": LM_ARCH,
+              "cell": dataclasses.asdict(TRAIN_CELL), "optimizer": "adamw",
+              "steps": MESH_TRAIN_STEPS, "note": MESH_NOTE,
+              "bitwise": {"losses": ref["losses"],
+                          "grad_norms": ref["grad_norms"],
+                          "state_leaves": len(names)},
+              "launches_per_step": per_step,
+              "step_ms": {"unsharded": ref["step_ms"],
+                          "mesh": got["step_ms"]},
+              "peak_memory_gb": {"unsharded": ref["peak_memory_gb"],
+                                 "mesh": got["peak_memory_gb"]},
+              "timer": "host clock around synchronize, each step",
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    print(f"mesh: {LM_ARCH} {MESH_TRAIN_STEPS} train steps on a one-rank "
+          f"mesh bitwise the unsharded steps (losses {ref['losses']}, all "
+          f"{len(names)} state leaves), ms per step {got['step_ms']} vs "
+          f"{ref['step_ms']}, peak memory {got['peak_memory_gb']:.2f} vs "
+          f"{ref['peak_memory_gb']:.2f} GB; {MESH_NOTE}; card {card}",
+          flush=True)
+    return {"per_step": per_step}
+
+
+def mesh_launches(mesh: dict, mesh_train: dict, name: str) -> dict:
+    """A kernel's launches on slice 12's mesh paths."""
+    return {"prefill": mesh["prefill"].get(name, 0),
+            "decode_per_step": mesh["decode_per_step"].get(name, 0),
+            "train_per_step": mesh_train["per_step"].get(name, 0),
+            "pipeline": mesh["pipeline"].get(name, 0),
+            "per": (f"{LM_ARCH} prefill {LM_BATCH} x {LM_PROMPT} and decode "
+                    f"steps, {LM_ARCH} train steps of "
+                    f"{TRAIN_CELL.global_batch} x {TRAIN_CELL.seq_len}, and "
+                    f"{PP_ARCH} at {PP_LAYERS} layers in pipeline mode, over "
+                    f"a one-rank mesh")}
+
+
 def training_launches(training: dict, name: str) -> dict:
     return {"launches_per_step": training["launches_per_step"][name],
             "per": f"one {LM_ARCH} train step of "
@@ -3776,8 +4162,11 @@ def main() -> int:
     lm_totals = phase_lm_kernel_times(card, lm)
     lm_gemms = phase_lm_gemm_times(card, lm)
     lm_profiled = phase_lm_profile(card, lm)
+    # slice 12: the launchers over a one-rank mesh, on the LM parameters
+    mesh = phase_mesh(card, lm)
     # slice 10: the training path, last user of the LM phase's parameters
     training = phase_training(card, lm)
+    mesh_train = phase_mesh_training(card)
 
     # phase 6: the kernels line, the card, the result
     on_runtime = (f"one CIFAR_Alex+ forward at {FRAMES} frames through the "
@@ -3812,7 +4201,8 @@ def main() -> int:
                        f"{FRAMES // MICRO} wave graphs")},
                    "serving": serving_launches(serving, name),
                    "durability": durability_launches(durability, name),
-                   "training": training_launches(training, name)}
+                   "training": training_launches(training, name),
+                   "mesh": mesh_launches(mesh, mesh_train, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -3867,7 +4257,8 @@ def main() -> int:
                                 decode["runtime_paths"]},
                     "serving": serving_launches(serving, "qmm"),
                     "durability": durability_launches(durability, "qmm"),
-                    "training": training_launches(training, "qmm")}})
+                    "training": training_launches(training, "qmm"),
+                    "mesh": mesh_launches(mesh, mesh_train, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -3893,6 +4284,7 @@ def main() -> int:
                               lm["decode"]["launches_per_step"][name]},
                 "serving": serving_launches(serving, name),
                 "durability": durability_launches(durability, name),
+                "mesh": mesh_launches(mesh, mesh_train, name),
                 "training": {**training_launches(training, name),
                              "profiled": {
                                  **training["kernel_device_ms_per_step"].get(

@@ -7,11 +7,10 @@ stages, several frames in flight.  Its stages are plain callables or
 GEMMs run on the kernel its engine names (``cuda-tiled`` on K1,
 ``neon-vpu`` on K3) while the other stages' threads launch theirs.
 :func:`gpipe_reference` is the microbatch oracle: every stage applied to
-each microbatch in turn.
-
-``repro``'s ``gpipe_spmd`` (a GPipe microbatch pipeline across a mesh
-axis, ``shard_map`` + ``ppermute``) is not ported yet: it comes with the
-launch and mesh layer, which one card has nothing to shard across.
+each microbatch in turn.  :func:`gpipe_spmd` is the pod-scale pipeline: a
+GPipe microbatch schedule across one axis of a ``DeviceMesh``, one stage
+per rank, activations passed on by point-to-point sends (``repro``'s
+``shard_map`` + ``ppermute``).
 """
 
 from __future__ import annotations
@@ -23,9 +22,10 @@ import time
 from typing import Any, Callable, Optional, Sequence, Union
 
 import torch
+import torch.distributed as dist
 
 __all__ = ["ThreadedPipeline", "EngineStage", "StageStats",
-           "PipelineStageError", "gpipe_reference"]
+           "PipelineStageError", "gpipe_reference", "gpipe_spmd"]
 
 
 # ---------------------------------------------------------------------------
@@ -211,25 +211,7 @@ class ThreadedPipeline:
 
 
 # ---------------------------------------------------------------------------
-# 2. Pod-scale: GPipe microbatch pipeline under shard_map
-# ---------------------------------------------------------------------------
-
-def gpipe_reference(stage_fn: Callable[[Any, jax.Array], jax.Array],
-                    stage_params: Sequence[Any],
-                    microbatches: jax.Array) -> jax.Array:
-    """Oracle: apply stages sequentially to each microbatch.
-
-    stage_params: length-S list of per-stage params; microbatches: (M, ...).
-    """
-    def per_mb(x):
-        for p in stage_params:
-            x = stage_fn(p, x)
-        return x
-    return jax.vmap(per_mb)(microbatches)
-
-
-# ---------------------------------------------------------------------------
-# GPipe microbatch oracle
+# GPipe microbatch pipeline over a mesh axis, and its oracle
 # ---------------------------------------------------------------------------
 
 def gpipe_reference(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
@@ -244,3 +226,58 @@ def gpipe_reference(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
             x = stage_fn(p, x)
         return x
     return torch.stack([per_mb(x) for x in microbatches])
+
+
+def gpipe_spmd(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
+               my_params: Any,
+               microbatches: torch.Tensor,
+               *,
+               mesh,
+               axis_name: str,
+               num_stages: int) -> torch.Tensor:
+    """GPipe forward pipeline, called on EVERY rank of ``mesh``.
+
+    Each rank along ``axis_name`` holds one stage's params (``my_params``)
+    and the full microbatch stream (M, ...) enters at stage 0.  The schedule
+    runs M + S - 1 ticks; at each tick every stage processes its current
+    microbatch and sends the activation to the next stage
+    (``batch_isend_irecv`` over the axis's group; the last stage sends
+    nothing, as ``repro``'s ring permute's last->first edge is unused).
+
+    Returns the (M, ...) outputs, valid on the LAST stage (stage < S-1
+    ranks return zeros) — callers typically gather the result back.
+    """
+    group = mesh.get_group(axis_name)
+    stage = mesh.get_local_rank(axis_name)
+    assert dist.get_world_size(group) == num_stages
+    m = microbatches.shape[0]
+    ticks = m + num_stages - 1
+    x_shape = microbatches.shape[1:]
+    nxt = (dist.get_global_rank(group, stage + 1)
+           if stage < num_stages - 1 else None)
+    prv = dist.get_global_rank(group, stage - 1) if stage > 0 else None
+
+    # stages must preserve activation shape (residual-block property), so the
+    # output stream has the input microbatch shape.
+    outputs = torch.zeros((m,) + x_shape, dtype=microbatches.dtype,
+                          device=microbatches.device)
+    state = torch.zeros(x_shape, dtype=microbatches.dtype,
+                        device=microbatches.device)
+    for t in range(ticks):
+        # stage 0 injects microbatch t (the last one again past the end)
+        x_in = microbatches[min(t, m - 1)] if stage == 0 else state
+        y = stage_fn(my_params, x_in)
+        # collect the finished microbatch on the last stage
+        out_idx = t - (num_stages - 1)
+        if stage == num_stages - 1 and 0 <= out_idx < m:
+            outputs[out_idx] = y
+        # shift activations stage i -> i+1
+        ops = []
+        if nxt is not None:
+            ops.append(dist.P2POp(dist.isend, y.contiguous(), nxt, group))
+        if prv is not None:
+            state = torch.empty_like(state)
+            ops.append(dist.P2POp(dist.irecv, state, prv, group))
+        for req in dist.batch_isend_irecv(ops) if ops else ():
+            req.wait()
+    return outputs

@@ -1,8 +1,19 @@
-"""repro_torch.launch — the training driver (:mod:`.train`).  ``repro``'s
-mesh, sharding, dry-run and serve launchers come with the mesh slice."""
+"""repro_torch.launch — meshes (:mod:`.mesh`), the sharding rules and
+their DTensor placements (:mod:`.sharding`), the training loop
+(:mod:`.train`), the serving steps (:mod:`.serve`) and the
+pipeline-parallel mode (:mod:`.pipeline_mode`).  ``repro``'s dry run and
+HLO analysis are not ported yet."""
 
+from .mesh import MODEL_AXIS, dp_axes, make_production_mesh, make_test_mesh
+from .sharding import (PartitionSpec, cache_pspecs, gather_tree,
+                       input_pspecs, opt_pspecs, param_pspecs, place_tree,
+                       state_pspecs, to_placements)
 from .train import (build_train_step, default_opt_cfg, loss_and_grads,
                     make_train_state, train_loop, train_state_specs)
 
-__all__ = ["make_train_state", "build_train_step", "train_loop",
-           "train_state_specs", "default_opt_cfg", "loss_and_grads"]
+__all__ = ["make_production_mesh", "make_test_mesh", "dp_axes",
+           "MODEL_AXIS", "PartitionSpec", "param_pspecs", "input_pspecs",
+           "opt_pspecs", "state_pspecs", "to_placements", "cache_pspecs",
+           "place_tree", "gather_tree", "make_train_state",
+           "build_train_step", "train_loop", "train_state_specs",
+           "default_opt_cfg", "loss_and_grads"]

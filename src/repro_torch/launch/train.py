@@ -10,8 +10,24 @@ driver (data pipeline -> step -> optimizer -> checkpoint), which
 ``donate_argnums=(0,)``: the step writes the new parameters, optimizer
 state and step counter into the state's own tensors, leaf by leaf, and
 returns that state; with ``donate=False`` it returns new tensors and
-leaves its input untouched.  A device mesh is not ported yet: ``mesh``
-must be None.
+leaves its input untouched.
+
+Over a device mesh (``build_train_step(cfg, cell, mesh)``) the step is
+called on every rank with the whole batch, as ``repro``'s jitted step is
+called with global arrays.  The state is a tree of DTensors placed by
+``state_pspecs``: the caller places it once with ``place_tree``, as
+``train_loop`` does, and the step returns it placed.  Each rank
+gathers the parameters whole, takes the loss and its gradient on its
+data-parallel slice of the batch (``input_pspecs``), and averages loss
+and gradients over the data-parallel axes, which gives the global-batch
+mean on every rank ('model' replicas took the same slice and are not
+averaged).  AdamW then updates each rank's own shards, clipped by the
+global norm of the whole averaged gradient; Adafactor, whose factored
+statistics are means over whole rows and columns, gathers its
+statistics, updates the whole leaves and keeps each rank's shards.
+Partitioned compute over 'model' (Megatron products with collectives
+inside the blocks) is not ported: leaves sharded over 'model' are stored
+sharded and gathered for use.  ``mesh=None`` is the single-device step.
 """
 
 from __future__ import annotations
@@ -21,23 +37,20 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import init_model, input_specs, loss_fn
 from repro_torch.optim import (AdafactorConfig, AdamWConfig, adafactor_init,
                                adafactor_update, adamw_init, adamw_update)
-from repro_torch.tree import tree_leaves, tree_unflatten
+from repro_torch.optim.adamw import global_norm
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from .sharding import (axes_of, gather_tree, input_pspecs, local_shard,
+                       mean_over, place_tree, state_pspecs)
 
 __all__ = ["make_train_state", "build_train_step", "train_loop",
            "train_state_specs", "default_opt_cfg", "loss_and_grads"]
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh is not ported yet (ROADMAP.md, "
-            "Queue 1 item 4: launch/mesh.py and launch/sharding.py); pass "
-            "mesh=None")
 
 
 def make_train_state(cfg: ArchConfig, key: int | torch.Generator = 0,
@@ -55,10 +68,10 @@ def make_train_state(cfg: ArchConfig, key: int | torch.Generator = 0,
 
 
 def train_state_specs(cfg: ArchConfig, mesh=None):
-    """(the train state on ``meta``, its partition specs): the specs come
-    with the mesh, so they are None."""
-    _no_mesh(mesh)
-    return make_train_state(cfg, 0, device="meta"), None
+    """(the train state on ``meta``, its partition specs over ``mesh``;
+    None without a mesh)."""
+    aval = make_train_state(cfg, 0, device="meta")
+    return aval, None if mesh is None else state_pspecs(cfg, aval, mesh)
 
 
 def loss_and_grads(cfg: ArchConfig, params: dict, batch: dict, *,
@@ -96,17 +109,67 @@ def default_opt_cfg(cfg: ArchConfig):
             else AdamWConfig())
 
 
+def _mesh_loss_and_grads(cfg: ArchConfig, mesh, bspecs: dict, params: dict,
+                        batch: dict) -> tuple[torch.Tensor, dict]:
+    """:func:`loss_and_grads` of the whole ``params`` on this rank's
+    slice of the global ``batch`` (split by ``bspecs``), averaged over
+    the data-parallel axes: the global batch's loss and gradient, on
+    every rank."""
+    mine = {k: local_shard(v, bspecs[k], mesh) for k, v in batch.items()}
+    loss, grads = loss_and_grads(cfg, params, mine)
+    axes = axes_of(bspecs["labels"][0])
+    return (mean_over(loss, axes, mesh),
+            tree_map(lambda g: mean_over(g, axes, mesh), grads))
+
+
+def _mesh_train_step(cfg: ArchConfig, opt_cfg, mesh, sspecs: dict,
+                     bspecs: dict, state: dict, batch: dict, *,
+                     donate: bool = True):
+    if not donate:
+        state = tree_map(lambda d: d.clone(), state)
+    params = gather_tree(state["params"])
+    loss, grads = _mesh_loss_and_grads(cfg, mesh, bspecs, params, batch)
+    local = lambda tree: tree_map(DTensor.to_local, tree)
+    if cfg.optimizer == "adafactor":
+        stats = gather_tree(state["opt"])
+        _, _, metrics = adafactor_update(opt_cfg, grads, stats, params,
+                                         inplace=True)
+        kept = {"params": sspecs["params"], "opt": sspecs["opt"]}
+        for whole, shard, spec in zip(
+                tree_leaves({"params": params, "opt": stats}),
+                tree_leaves(local({"params": state["params"],
+                                   "opt": state["opt"]})),
+                tree_leaves(kept)):
+            whole = local_shard(whole, spec, mesh)
+            if whole.data_ptr() != shard.data_ptr():
+                shard.copy_(whole)
+    else:
+        shards = tree_map(lambda g, s: local_shard(g, s, mesh), grads,
+                          sspecs["params"])
+        _, _, metrics = adamw_update(
+            opt_cfg, shards, local(state["opt"]), local(state["params"]),
+            inplace=True, grad_norm=global_norm(grads))
+    state["step"].to_local().add_(1)
+    return state, {"loss": loss, **metrics}
+
+
 def build_train_step(cfg: ArchConfig, cell: ShapeCell, mesh=None, *,
                      opt_cfg=None, donate: bool = True):
-    """Returns (step_fn, (state specs, None), (batch specs, None)):
-    ``step_fn(state, batch) -> (state, metrics)``; the specs are ``meta``
-    stand-ins and the Nones the partition specs that come with the
-    mesh."""
-    _no_mesh(mesh)
+    """Returns (step_fn, (state specs, their pspecs), (batch specs, their
+    pspecs)): ``step_fn(state, batch) -> (state, metrics)``; the specs
+    are ``meta`` stand-ins, and the pspecs None without a mesh.  Over a
+    mesh the state goes in and comes out a tree of DTensors placed by
+    the state pspecs."""
     opt_cfg = opt_cfg or default_opt_cfg(cfg)
-    aval, sspecs = train_state_specs(cfg)
-    fn = functools.partial(_train_step, cfg, opt_cfg, donate=donate)
-    return fn, (aval, sspecs), (input_specs(cfg, cell), None)
+    aval, sspecs = train_state_specs(cfg, mesh)
+    in_specs = input_specs(cfg, cell)
+    if mesh is None:
+        fn = functools.partial(_train_step, cfg, opt_cfg, donate=donate)
+        return fn, (aval, None), (in_specs, None)
+    bspecs = input_pspecs(cfg, cell, in_specs, mesh)
+    fn = functools.partial(_mesh_train_step, cfg, opt_cfg, mesh, sspecs,
+                           bspecs, donate=donate)
+    return fn, (aval, sspecs), (in_specs, bspecs)
 
 
 def train_loop(cfg: ArchConfig, mesh=None, *, steps: int, batch_iter,
@@ -116,11 +179,17 @@ def train_loop(cfg: ArchConfig, mesh=None, *, steps: int, batch_iter,
                device: str | torch.device | None = None):
     """End-to-end loop: init (or resume from ``state``), step,
     checkpoint, report.  A new state is made on ``device`` (default the
-    card) from ``key`` (default 0)."""
-    fn, _, _ = build_train_step(cfg, cell, mesh, opt_cfg=opt_cfg)
+    card; over a mesh, the mesh's device type) from ``key`` (default 0).
+    Over a mesh every rank runs the loop, the state is placed by the
+    step's specs, and global rank 0 saves the gathered state."""
+    fn, (_, sspecs), _ = build_train_step(cfg, cell, mesh, opt_cfg=opt_cfg)
     if state is None:
+        if device is None and mesh is not None:
+            device = mesh.device_type
         state = make_train_state(cfg, 0 if key is None else key,
                                  device=device)
+    if mesh is not None:
+        state = place_tree(state, sspecs, mesh)
     history = []
     for _ in range(steps):
         batch = next(batch_iter)
@@ -129,9 +198,12 @@ def train_loop(cfg: ArchConfig, mesh=None, *, steps: int, batch_iter,
         metrics = {k: float(v) for k, v in metrics.items()}
         metrics["step_time_s"] = time.perf_counter() - t0
         history.append(metrics)
-        step = int(state["step"])
+        step = int(state["step"] if mesh is None
+                   else state["step"].full_tensor())
         if checkpointer is not None and ckpt_every and step % ckpt_every == 0:
-            checkpointer.save(step, state)
+            whole = state if mesh is None else gather_tree(state)
+            if mesh is None or dist.get_rank() == 0:
+                checkpointer.save(step, whole)
         if on_step is not None:
             on_step(step, metrics)
     return state, history

@@ -391,6 +391,13 @@ def _decode_attn_block_inplace(cfg, p, x, K, V, l, pos, xk=None, xv=None):
     return x
 
 
+def decode_rows_independent(cfg: ArchConfig) -> bool:
+    """Whether a decode step's batch rows are independent of one another.
+    An expert-choice MoE FFN routes the whole decode batch as one group
+    (``_decode_block``), so its rows choose their experts together."""
+    return cfg.family != "moe"
+
+
 def _decode_mamba_inplace(cfg, p, x, mcache, l, pos=None):
     """Mamba block with an in-place state update into the stacked caches.
 

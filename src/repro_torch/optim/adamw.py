@@ -84,13 +84,16 @@ def adamw_init(params) -> dict:
 
 
 def adamw_update(cfg: AdamWConfig, grads, state: dict, params, *,
-                 inplace: bool = False):
+                 inplace: bool = False,
+                 grad_norm: torch.Tensor | None = None):
     """-> (new params, new state {"m", "v", "step"}, {"lr", "grad_norm"}).
     With ``inplace`` the new values are written into ``params`` and
-    ``state``'s tensors, which are returned."""
+    ``state``'s tensors, which are returned.  ``grad_norm`` is the global
+    norm that clips the update, where ``grads`` holds one rank's shards of
+    the gradient (default: ``grads``' own global norm)."""
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = _clip_scale(gnorm, cfg.clip_norm)
     s = step.to(_F32)
     bc1 = 1 - torch.pow(scalar(cfg.b1, s), s)

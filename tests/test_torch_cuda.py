@@ -983,3 +983,70 @@ def test_reduced_train_step_on_the_card_matches_the_cpu(cuda):
             assert rel_err(a.cpu(), b) <= 1e-4
         else:
             assert int(a) == int(b)
+
+
+def test_one_rank_mesh_on_the_card_is_bitwise_the_unsharded_steps(cuda):
+    """The reduced zamba2 (4 layers) over a mesh of one NCCL rank: the
+    prefill step's logits, 4 decode steps' logits and cache (written in
+    place) and one AdamW train step's loss, metrics and state
+    ``torch.equal`` to the unsharded functions', through K4 and K5."""
+    import torch.distributed as dist
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.launch import (build_train_step, make_test_mesh,
+                                    make_train_state, place_tree)
+    from repro_torch.launch.serve import build_decode_step, build_prefill_step
+    from repro_torch.tree import tree_leaves
+    cfg = reduced(ARCHS["zamba2-2.7b"], n_layers=4)
+    b, s, max_len = 2, 64, 16
+    params = init_model(cfg, 3, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(4))
+    cell = ShapeCell("t", s, b, "train")
+    dist.init_process_group(
+        "nccl", store=dist.HashStore(), rank=0, world_size=1,
+        device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_test_mesh(data=1, model=1, device_type="cuda")
+        prefill, (_, pspecs), _ = build_prefill_step(
+            cfg, ShapeCell("p", s, b, "prefill"), mesh)
+        before = (flash_attention_cuda.launches, ssd_cuda.launches)
+        got = prefill(place_tree(params, pspecs, mesh), {"tokens": tokens})
+        assert (flash_attention_cuda.launches - before[0],
+                ssd_cuda.launches - before[1]) == (
+            cfg.n_layers // cfg.attn_every, cfg.n_layers)
+        want = prefill_fn(cfg, params, tokens=tokens)
+        assert torch.equal(got, want)
+
+        decode, (_, dspecs), (_, bspecs) = build_decode_step(
+            cfg, ShapeCell("d", max_len, b, "decode"), mesh)
+        placed = place_tree(params, dspecs, mesh)
+        ref = init_cache(cfg, b, max_len, device=cuda)
+        fresh = init_cache(cfg, b, max_len, device=cuda)
+        cache = place_tree(fresh, bspecs["cache"], mesh)
+        tok = want[:, -1].argmax(dim=-1, keepdim=True)
+        for i in range(4):
+            w, ref = decode_fn(cfg, params, ref, tok, i)
+            g, cache = decode(placed, cache, tok, i)
+            assert torch.equal(g, w)
+            tok = w[:, -1].argmax(dim=-1, keepdim=True)
+        for a, r, f in zip(tree_leaves(cache), tree_leaves(ref),
+                           tree_leaves(fresh)):
+            assert torch.equal(a.to_local(), r)
+            assert a.to_local().data_ptr() == f.data_ptr()
+
+        batch = make_batch(cfg, cell, seed=0, step=0, device=cuda)
+        runs = []
+        for m in (None, mesh):
+            step_fn, (_, sspecs), _ = build_train_step(cfg, cell, m)
+            state = make_train_state(cfg, 5, device=cuda)
+            if m is not None:
+                state = place_tree(state, sspecs, m)
+            runs.append(step_fn(state, batch))
+        (ref_state, ref_m), (state, metrics) = runs
+        for k, v in ref_m.items():
+            assert torch.equal(metrics[k], v), k
+        for a, r in zip(tree_leaves(state), tree_leaves(ref_state)):
+            assert torch.equal(a.to_local(), r)
+    finally:
+        dist.destroy_process_group()

@@ -33,7 +33,9 @@ def test_the_port_has_modules():
                 "soc/durable.py", "optim/__init__.py", "optim/adamw.py",
                 "optim/adafactor.py", "optim/compress.py", "optim/quant.py",
                 "data/__init__.py", "data/pipeline.py", "launch/__init__.py",
-                "launch/train.py", "runtime/straggler.py", "tree.py"):
+                "launch/train.py", "runtime/straggler.py", "tree.py",
+                "launch/mesh.py", "launch/sharding.py", "launch/serve.py",
+                "launch/pipeline_mode.py", "runtime/local_sgd.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES, mod
 
 

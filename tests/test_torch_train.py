@@ -283,10 +283,40 @@ def test_resume_after_a_failure_is_bitwise(tmp_path):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
 
-def test_a_mesh_is_not_ported():
+def test_a_mesh_is_taken():
+    """``build_train_step`` over a mesh (one gloo rank, in this process)
+    returns repro's spec trees, and its step, given the state placed once
+    by its specs, gives the single-device step's loss, metrics and state
+    bit for bit, written into the placed state's own tensors."""
+    import torch.distributed as dist
+    from repro_torch.launch import make_test_mesh, place_tree, state_pspecs
+    from repro_torch.launch.sharding import P
     _, cfg = _configs("granite-3-2b")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        build_train_step(cfg, ShapeCell("t", *CELL, "train"), object())
+    cell = ShapeCell("t", *CELL, "train")
+    state = make_train_state(cfg, 0, device="cpu")
+    batch = make_batch(cfg, cell, seed=0, step=0, device="cpu")
+    want, want_m = build_train_step(cfg, cell, donate=False)[0](state, batch)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(data=1, model=1, device_type="cpu")
+        fn, (aval, sspecs), (ins, bspecs) = build_train_step(cfg, cell,
+                                                             mesh)
+        assert sspecs == state_pspecs(cfg, aval, mesh)
+        assert bspecs == {"tokens": P("data", None),
+                          "labels": P("data", None)}
+        assert sspecs["params"]["embed"] == P("model", None)
+        got, got_m = fn(place_tree(state, sspecs, mesh), batch)
+        assert sorted(got_m) == sorted(want_m)
+        for k, v in want_m.items():
+            assert torch.equal(got_m[k], v), k
+        leaves = tree_leaves(got)
+        for x, y in zip(leaves, tree_leaves(want)):
+            assert torch.equal(x.full_tensor(), y)
+        assert all(x.to_local().data_ptr() == y.data_ptr()
+                   for x, y in zip(leaves, tree_leaves(state)))
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------
