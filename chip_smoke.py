@@ -185,7 +185,18 @@ Phases, in order; each raises on failure and nothing is caught:
    published widths and 4 layers, ``torch.equal`` to the sequential
    blocks; ``sync_pods_compressed`` with one pod bitwise ``anchor +
    dequantize(quantize(delta))``.  Wall times of both sides and peak
-   memory; a mesh of one rank measures nothing about scaling.
+   memory; a mesh of one rank measures nothing about scaling.  Slice 13,
+   ``dryrun`` (last): ``python -m repro_torch.launch.dryrun`` of
+   zamba2-2.7b ``train_4k`` on the (16, 16) and (2, 16, 16) production
+   meshes of fake ranks, in two subprocesses (each record must be
+   ``ok``; memory, accounting and trace seconds printed); meanwhile the
+   LM phase's prefill and the training phase's AdamW step traced on
+   ``meta`` by ``analyze_step``: traced calls per kernel (K1 by path)
+   equal to the card's launch counts of the same runs (prefill K1 55 on
+   wgmma, K4 9, K5 54; train step K4 9, K5 108), the traced train-step
+   peak within 10 % of ``max_memory_allocated`` over the unsharded
+   mesh-phase steps, and traced flops over the profiled device busy
+   time as TFLOP/s.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
    that their plain times are of a float64-summed GEMM.  A kernel's
@@ -201,8 +212,9 @@ Phases, in order; each raises on failure and nothing is caught:
    slice 7's runs; every kernel's gives ``serving``: its launches in each
    of slice 8's serving runs, ``durability``: in each of slice 9's
    restored runs, ``training``: per train step (K4's and K5's also
-   their backward's time per call and per step), and ``mesh``: in slice
-   12's runs over the one-rank mesh.
+   their backward's time per call and per step), ``mesh``: in slice
+   12's runs over the one-rank mesh, and ``dryrun``: its calls in slice
+   13's traced prefill and train step.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -290,6 +302,7 @@ from repro_torch.runtime import run_with_recovery  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
                                 place_tree)
+from repro_torch.launch.hlo_analysis import analyze_step  # noqa: E402
 from repro_torch.launch.sharding import axes_of, gather_over  # noqa: E402
 from repro_torch.launch.pipeline_mode import (  # noqa: E402
     build_pp_forward, split_stages)
@@ -495,6 +508,12 @@ MESH_MAX_LEN = 64
 MESH_TRAIN_STEPS = 2
 MESH_REPS = 3
 PP_ARCH, PP_LAYERS, PP_MICRO, PP_TOKENS = "granite-3-2b", 4, 4, 1024
+
+#: slice 13, ``dryrun``: the production cell traced in subprocesses, and
+#: the tolerance of the traced train-step peak against the card's
+DRYRUN_SHAPE = "train_4k"
+DRYRUN_TIMEOUT = 600
+DRYRUN_PEAK_TOL = 0.10
 
 
 #: K1's and K3's plain versions sum in float64 and round once to fp32, so a
@@ -2643,7 +2662,8 @@ def phase_lm_profile(card: str, lm: dict) -> dict:
     """Phase 5, slice 4: one prefill and one decode step (after the main
     path's) under ``torch.profiler``: each kernel's device time and
     launches, and the share of the wall time in which any kernel ran.
-    Returns the prefill's ``{kernel: {"count", "device_ms"}}``."""
+    Returns the prefill's ``{kernel: {"count", "device_ms"}}``; each
+    stage's device busy time goes to ``lm["device_busy_ms"]``."""
     from torch.profiler import ProfilerActivity, profile
     cfg, params, tokens = lm["cfg"], lm["params"], lm["tokens"]
     cache = init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=DEVICE)
@@ -2678,6 +2698,7 @@ def phase_lm_profile(card: str, lm: dict) -> dict:
               "device_busy_share": None if busy_ms is None
               else busy_ms / (1e3 * wall), "card": card})
         found[stage] = kernels
+        lm.setdefault("device_busy_ms", {})[stage] = busy_ms
     return found["prefill"]
 
 
@@ -3562,6 +3583,7 @@ def phase_training(card: str, lm: dict) -> dict:
               "card": card}
     emit(result)
     return {"launches_per_step": per_step,
+            "device_busy_ms_per_step": profile["device_busy_ms"],
             "kernel_device_ms_per_step": profile["kernel_device_ms"],
             "backward_device_ms_per_step": profile["backward_device_ms"]}
 
@@ -4015,6 +4037,7 @@ def phase_mesh_training(card: str) -> dict:
         out = {"losses": losses, "grad_norms": norms,
                "step_ms": [1e3 * t for t in secs],
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                "digests": [leaf_digest(t) for t in leaves],
                "samples": [t.reshape(-1)[:4096].cpu() for t in leaves]}
         del state, leaves
@@ -4058,7 +4081,164 @@ def phase_mesh_training(card: str) -> dict:
           f"{ref['step_ms']}, peak memory {got['peak_memory_gb']:.2f} vs "
           f"{ref['peak_memory_gb']:.2f} GB; {MESH_NOTE}; card {card}",
           flush=True)
-    return {"per_step": per_step}
+    return {"per_step": per_step,
+            "unsharded_peak_bytes": ref["peak_memory_bytes"]}
+
+
+def dryrun_cells(out_dir: str) -> list:
+    """``python -m repro_torch.launch.dryrun`` of LM_ARCH at DRYRUN_SHAPE
+    on both production meshes (256 and 512 fake ranks), each started in
+    a process of its own (a process has one default group, and this one
+    has held NCCL groups): their ``Popen`` handles."""
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else []))}
+    return [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         LM_ARCH, "--shape", DRYRUN_SHAPE, "--out", out_dir]
+        + (["--multipod"] if multipod else []),
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for multipod in (False, True)]
+
+
+def phase_dryrun(card: str, lm: dict, training: dict,
+                 mesh_train: dict) -> dict:
+    """Slice 13, ``dryrun``: the dry run on this machine, and its traces
+    against what the card measured on the same configs and inputs.
+
+    1. ``python -m repro_torch.launch.dryrun --arch LM_ARCH --shape
+       DRYRUN_SHAPE``, with and without ``--multipod``, in subprocesses:
+       each record's status must be ``ok``; its memory, accounting and
+       ``trace_s`` are printed.
+    2. Meanwhile, here, LM_ARCH's unsharded prefill (LM_BATCH x LM_PROMPT)
+       and AdamW train step (TRAIN_CELL, donate) traced on ``meta`` by
+       ``analyze_step``: the traced calls per kernel (and K1's by path)
+       must equal the launch counts the card gave the same runs (``lm``,
+       ``training``); the traced train-step peak (the state and batch
+       plus the trace's peak) must be within DRYRUN_PEAK_TOL of the
+       card's ``max_memory_allocated`` over the unsharded mesh-phase
+       steps; traced flops over the profiled device busy time as TFLOP/s.
+    """
+    t_phase = time.perf_counter()
+    cfg = lm["cfg"]
+    out_dir = tempfile.mkdtemp(prefix="dryrun-")
+    procs = dryrun_cells(out_dir)
+    try:
+        params = init_model(cfg, 0, device="meta")
+        tokens = torch.empty((LM_BATCH, LM_PROMPT), dtype=lm["tokens"].dtype,
+                             device="meta")
+        _, pre = analyze_step(prefill_fn, cfg, params, tokens=tokens)
+        want = {k: v for k, v in lm["prefill"]["launches"].items() if v}
+        paths = {p: n for p, n in
+                 lm["prefill"]["tiled_mm_launches_by_path"].items() if n}
+        if pre.kernels != want or pre.kernel_paths.get("tiled_mm") != paths:
+            raise AssertionError(f"dryrun: traced prefill calls "
+                                 f"{pre.kernels} {pre.kernel_paths}, the "
+                                 f"card launched {want}, tiled_mm {paths}")
+        step_fn, (state, _), (batch, _) = build_train_step(cfg, TRAIN_CELL)
+        argument = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(state) + tree_leaves(batch))
+        _, train = analyze_step(step_fn, state, batch)
+        want_train = {k: v for k, v in training["launches_per_step"].items()
+                      if v}
+        if train.kernels != want_train:
+            raise AssertionError(f"dryrun: traced train-step calls "
+                                 f"{train.kernels}, the card launched "
+                                 f"{want_train}")
+        traced_peak = argument + train.peak_bytes
+        card_peak = mesh_train["unsharded_peak_bytes"]
+        ratio = traced_peak / card_peak
+        if not abs(ratio - 1.0) <= DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dryrun: traced train-step peak "
+                                 f"{traced_peak / 1e9:.3f} GB vs the card's "
+                                 f"{card_peak / 1e9:.3f} GB (ratio "
+                                 f"{ratio:.4f}, tolerance "
+                                 f"{DRYRUN_PEAK_TOL})")
+        traces_s = time.perf_counter() - t_phase
+        cells = []
+        for proc in procs:
+            text, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun exited {proc.returncode}: "
+                                     f"{text[-3000:]}")
+        for name in sorted(os.listdir(out_dir)):
+            with open(os.path.join(out_dir, name)) as f:
+                rec = json.load(f)
+            if rec.get("status") != "ok":
+                raise AssertionError(f"dryrun {name}: {rec.get('status')} "
+                                     f"{rec.get('error')}\n"
+                                     f"{rec.get('traceback', '')}")
+            cells.append(rec)
+        if len(cells) != 2:
+            raise AssertionError(f"dryrun: {len(cells)} records, not 2")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    def tflops(flops, busy_ms):
+        return None if not busy_ms else flops / (busy_ms / 1e3) / 1e12
+
+    busy_pre = lm.get("device_busy_ms", {}).get("prefill")
+    busy_train = training.get("device_busy_ms_per_step")
+    result = {
+        "dryrun": LM_ARCH,
+        "production_cells": [
+            {k: rec[k] for k in ("arch", "shape", "mesh", "kind", "memory",
+                                 "hlo_accounting", "kernels", "trace_s")}
+            for rec in cells],
+        "against_the_card": {
+            "prefill": {"requests": LM_BATCH, "prompt": LM_PROMPT,
+                        "traced_calls": pre.kernels,
+                        "traced_tiled_mm_paths": pre.kernel_paths.get(
+                            "tiled_mm"),
+                        "card_launches": want,
+                        "traced_flops": pre.flops,
+                        "traced_hbm_bytes": pre.hbm_bytes,
+                        "device_busy_ms": busy_pre,
+                        "tflops_per_s": tflops(pre.flops, busy_pre)},
+            "train_step": {"cell": dataclasses.asdict(TRAIN_CELL),
+                           "traced_calls": train.kernels,
+                           "card_launches": want_train,
+                           "traced_flops": train.flops,
+                           "traced_hbm_bytes": train.hbm_bytes,
+                           "device_busy_ms": busy_train,
+                           "tflops_per_s": tflops(train.flops, busy_train),
+                           "traced_peak_bytes": traced_peak,
+                           "card_peak_bytes": card_peak,
+                           "peak_ratio": ratio,
+                           "peak_tol": DRYRUN_PEAK_TOL}},
+        "traces_s": traces_s, "phase_s": time.perf_counter() - t_phase,
+        "timer": "host clock; busy times from the LM and training "
+                 "phases' profiled runs",
+        "card": card}
+    emit(result)
+    for rec in cells:
+        mem = rec["memory"]
+        print(f"dryrun: {rec['arch']} {rec['shape']} on {rec['mesh']}: "
+              f"argument {mem['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
+              f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB of 80 per rank, "
+              f"accounting {rec['hlo_accounting']}, kernels "
+              f"{rec['kernels']}, trace {rec['trace_s']} s", flush=True)
+    print(f"dryrun: traced vs card: prefill calls {pre.kernels} = "
+          f"{want}; train step {train.kernels} = {want_train}; train peak "
+          f"{traced_peak / 1e9:.3f} GB traced vs {card_peak / 1e9:.3f} GB "
+          f"max_memory_allocated (ratio {ratio:.4f}); prefill "
+          f"{tflops(pre.flops, busy_pre)} TFLOP/s, train step "
+          f"{tflops(train.flops, busy_train)} TFLOP/s of traced flops over "
+          f"profiled device busy time; card {card}", flush=True)
+    return {"prefill": pre.kernels, "train_per_step": train.kernels}
+
+
+def dryrun_calls(dry: dict, name: str) -> dict:
+    """A kernel's traced calls in slice 13's dryrun phase."""
+    return {"prefill": dry["prefill"].get(name, 0),
+            "train_per_step": dry["train_per_step"].get(name, 0),
+            "per": f"{LM_ARCH} traced on meta by analyze_step: a prefill of "
+                   f"{LM_BATCH} x {LM_PROMPT} and a train step of "
+                   f"{TRAIN_CELL.global_batch} x {TRAIN_CELL.seq_len}"}
 
 
 def mesh_launches(mesh: dict, mesh_train: dict, name: str) -> dict:
@@ -4167,6 +4347,8 @@ def main() -> int:
     # slice 10: the training path, last user of the LM phase's parameters
     training = phase_training(card, lm)
     mesh_train = phase_mesh_training(card)
+    # slice 13: the dry run, and its traces against the card's counts
+    dry = phase_dryrun(card, lm, training, mesh_train)
 
     # phase 6: the kernels line, the card, the result
     on_runtime = (f"one CIFAR_Alex+ forward at {FRAMES} frames through the "
@@ -4202,7 +4384,8 @@ def main() -> int:
                    "serving": serving_launches(serving, name),
                    "durability": durability_launches(durability, name),
                    "training": training_launches(training, name),
-                   "mesh": mesh_launches(mesh, mesh_train, name)}
+                   "mesh": mesh_launches(mesh, mesh_train, name),
+                   "dryrun": dryrun_calls(dry, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -4258,7 +4441,8 @@ def main() -> int:
                     "serving": serving_launches(serving, "qmm"),
                     "durability": durability_launches(durability, "qmm"),
                     "training": training_launches(training, "qmm"),
-                    "mesh": mesh_launches(mesh, mesh_train, "qmm")}})
+                    "mesh": mesh_launches(mesh, mesh_train, "qmm"),
+                    "dryrun": dryrun_calls(dry, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -4285,6 +4469,7 @@ def main() -> int:
                 "serving": serving_launches(serving, name),
                 "durability": durability_launches(durability, name),
                 "mesh": mesh_launches(mesh, mesh_train, name),
+                "dryrun": dryrun_calls(dry, name),
                 "training": {**training_launches(training, name),
                              "profiled": {
                                  **training["kernel_device_ms_per_step"].get(

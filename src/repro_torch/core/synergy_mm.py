@@ -33,6 +33,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from repro_torch.device import ranked_device
 from repro_torch.engines import (CAP_GRAD, Engine, Telemetry,
                                  current_scope_engine, dispatch_gemm)
 from repro_torch.soc.runtime import current_runtime, is_concrete
@@ -172,9 +173,10 @@ def synergy_matmul(a: torch.Tensor, b: torch.Tensor, *,
             tr.record_runtime(js, accounting)
         return y.reshape(*lead, m, n)
 
+    device = ranked_device(a.device)
     eng = dispatch_gemm(js, engine=engine, require=require,
-                        job_class=job_class, device=a.device)
-    est_s = eng.estimate(js, a.device)
+                        job_class=job_class, device=device)
+    est_s = eng.estimate(js, device)
     eng.telemetry.record(js, est_s)
     if tr is not None:
         tr.record_engine(eng.name, js, est_s)

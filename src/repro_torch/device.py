@@ -3,8 +3,9 @@
 from __future__ import annotations
 
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
-__all__ = ["resolve_device", "device_type"]
+__all__ = ["resolve_device", "device_type", "ranked_device"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -27,3 +28,18 @@ def device_type(device) -> str:
     if device is None:
         return "cuda" if torch.cuda.is_available() else "cpu"
     return torch.device(device).type
+
+
+def ranked_device(device) -> torch.device:
+    """The device whose engines rank a GEMM with operands on ``device``:
+    that device, except ``meta`` inside a traced step
+    (:func:`repro_torch.launch.hlo_analysis.analyze_step`), whose GEMMs
+    rank as on the device the step will run on, so that the trace takes
+    the card's kernels.  No decision on a CPU or CUDA tensor changes."""
+    dev = torch.device(device)
+    if dev.type == "meta":
+        for mode in _get_current_dispatch_mode_stack():
+            target = getattr(mode, "stands_for", None)
+            if target is not None:
+                return torch.device(target)
+    return dev

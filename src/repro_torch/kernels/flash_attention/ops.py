@@ -5,10 +5,11 @@
 and ``xla``.
 
 A CPU tensor takes the plain version (:func:`attention_ref`); a CUDA tensor
-launches the kernel or raises.  ``cuda`` is registered as always
-available and routes on the operands' device, so ``"auto"`` resolves to
-it on every machine.  ``flash_attention_cuda.launches`` counts kernel
-launches and nothing else, under the lock the other kernels' counts use.
+launches the kernel or raises; a ``meta`` tensor is traced (nothing
+launched).  ``cuda`` is registered as always available and routes on the
+operands' device, so ``"auto"`` resolves to it on every machine.
+``flash_attention_cuda.launches`` counts kernel launches and nothing
+else, under the lock the other kernels' counts use.
 
 Under autograd ``flash_attention_cuda`` runs through
 :class:`FlashAttentionFunction`: the forward is the kernel (the same bits
@@ -24,7 +25,8 @@ import torch
 
 from repro_torch.engines import register_op_impl, resolve_op
 from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
-                                             count_launch)
+                                             count_launch, misaligned, nbytes,
+                                             report_meta_call)
 
 from .flash_attention import HEAD_DIMS, load_flash_attention
 from .ref import attention_ref
@@ -74,10 +76,12 @@ def check_kernel_shape(b: int, hq: int, s: int, sk: int, d: int) -> None:
 
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    causal: bool, scale: float) -> torch.Tensor:
-    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor,
+    a traced call for a ``meta`` tensor (the output's stand-in; the call
+    reported with :func:`attention_ref`'s dot flops)."""
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, hq, s, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -89,7 +93,12 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: no keys (Sk == 0)")
     # the kernels stage rows by 16-byte copies: a contiguous view that
     # starts elsewhere is copied (same values)
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
+    q, k, v = (t.clone() if misaligned(t) else t for t in (q, k, v))
+    if q.device.type == "meta":
+        # Q·Kᵀ and P·V, each 2·B·Hq·S·Sk·D, over the whole (masked) square
+        report_meta_call("flash_attention", 4.0 * b * hq * s * sk * d,
+                         nbytes(q, k, v, out))
+        return out
     entry = load_flash_attention().flash_attention
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -4,12 +4,15 @@ Call sites go through ``quant_gemm`` / ``QuantizedEngine`` / the runtime's
 int32-partial split rather than importing this directly.
 
 A CPU tensor takes the plain version (:func:`qmm_ref`); a CUDA tensor
-launches the kernel or raises.  Integer accumulation is exact, so the two
-agree bitwise on the raw int32 accumulator.  ``qmm_matmul.launches``
-counts kernel launches and nothing else, under the lock the other kernels'
-counts use; ``qmm_matmul.launches_by_path`` splits them by the kernel's
-path (``async``, ``shift``: :data:`~.qmm.PATHS`), which follows the
-operands' shape and alignment and never changes a bit."""
+launches the kernel or raises; a ``meta`` tensor is traced (the output's
+stand-in, the call reported with the path the card would take,
+:func:`~.qmm.path_rule`, nothing launched).  Integer accumulation is
+exact, so the two agree bitwise on the raw int32 accumulator.
+``qmm_matmul.launches`` counts kernel launches and nothing else, under
+the lock the other kernels' counts use; ``qmm_matmul.launches_by_path``
+splits them by the kernel's path (``async``, ``shift``:
+:data:`~.qmm.PATHS`), which follows the operands' shape and alignment and
+never changes a bit."""
 
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels.common.gemm import (_ACT_CODES, _DTYPE_CODES,
-                                             _INT_MAX, count_launch)
+                                             _INT_MAX, count_launch, nbytes,
+                                             report_meta_call)
 
-from .qmm import PATHS, load_qmm, qmm_path
+from .qmm import PATHS, load_qmm, path_rule, qmm_path
 from .ref import qmm_ref
 
 __all__ = ["qmm_matmul"]
@@ -81,9 +85,8 @@ def qmm_matmul(a_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         return qmm_ref(a_q, w_q, scale if fuse_dequant else w_scale,
                        bias=bias, activation=activation, out_dtype=out_dtype,
                        fuse_dequant=fuse_dequant)
-    if a_q.device.type != "cuda":
+    if a_q.device.type not in ("cuda", "meta"):
         raise ValueError(f"qmm_matmul: no kernel for device {a_q.device}")
-    entry = load_qmm().qmm
     act = 0
     kernel_out = torch.int32
     if fuse_dequant:
@@ -97,18 +100,27 @@ def qmm_matmul(a_q: torch.Tensor, w_q: torch.Tensor, w_scale: torch.Tensor,
         bias = bias.reshape(n).to(torch.float32).contiguous()
     else:
         bias = None
-    with torch.cuda.device(a_q.device):
-        stream = torch.cuda.current_stream(a_q.device).cuda_stream
-        rc = entry(a_q.data_ptr(), w_q.data_ptr(),
-                   None if scale is None else scale.data_ptr(),
-                   None if bias is None else bias.data_ptr(),
-                   out.data_ptr(), m, n, k,
-                   _DTYPE_CODES[kernel_out] if fuse_dequant else _DT_I32,
-                   act or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"qmm_matmul: kernel launch failed with CUDA "
-                           f"error {rc} for m={m} n={n} k={k}")
-    count_launch(qmm_matmul, qmm_path(a_q.data_ptr(), w_q.data_ptr(), n, k))
+    if a_q.device.type == "meta":
+        # no address: each operand's offset into its storage stands for it
+        path = path_rule(a_q.storage_offset() % 16,
+                         w_q.storage_offset() % 16, n, k)
+        report_meta_call("qmm", 2.0 * m * n * k,
+                         nbytes(a_q, w_q, scale, bias, out), path)
+    else:
+        entry = load_qmm().qmm
+        with torch.cuda.device(a_q.device):
+            stream = torch.cuda.current_stream(a_q.device).cuda_stream
+            rc = entry(a_q.data_ptr(), w_q.data_ptr(),
+                       None if scale is None else scale.data_ptr(),
+                       None if bias is None else bias.data_ptr(),
+                       out.data_ptr(), m, n, k,
+                       _DTYPE_CODES[kernel_out] if fuse_dequant else _DT_I32,
+                       act or 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"qmm_matmul: kernel launch failed with CUDA "
+                               f"error {rc} for m={m} n={n} k={k}")
+        count_launch(qmm_matmul,
+                     qmm_path(a_q.data_ptr(), w_q.data_ptr(), n, k))
     if fuse_dequant and act is None:
         out = activation(out).to(out_dtype)
     return out

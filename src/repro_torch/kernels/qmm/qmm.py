@@ -15,7 +15,8 @@ from pathlib import Path
 
 from repro_torch.kernels.common.build import build_library, load_library
 
-__all__ = ["PATHS", "QMM_ARGTYPES", "load_qmm", "qmm_library", "qmm_path"]
+__all__ = ["PATHS", "QMM_ARGTYPES", "load_qmm", "path_rule", "qmm_library",
+           "qmm_path"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "qmm.cu"
 
@@ -55,3 +56,13 @@ def qmm_path(a_ptr: int, w_ptr: int, n: int, k: int) -> str:
 @functools.lru_cache(maxsize=4096)
 def _qmm_path(a_mod: int, w_mod: int, n: int, k: int) -> str:
     return PATHS[load_qmm().qmm_path(a_mod, w_mod, n, k)]
+
+
+def path_rule(a_mod: int, w_mod: int, n: int, k: int) -> str:
+    """``choose_path`` of ``csrc/qmm.cu`` in Python, for a GEMM traced on
+    ``meta``, where no library is loaded: ``async`` when k and n are
+    multiples of 16 and both operands start on 16-byte boundaries (their
+    addresses modulo 16 are ``a_mod`` and ``w_mod``), else ``shift``.
+    The card tests hold it to :func:`qmm_path`."""
+    aligned = k % 16 == 0 and n % 16 == 0 and a_mod == 0 and w_mod == 0
+    return PATHS[0] if aligned else PATHS[1]

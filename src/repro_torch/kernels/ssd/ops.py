@@ -8,9 +8,10 @@ Variants of the ``ssd`` op: ``cuda`` (:func:`ssd_cuda`), ``torch``
 ``repro``'s ``pallas``, ``xla`` and ``ref``.  ``cuda`` is registered as
 always available and routes on the operands' device: a CPU tensor takes
 the plain version (:func:`ssd_chunked`), a CUDA tensor launches the kernel
-or raises.  ``ssd_cuda.launches`` counts calls of the kernel's entry point
-(one per call: its two device kernels, C·Bᵀ and the scan, count once) and
-nothing else, under the lock the other kernels' counts use.
+or raises, a ``meta`` tensor is traced (nothing launched).
+``ssd_cuda.launches`` counts calls of the kernel's entry point (one per
+call: its two device kernels, C·Bᵀ and the scan, count once) and nothing
+else, under the lock the other kernels' counts use.
 
 Under autograd ``ssd_cuda`` runs through :class:`SSDFunction`: the forward
 is the kernel (the same bits as inference), the backward the VJP of
@@ -24,13 +25,14 @@ import torch.nn.functional as F
 
 from repro_torch.engines import register_op_impl, resolve_op
 from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
-                                             count_launch)
+                                             count_launch, nbytes,
+                                             report_meta_call)
 
 from .ref import ssd_ref
 from .ssd import SSD_MAX_CHUNK, SSD_SHAPES, load_ssd
 
 __all__ = ["SSDFunction", "cb_workspace", "check_kernel_shape", "ssd",
-           "ssd_chunked", "ssd_cuda"]
+           "ssd_chunked", "ssd_cuda", "ssd_flops"]
 
 
 def _prescale(x, dt, a):
@@ -134,13 +136,26 @@ def cb_workspace(b: int, l: int, chunk: int,
                        dtype=torch.float32, device=device)
 
 
+def ssd_flops(b: int, h: int, l: int, p: int, n: int, chunk: int) -> float:
+    """The dot flops of :func:`ssd_chunked` (and of ``repro``'s
+    ``ssd_chunked_xla``) per call: each of the L/Q chunks makes C·Bᵀ
+    (2·B·Q²·N), its decayed product with xdt (2·B·H·Q²·P), C against the
+    carried state (2·B·H·Q·P·N) and the state update (2·B·H·P·N·Q)."""
+    q = chunk
+    per_chunk = 2 * b * q * q * n + 2 * b * h * q * q * p \
+        + 4 * b * h * q * p * n
+    return float(per_chunk * (l // q))
+
+
 def _ssd_forward(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
                  cm: torch.Tensor, chunk: int
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor,
+    a traced call for a ``meta`` tensor (the outputs' and the workspace's
+    stand-ins; the call reported with :func:`ssd_flops`)."""
     if xdt.device.type == "cpu":
         return ssd_chunked(xdt, dta, bm, cm, chunk=chunk)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cuda", "meta"):
         raise ValueError(f"ssd: no kernel for device {xdt.device}")
     b, h, l, p = xdt.shape
     n = bm.shape[-1]
@@ -150,6 +165,10 @@ def _ssd_forward(xdt: torch.Tensor, dta: torch.Tensor, bm: torch.Tensor,
     if xdt.numel() == 0:
         return y, state
     cbw = cb_workspace(b, l, chunk, xdt.device)
+    if xdt.device.type == "meta":
+        report_meta_call("ssd", ssd_flops(b, h, l, p, n, chunk),
+                         nbytes(xdt, dta, bm, cm, y, state))
+        return y, state
     entry = load_ssd().ssd
     with torch.cuda.device(xdt.device):
         stream = torch.cuda.current_stream(xdt.device).cuda_stream

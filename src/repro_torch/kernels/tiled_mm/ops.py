@@ -4,9 +4,12 @@ through ``synergy_matmul`` / the engine registry rather than importing this
 directly.
 
 A CPU tensor takes the plain version (:func:`tiled_mm_ref`); a CUDA tensor
-launches the kernel or raises.  ``tiled_matmul.launches`` counts kernel
-launches and nothing else, so a run can show that it went through the
-kernel; ``tiled_matmul.launches_by_path`` splits them by the kernel's path
+launches the kernel or raises; a ``meta`` tensor is traced: the output's
+stand-in, the call reported with the path the card would take
+(:func:`~.tiled_mm.path_rule`), nothing launched.
+``tiled_matmul.launches`` counts kernel launches and nothing else, so a
+run can show that it went through the kernel;
+``tiled_matmul.launches_by_path`` splits them by the kernel's path
 (``ffma``, ``mma``, ``wgmma``: :data:`~.tiled_mm.PATHS`)."""
 
 from __future__ import annotations
@@ -16,10 +19,10 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels.common.gemm import (_DTYPE_CODES, check_gemm,
-                                             launch_gemm)
+                                             launch_gemm, misaligned)
 
 from .ref import tiled_mm_ref
-from .tiled_mm import PATHS, load_tiled_mm, tiled_mm_path
+from .tiled_mm import PATHS, load_tiled_mm, path_rule, tiled_mm_path
 
 __all__ = ["tiled_matmul"]
 
@@ -37,15 +40,16 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return tiled_mm_ref(a, b, bias=bias, activation=activation,
                             out_dtype=out_dtype)
     path = None
-    if a.device.type == "cuda":
-        path = tiled_mm_path(b.shape[1], a.shape[1], _DTYPE_CODES[a.dtype])
+    if a.device.type in ("cuda", "meta"):
+        choose = tiled_mm_path if a.device.type == "cuda" else path_rule
+        path = choose(b.shape[1], a.shape[1], _DTYPE_CODES[a.dtype])
         if path == "wgmma":
             # TMA reads from 16-byte boundaries; a contiguous view that
             # starts elsewhere is copied (same values, same path)
-            a, b = (t if t.data_ptr() % 16 == 0 else t.clone()
-                    for t in (a, b))
+            a, b = (t.clone() if misaligned(t) else t for t in (a, b))
     return launch_gemm(tiled_matmul, lambda: load_tiled_mm().tiled_mm,
-                       a, b, bias, activation, out_dtype, path)
+                       a, b, bias, activation, out_dtype, path,
+                       kernel="tiled_mm")
 
 
 tiled_matmul.launches = 0

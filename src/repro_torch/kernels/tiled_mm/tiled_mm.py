@@ -14,7 +14,8 @@ from pathlib import Path
 
 from repro_torch.kernels.common.build import build_library, load_library
 
-__all__ = ["PATHS", "load_tiled_mm", "tiled_mm_library", "tiled_mm_path"]
+__all__ = ["PATHS", "load_tiled_mm", "path_rule", "tiled_mm_library",
+           "tiled_mm_path"]
 
 _SOURCE = Path(__file__).resolve().parent / "csrc" / "tiled_mm.cu"
 
@@ -42,3 +43,13 @@ def tiled_mm_path(n: int, k: int, dtype_code: int) -> str:
     code): the kernel's own choice, which m never enters (asked once per
     distinct GEMM)."""
     return PATHS[load_tiled_mm().tiled_mm_path(n, k, dtype_code)]
+
+
+def path_rule(n: int, k: int, dtype_code: int) -> str:
+    """``choose_path`` of ``csrc/tiled_mm.cu`` in Python, for a GEMM traced
+    on ``meta``, where no library is loaded: fp32 ``ffma``; bf16 ``wgmma``
+    when k and n are multiples of 8, else ``mma``.  The card tests hold it
+    to :func:`tiled_mm_path`."""
+    if dtype_code == 0:
+        return "ffma"
+    return "wgmma" if k > 0 and k % 8 == 0 and n % 8 == 0 else "mma"

@@ -4,9 +4,10 @@ through ``synergy_matmul`` / the engine registry or a runtime's pool
 rather than importing this directly.
 
 A CPU tensor takes the plain version (:func:`vpu_mm_ref`); a CUDA tensor
-launches the kernel or raises.  ``vpu_matmul.launches`` counts kernel
-launches and nothing else, under the lock that ``tiled_matmul.launches``
-uses too."""
+launches the kernel or raises; a ``meta`` tensor is traced (the output's
+stand-in, the call reported, nothing launched).
+``vpu_matmul.launches`` counts kernel launches and nothing else, under
+the lock that ``tiled_matmul.launches`` uses too."""
 
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ def vpu_matmul(a: torch.Tensor, b: torch.Tensor, *,
         return vpu_mm_ref(a, b, bias=bias, activation=activation,
                           out_dtype=out_dtype)
     return launch_gemm(vpu_matmul, lambda: load_vpu_mm().vpu_mm,
-                       a, b, bias, activation, out_dtype)
+                       a, b, bias, activation, out_dtype, kernel="vpu_mm")
 
 
 vpu_matmul.launches = 0

@@ -1,8 +1,10 @@
 """repro_torch.launch — meshes (:mod:`.mesh`), the sharding rules and
 their DTensor placements (:mod:`.sharding`), the training loop
 (:mod:`.train`), the serving steps (:mod:`.serve`) and the
-pipeline-parallel mode (:mod:`.pipeline_mode`).  ``repro``'s dry run and
-HLO analysis are not ported yet."""
+pipeline-parallel mode (:mod:`.pipeline_mode`), the HLO analysis and its
+counterpart for a traced step (:mod:`.hlo_analysis`), and the dry run
+(:mod:`.dryrun`, run as a process: ``python -m
+repro_torch.launch.dryrun``)."""
 
 from .mesh import MODEL_AXIS, dp_axes, make_production_mesh, make_test_mesh
 from .sharding import (PartitionSpec, cache_pspecs, gather_tree,

@@ -1050,3 +1050,63 @@ def test_one_rank_mesh_on_the_card_is_bitwise_the_unsharded_steps(cuda):
             assert torch.equal(a.to_local(), r)
     finally:
         dist.destroy_process_group()
+
+
+def test_meta_path_rules_are_the_kernels_choices(cuda):
+    """The Python path rules that traced ``meta`` GEMMs report give the
+    compiled kernels' own choices (``tiled_mm_path``, ``qmm_path``)."""
+    from repro_torch.kernels.qmm.qmm import _qmm_path
+    from repro_torch.kernels.qmm.qmm import path_rule as qmm_rule
+    from repro_torch.kernels.tiled_mm.tiled_mm import path_rule, tiled_mm_path
+    sizes = (1, 7, 8, 9, 15, 16, 17, 24, 32, 33, 64, 75, 2560)
+    for n in sizes:
+        for k in sizes:
+            for code in (0, 1):
+                assert path_rule(n, k, code) == tiled_mm_path(n, k, code)
+            for a_mod in (0, 1, 8):
+                for w_mod in (0, 4):
+                    assert qmm_rule(a_mod, w_mod, n, k) == _qmm_path(
+                        a_mod, w_mod, n, k)
+
+
+def test_traced_kernel_calls_are_the_card_launches(cuda):
+    """The reduced zamba2 (4 layers, bf16 compute) prefill and train step
+    traced on ``meta`` (``analyze_step``) call each kernel, on each K1
+    path, as often as the card launches it on the same shapes."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.launch import build_train_step, make_train_state
+    from repro_torch.launch.hlo_analysis import analyze_step
+    cfg = dataclasses.replace(reduced(ARCHS["zamba2-2.7b"], n_layers=4),
+                              compute_dtype="bfloat16")
+    wrappers = {"tiled_mm": tiled_matmul, "vpu_mm": vpu_matmul,
+                "qmm": qmm_matmul, "flash_attention": flash_attention_cuda,
+                "ssd": ssd_cuda}
+
+    def launches(run):
+        before = {k: w.launches for k, w in wrappers.items()}
+        paths = dict(tiled_matmul.launches_by_path)
+        run()
+        torch.cuda.synchronize()
+        got = {k: w.launches - before[k] for k, w in wrappers.items()}
+        return ({k: v for k, v in got.items() if v},
+                {p: n - paths[p] for p, n in
+                 tiled_matmul.launches_by_path.items() if n - paths[p]})
+
+    params = init_model(cfg, 0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda)
+    card, card_paths = launches(lambda: prefill_fn(cfg, params,
+                                                   tokens=tokens))
+    _, acct = analyze_step(prefill_fn, cfg, init_model(cfg, 0,
+                                                       device="meta"),
+                           tokens=tokens.to("meta"))
+    assert acct.kernels == card and card["tiled_mm"] > 0
+    assert acct.kernel_paths == {"tiled_mm": card_paths}
+    cell = ShapeCell("t", 64, 2, "train")
+    step_fn, (aval, _), _ = build_train_step(cfg, cell)
+    state = make_train_state(cfg, 0, device=cuda)
+    batch = make_batch(cfg, cell, 1, 0, device=cuda)
+    card, _ = launches(lambda: step_fn(state, batch))
+    _, acct = analyze_step(step_fn, aval,
+                           {k: v.to("meta") for k, v in batch.items()})
+    assert acct.kernels == card and card["ssd"] > 0

@@ -1,0 +1,332 @@
+"""The port's dry run (``launch/dryrun.py``): one rank of a mesh, traced on
+``meta`` tensors over a fake process group.
+
+* The CLI, in its own process as it must run: ``--list`` prints every
+  (arch, shape) cell; a production cell (mamba2-130m ``train_4k`` on the
+  (16, 16) mesh of 256 fake ranks) writes an ``ok`` record with every key
+  of the port's record; a full-attention arch at ``long_500k`` is skipped
+  with repro's reason.
+* Collectives and memory of reduced archs' steps on fake (2, 2) and
+  (2, 2, 2) meshes (a subprocess: the fake group is process-global), as
+  rank 0: the all-gathers, all-reduces and sends of every step, count
+  and bytes, equal those derived here from the pspec trees alone
+  (``param_pspecs``, ``input_pspecs``, ``cache_pspecs``, ``opt_pspecs``)
+  and the launchers' scheme; ``argument_size_in_bytes`` equals the bytes
+  of the rank's placed shards and input slices.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import textwrap
+import types
+
+import pytest
+import torch
+
+from repro_torch.configs import ARCHS, SHAPES, reduced
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.dryrun import run_cell
+from repro_torch.launch.sharding import (axes_of, input_pspecs,
+                                         param_pspecs, state_pspecs)
+from repro_torch.launch.train import train_state_specs
+from repro_torch.models import input_specs, param_specs
+from repro_torch.models.transformer import decode_rows_independent
+from repro_torch.tree import tree_leaves
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(ROOT, "src")
+ARCH_NAMES = ("granite-3-2b", "dbrx-132b", "mamba2-130m", "zamba2-2.7b")
+KINDS = ("train", "prefill", "decode")
+SEQ, BATCH = 64, 8
+MESHES = {"2x2": ((2, 2), ("data", "model")),
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+PP_MICRO = 3
+PP_SHAPE = (PP_MICRO, 2, 8)          # microbatches, rows, sequence
+
+RECORD_KEYS = {"arch", "shape", "mesh", "kind", "memory", "hlo_accounting",
+               "analyzer_version", "trace_s", "kernels", "status"}
+MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
+               "temp_size_in_bytes", "alias_size_in_bytes",
+               "peak_memory_in_bytes"}
+
+
+def _cli(*args) -> subprocess.CompletedProcess:
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out
+
+
+def test_list_prints_every_cell():
+    lines = _cli("--list").stdout.strip().splitlines()
+    assert len(lines) == 40 == len(ARCHS) * len(SHAPES)
+    assert lines == [f"{a} {s}" for a in ARCHS for s in SHAPES]
+
+
+def test_a_production_cell_writes_an_ok_record(tmp_path):
+    out = _cli("--arch", "mamba2-130m", "--shape", "train_4k", "--out",
+               str(tmp_path))
+    rec = json.loads((tmp_path / "mamba2-130m__train_4k__16x16.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert set(rec) == RECORD_KEYS
+    assert set(rec["memory"]) == MEMORY_KEYS
+    assert set(rec["hlo_accounting"]) == {"flops", "hbm_bytes",
+                                          "bytes_by_type", "count_by_type",
+                                          "total_bytes"}
+    assert (rec["arch"], rec["shape"], rec["mesh"], rec["kind"]) == (
+        "mamba2-130m", "train_4k", "16x16", "train")
+    mem = rec["memory"]
+    assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"] > 0
+    # one rank's shard of the fp32 AdamW state (params, m, v) and its 16
+    # of the 256 rows, 4,096 tokens and labels each
+    cfg = ARCHS["mamba2-130m"]
+    assert mem["argument_size_in_bytes"] >= 16 * 4096 * 2 * 4
+    acct = rec["hlo_accounting"]
+    assert acct["flops"] > 6 * cfg.n_params() * 16 * 4096
+    assert acct["count_by_type"]["all-reduce"] > 0
+    # K5 under autograd with remat: the forward and its recomputation
+    assert rec["kernels"] == {"ssd": 2 * cfg.n_layers}
+    assert rec["trace_s"] > 0
+    assert '"status": "ok"' in out.stdout
+
+
+def test_long_500k_skips_full_attention_archs():
+    rec = run_cell("granite-3-2b", "long_500k", False)
+    reason = ("full-attention arch: long_500k requires sub-quadratic "
+              "attention (DESIGN.md)")
+    assert rec == {"arch": "granite-3-2b", "shape": "long_500k",
+                   "mesh": "16x16", "kind": "decode", "status": "skipped",
+                   "reason": reason}
+    # repro's reason, word for word
+    ref = open(os.path.join(SRC, "repro", "launch", "dryrun.py")).read()
+    assert '"full-attention arch: long_500k requires "\n' in ref
+    assert '"sub-quadratic attention (DESIGN.md)")' in ref
+
+
+# ---------------------------------------------------------------------------
+# collectives and arguments on small fake meshes
+# ---------------------------------------------------------------------------
+
+_TRACE_SCRIPT = """
+import json, math, sys, torch
+import torch.distributed as dist
+from repro_torch.configs import ARCHS, reduced
+from repro_torch.configs.base import ShapeCell
+from repro_torch.launch.dryrun import start_fake_group, trace_cell
+from repro_torch.launch.hlo_analysis import analyze_step
+from repro_torch.launch.mesh import make_test_mesh
+from repro_torch.launch.pipeline_mode import build_pp_forward, split_stages
+from repro_torch.launch.serve import build_decode_step, build_prefill_step
+from repro_torch.launch.sharding import local_shard, place_tree
+from repro_torch.launch.train import build_train_step
+from repro_torch.models import init_model
+from repro_torch.tree import tree_leaves
+
+NAMES, KINDS, SEQ, BATCH, MESHES, PP = json.loads(sys.argv[1])
+
+
+def nbytes(t):
+    return t.numel() * t.element_size()
+
+
+def placed_bytes(cfg, cell, mesh):
+    # the rank's shards as place_tree makes them, and its input slices
+    if cell.kind == "train":
+        _, (aval, specs), (ins, bspecs) = build_train_step(cfg, cell, mesh)
+    elif cell.kind == "prefill":
+        _, (aval, specs), (ins, bspecs) = build_prefill_step(cfg, cell, mesh)
+    else:
+        _, (aval, specs), (ins, bspecs) = build_decode_step(cfg, cell, mesh)
+    total = sum(nbytes(d.to_local())
+                for d in tree_leaves(place_tree(aval, specs, mesh)))
+    for k, v in ins.items():
+        if k == "cache":
+            total += sum(nbytes(d.to_local()) for d in tree_leaves(
+                place_tree(v, bspecs[k], mesh)))
+        else:
+            total += nbytes(local_shard(v, bspecs[k], mesh))
+    return total
+
+
+out = {}
+for key, (shape, names) in MESHES.items():
+    start_fake_group(math.prod(shape))
+    pod = shape[0] if len(shape) == 3 else 0
+    mesh = make_test_mesh(*shape[-2:], pod, device_type="cpu")
+    for name in NAMES:
+        cfg = reduced(ARCHS[name])
+        for kind in KINDS:
+            cell = ShapeCell("c", SEQ, BATCH, kind)
+            rec = trace_cell(cfg, cell, mesh)
+            out[f"{key}/{name}/{kind}"] = {
+                "count": rec["hlo_accounting"]["count_by_type"],
+                "bytes": rec["hlo_accounting"]["bytes_by_type"],
+                "argument": rec["memory"]["argument_size_in_bytes"],
+                "placed": placed_bytes(cfg, cell, mesh)}
+    # a DTensor op: its sharding propagation (fake tensors of the global
+    # shape) is no work of the step; only the local op makes a storage
+    leaf = torch.empty(8, 64, 32, device="meta")
+    from repro_torch.launch.sharding import P
+    placed = place_tree({"w": leaf}, {"w": P("data", None, "model")}, mesh)
+    _, acct = analyze_step(lambda d: d["w"].clone() * 2, placed)
+    out[f"{key}/clone"] = {"peak": acct.peak_bytes, "hbm": acct.hbm_bytes,
+                           "shard": nbytes(placed["w"].to_local())}
+    if len(shape) == 3:
+        # pipeline mode, stages over 'pod': rank 0 is stage 0
+        cfg = reduced(ARCHS[PP[0]])
+        fn, stages = build_pp_forward(cfg, mesh, stage_axis="pod",
+                                      microbatches=PP[1][0])
+        staged = split_stages(init_model(cfg, 0, device="meta"), stages)
+        mbs = torch.empty((*PP[1], cfg.d_model), device="meta",
+                          dtype=cfg.compute_torch_dtype)
+        _, acct = analyze_step(fn, staged, mbs)
+        out[f"{key}/pipeline"] = {"count": acct.coll_count_by_type,
+                                  "bytes": acct.coll_bytes_by_type}
+    dist.destroy_process_group()
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def traced():
+    arg = json.dumps([ARCH_NAMES, KINDS, SEQ, BATCH, MESHES,
+                      ["granite-3-2b", PP_SHAPE]])
+    out = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(_TRACE_SCRIPT), arg],
+        capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": SRC})
+    assert out.returncode == 0, out.stderr[-3000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def _mesh(key):
+    shape, names = MESHES[key]
+    return types.SimpleNamespace(shape=shape, mesh_dim_names=names)
+
+
+def _split(spec, sizes) -> int:
+    return math.prod(sizes[a] for e in spec for a in axes_of(e))
+
+
+class _Expect:
+    """The collectives of one rank's step, derived from the specs: each
+    leaf sharded over k axes is gathered whole by k all-gathers (every
+    axis here has 2 ranks, so the order does not change the bytes), each
+    all-gather's result twice its input; an all-reduce's result is its
+    tensor; a send is the tensor it sends."""
+
+    def __init__(self, sizes):
+        self.sizes = sizes
+        self.count: dict = {}
+        self.bytes: dict = {}
+
+    def add(self, kind, nbytes, times=1):
+        self.count[kind] = self.count.get(kind, 0) + times
+        self.bytes[kind] = self.bytes.get(kind, 0) + nbytes * times
+
+    def gather(self, nbytes, axes):
+        """``nbytes`` on this rank gathered over ``axes``, one by one."""
+        for a in axes:
+            nbytes *= self.sizes[a]
+            self.add("all-gather", nbytes)
+        return nbytes
+
+    def gather_tree(self, tree, specs):
+        for t, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+            shard = t.numel() * t.element_size() // _split(spec, self.sizes)
+            self.gather(shard, [a for e in spec for a in axes_of(e)])
+
+
+def _expected(name, kind, key):
+    mesh = _mesh(key)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    cfg = reduced(ARCHS[name])
+    cell = ShapeCell("c", SEQ, BATCH, kind)
+    ins = input_specs(cfg, cell)
+    bspecs = input_pspecs(cfg, cell, ins, mesh)
+    ex = _Expect(sizes)
+    argument = sum(v.numel() * v.element_size() // _split(bspecs[k], sizes)
+                   for k, v in ins.items() if k != "cache")
+    if kind == "train":
+        aval, _ = train_state_specs(cfg)
+        sspecs = state_pspecs(cfg, aval, mesh)
+        ex.gather_tree(aval["params"], sspecs["params"])
+        axes = axes_of(bspecs["labels"][0])
+        grads = sum(t.numel() * t.element_size()
+                    for t in tree_leaves(aval["params"]))
+        leaves = len(tree_leaves(aval["params"]))
+        # per data-parallel axis: the loss, then every leaf's gradient
+        ex.count["all-reduce"] = len(axes) * (1 + leaves)
+        ex.bytes["all-reduce"] = len(axes) * (4 + grads)
+        if cfg.optimizer == "adafactor":
+            ex.gather_tree(aval["opt"], sspecs["opt"])
+        argument += sum(t.numel() * t.element_size() // _split(s, sizes)
+                        for t, s in zip(tree_leaves(aval),
+                                        tree_leaves(sspecs)))
+        return ex, argument
+    mode = "decode" if kind == "decode" else "train"
+    params = param_specs(cfg)
+    pspecs = param_pspecs(cfg, params, mesh, mode=mode)
+    ex.gather_tree(params, pspecs)
+    argument += sum(t.numel() * t.element_size() // _split(s, sizes)
+                    for t, s in zip(tree_leaves(params),
+                                    tree_leaves(pspecs)))
+    name_in = "tokens" if "tokens" in bspecs else "embeds"
+    axes = axes_of(bspecs[name_in][0])
+    if kind == "decode":
+        split = decode_rows_independent(cfg)
+        axes = axes if split else ()
+        cache, cspecs = ins["cache"], bspecs["cache"]
+        for t, spec in zip(tree_leaves(cache), tree_leaves(cspecs)):
+            shard = t.numel() * t.element_size() // _split(spec, sizes)
+            argument += shard
+            for dim, entry in enumerate(spec):
+                if entry and not (split and dim == 1):
+                    shard = ex.gather(shard, list(axes_of(entry))[::-1])
+    rows = BATCH // math.prod(sizes[a] for a in axes)
+    ex.gather(rows * cfg.padded_vocab * 4, list(axes)[::-1])  # the logits
+    return ex, argument
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", ARCH_NAMES)
+@pytest.mark.parametrize("key", list(MESHES))
+def test_collectives_and_arguments_follow_the_specs(traced, key, name, kind):
+    got = traced[f"{key}/{name}/{kind}"]
+    ex, argument = _expected(name, kind, key)
+    assert got["count"] == ex.count
+    assert got["bytes"] == ex.bytes
+    assert got["argument"] == got["placed"] == argument
+
+
+@pytest.mark.parametrize("key", list(MESHES))
+def test_dtensor_ops_count_their_local_work(traced, key):
+    """A placed leaf's clone, doubled: the peak holds the clone's and the
+    product's local shards, the traffic reads and writes the shard once
+    (the product; a clone is a copy), nothing of the global shape that
+    DTensor's shape inference makes."""
+    got = traced[f"{key}/clone"]
+    assert got["shard"] == 8 * 64 * 32 * 4 // 4
+    assert got["peak"] == 2 * got["shard"]
+    assert got["hbm"] == 2 * got["shard"]
+
+
+def test_pipeline_sends_follow_the_schedule(traced):
+    """Stage 0 of ``build_pp_forward`` on the (2, 2, 2) mesh, stages over
+    'pod': one send of its activation per tick (M + S - 1 ticks), then
+    the outputs gathered over 'pod'."""
+    cfg = reduced(ARCHS["granite-3-2b"])
+    m, rows, seq = PP_SHAPE
+    act = rows * seq * cfg.d_model * torch.empty(
+        (), dtype=cfg.compute_torch_dtype).element_size()
+    ticks = m + 2 - 1
+    got = traced["2x2x2/pipeline"]
+    assert got["count"] == {"collective-permute": ticks, "all-gather": 1}
+    assert got["bytes"] == {"collective-permute": ticks * act,
+                            "all-gather": 2 * m * act}

@@ -35,7 +35,8 @@ def test_the_port_has_modules():
                 "data/__init__.py", "data/pipeline.py", "launch/__init__.py",
                 "launch/train.py", "runtime/straggler.py", "tree.py",
                 "launch/mesh.py", "launch/sharding.py", "launch/serve.py",
-                "launch/pipeline_mode.py", "runtime/local_sgd.py"):
+                "launch/pipeline_mode.py", "runtime/local_sgd.py",
+                "launch/dryrun.py", "launch/hlo_analysis.py"):
         assert ROOT / "src" / "repro_torch" / mod in FILES, mod
 
 
