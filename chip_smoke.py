@@ -196,7 +196,20 @@ Phases, in order; each raises on failure and nothing is caught:
    wgmma, K4 9, K5 54; train step K4 9, K5 108), the traced train-step
    peak within 10 % of ``max_memory_allocated`` over the unsharded
    mesh-phase steps, and traced flops over the profiled device busy
-   time as TFLOP/s.
+   time as TFLOP/s.  Slice 14: in phase 3, K5 at a rank's share of P
+   (every P 4-64 x N 16/64/128 at zamba2's, mamba2-130m's and the
+   reduced prefill shapes) within 2e-5·sqrt(L) of its plain version,
+   every P-column slab ``torch.equal`` the P 64 call's, timed beside
+   ``ssd_bound``; after ``mesh``, ``mesh_tp``: the serving steps
+   partitioned over 'model' by two gloo ranks sharing the card (each a
+   process of its own with a time limit), zamba2-2.7b fp32 at full width
+   and depth, prefill and 8 greedy decode steps (at the LM phase's
+   depth: positions 1,024 on of a 1,057 cache holding a seeded random
+   history) within 1e-4 of the unsharded steps (rank 0 runs them), equal
+   tokens, every rank's cache
+   shards; per rank K5 54 at P 32, K4 9 at 16 heads, K1 55 (ffma); one
+   bf16 layer mixer by mixer; prefill, decode and collective ms and peak
+   memory per rank.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
    that their plain times are of a float64-summed GEMM.  A kernel's
@@ -213,8 +226,10 @@ Phases, in order; each raises on failure and nothing is caught:
    of slice 8's serving runs, ``durability``: in each of slice 9's
    restored runs, ``training``: per train step (K4's and K5's also
    their backward's time per call and per step), ``mesh``: in slice
-   12's runs over the one-rank mesh, and ``dryrun``: its calls in slice
-   13's traced prefill and train step.
+   12's runs over the one-rank mesh, ``mesh_tp``: per rank in slice
+   14's partitioned steps, and ``dryrun``: its calls in slice 13's
+   traced prefill and train step; K5's ``widths``: a row per (P, N)
+   with its time, plain time and bound.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -269,7 +284,10 @@ from repro_torch.kernels.ssd import (load_ssd, ssd, ssd_chunked,  # noqa: E402
                                      ssd_cuda)
 from repro_torch.kernels.ssd.ops import _prescale  # noqa: E402
 from repro_torch.kernels.ssd.ref import ssd_witness  # noqa: E402
-from repro_torch.kernels.ssd.ssd import load_ssd_witness  # noqa: E402
+from repro_torch.kernels.ssd.ssd import (SSD_HEAD_DIMS,  # noqa: E402
+                                         load_ssd_witness)
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.tiled_mm import (PATHS,  # noqa: E402
                                           ffma_chain_ref, load_tiled_mm,
                                           tiled_matmul, tiled_mm_library,
@@ -303,7 +321,8 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
                                 place_tree)
 from repro_torch.launch.hlo_analysis import analyze_step  # noqa: E402
-from repro_torch.launch.sharding import axes_of, gather_over  # noqa: E402
+from repro_torch.launch.sharding import (axes_of,  # noqa: E402
+                                         gather_data_tree, gather_over)
 from repro_torch.launch.pipeline_mode import (  # noqa: E402
     build_pp_forward, split_stages)
 from repro_torch.launch.serve import (build_decode_step,  # noqa: E402
@@ -508,6 +527,27 @@ MESH_MAX_LEN = 64
 MESH_TRAIN_STEPS = 2
 MESH_REPS = 3
 PP_ARCH, PP_LAYERS, PP_MICRO, PP_TOKENS = "granite-3-2b", 4, 4, 1024
+
+#: slice 14: K5 at a rank's share of P.  Each (label, B, L, H, N, chunk)
+#: is the shape one state size N is held at (zamba2's and mamba2-130m's
+#: prefills, the reduced configs'), at every P of SSD_HEAD_DIMS
+SSD_WIDTH_SHAPES = [("zamba2 prefill", 4, 1024, 80, 64, 128),
+                    ("mamba2-130m prefill", 4, 1024, 24, 128, 128),
+                    ("reduced", 2, 96, 8, 16, 16)]
+#: slice 14, ``mesh_tp``: the serving steps partitioned over a 'model' axis
+#: of TP_MODEL gloo ranks sharing the card (NCCL refuses two ranks on one
+#: device), each a process of its own with TP_TIMEOUT seconds; zamba2-2.7b
+#: at full width and depth in fp32, held to the unsharded steps within
+#: TP_TOL of the logits' scale, decoding at the LM phase's depth (a cache
+#: of LM_MAX_LEN, from position LM_PROMPT); the one-layer bf16 check at
+#: BF16_TOL
+TP_MODEL = 2
+TP_DECODE = 8
+TP_TOL = 1e-4
+TP_REPS = 2
+TP_TIMEOUT = 600
+TP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.mesh_tp_rank(int(sys.argv[2]), sys.argv[3])")
 
 #: slice 13, ``dryrun``: the production cell traced in subprocesses, and
 #: the tolerance of the traced train-step peak against the card's
@@ -2209,6 +2249,68 @@ def phase_ssd_witness() -> int:
     return cases
 
 
+def phase_ssd_widths(card: str) -> list:
+    """Phase 3, slice 14, K5 at a rank's share of P: at each shape of
+    SSD_WIDTH_SHAPES (fp32, the prefill's dtype), one call at P = 64, then
+    for every P of SSD_HEAD_DIMS the kernel on the first P columns within
+    2e-5·sqrt(L) of its plain version (``ssd_chunked`` on the same
+    operands), and on every P-column slab equal (``torch.equal``, y and
+    state) to that slab of the P = 64 call (at N = 16 also of a P = 16
+    call); its time (CUDA events, median of REPS) beside the plain
+    version's and ``ssd_bound``.  Returns one row per (P, N)."""
+    g = torch.Generator(device=DEVICE).manual_seed(28)
+    rows = []
+    for label, b, l, h, n, chunk in SSD_WIDTH_SHAPES:
+        x, dt, a, bm, cm = ssd_inputs(g, b, l, h, 64, n, torch.float32)
+        xdt, dta, bm, cm, q = ssd_operands(x, dt, a, bm, cm, chunk)
+        fulls = {64: ssd_cuda(xdt, dta, bm, cm, chunk=q)}
+        if n == 16:
+            fulls[16] = ssd_cuda(xdt[..., :16].contiguous(), dta, bm, cm,
+                                 chunk=q)
+        for p in SSD_HEAD_DIMS:
+            cols = xdt[..., :p].contiguous()
+            y, st = ssd_cuda(cols, dta, bm, cm, chunk=q)
+            ry, rst = ssd_chunked(cols, dta, bm, cm, chunk=q)
+            tol = 2e-5 * math.sqrt(l)
+            err_y, err_s = rel_err(y, ry), rel_err(st, rst)
+            if not (err_y <= tol and err_s <= tol):
+                raise AssertionError(f"ssd P {p} N {n} ({label}): rel_err "
+                                     f"y {err_y:.3g}, state {err_s:.3g} > "
+                                     f"{tol:.3g}")
+            slabs = 0
+            for full, (wy, ws) in fulls.items():
+                for p0 in range(0, full, p) if p < full else ():
+                    sy, ss = ssd_cuda(xdt[..., p0:p0 + p].contiguous(), dta,
+                                      bm, cm, chunk=q)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(sy, wy[..., p0:p0 + p])
+                            and torch.equal(ss, ws[:, :, p0:p0 + p])):
+                        raise AssertionError(
+                            f"ssd P {p} N {n} ({label}): columns "
+                            f"[{p0}, {p0 + p}) of the P = {full} call "
+                            f"differ; y "
+                            f"{first_mismatch(sy, wy[..., p0:p0 + p])}")
+                    slabs += 1
+            ms = median_ms(lambda: ssd_cuda(cols, dta, bm, cm, chunk=q))
+            plain = median_ms(lambda: ssd_chunked(cols, dta, bm, cm,
+                                                  chunk=q), reps=5)
+            b_ms, by = ssd_bound(b, l, h, p, n, 4)
+            rows.append({"p": p, "n": n, "shape": label,
+                         "call": [b, l, h, p, n], "chunk": q,
+                         "rel_err_y": err_y, "rel_err_state": err_s,
+                         "tol": tol, "bitwise_slabs": slabs,
+                         "max_abs_err": (y - ry).abs().max().item(),
+                         "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": by, "library_ms": None})
+            emit({"kernel_width": "ssd", **rows[-1]})
+    print(f"ssd: {len(rows)} widths (P {list(SSD_HEAD_DIMS)} x N 16/64/128) "
+          f"within 2e-5*sqrt(L) of the plain version and bitwise the wide "
+          f"calls' column slabs; ms / bound: "
+          + ", ".join(f"P{r['p']}N{r['n']} {r['ms']:.3f}/{r['bound_ms']:.4f}"
+                      for r in rows) + f"; card {card}", flush=True)
+    return rows
+
+
 def expect_counts(stage: str, want: dict) -> dict:
     """The launch counts since the last reset; raises unless each kernel
     of ``want`` ran exactly that often."""
@@ -2227,6 +2329,16 @@ def expect_paths(stage: str, gemms: int) -> dict:
     if got != {p: gemms * (p == "wgmma") for p in PATHS}:
         raise AssertionError(f"{stage}: tiled_mm launches by path {got}, "
                              f"expected all {gemms} on wgmma")
+    return got
+
+
+def expect_fp32_paths(stage: str, gemms: int) -> dict:
+    """K1's launches by path since the last reset; raises unless all
+    ``gemms`` of them (fp32 GEMMs) took the ffma path."""
+    got = dict(tiled_matmul.launches_by_path)
+    if got != {p: gemms * (p == "ffma") for p in PATHS}:
+        raise AssertionError(f"{stage}: tiled_mm launches by path {got}, "
+                             f"expected all {gemms} on ffma")
     return got
 
 
@@ -3859,7 +3971,8 @@ def phase_mesh(card: str, lm: dict) -> dict:
             "unsharded": lambda: prefill_fn(cfg, params, tokens=tokens),
             "mesh": lambda: prefill(placed, {"tokens": tokens}),
             "place_tree": lambda: place_tree(params, pspecs, mesh),
-            "gather_tree": lambda: gather_tree(placed),
+            "gather_data_tree": lambda: gather_data_tree(placed, pspecs,
+                                                         mesh),
             "gather_logits": lambda: gather_over(want, axes, mesh)}))
         del got, placed
 
@@ -3916,8 +4029,8 @@ def phase_mesh(card: str, lm: dict) -> dict:
         "pipeline": pipeline, "local_sgd": sgd,
         "timer": f"host clock around synchronize; prefill {MESH_REPS} "
                  f"runs of each side and of the mesh's parts alone "
-                 f"(place_tree once before the steps, gather_tree and "
-                 f"gather_logits in each) in turns, decode each step of "
+                 f"(place_tree once before the steps, gather_data_tree "
+                 f"and gather_logits in each) in turns, decode each step of "
                  f"both",
         "phase_s": time.perf_counter() - t_phase, "card": card}
     emit(result)
@@ -3926,7 +4039,8 @@ def phase_mesh(card: str, lm: dict) -> dict:
           f"the mesh vs {prefill_ms['unsharded']['median_ms']:.1f} ms "
           f"unsharded (placing once "
           f"{prefill_ms['place_tree']['median_ms']:.3f} ms, gathering "
-          f"the params {prefill_ms['gather_tree']['median_ms']:.3f} and "
+          f"the params over the data axis "
+          f"{prefill_ms['gather_data_tree']['median_ms']:.3f} and "
           f"the logits {prefill_ms['gather_logits']['median_ms']:.3f} ms "
           f"a step); {MESH_DECODE} decode steps bitwise, cache in place, "
           f"median {decode_ms['mesh']['median_ms']:.1f} vs "
@@ -3935,6 +4049,387 @@ def phase_mesh(card: str, lm: dict) -> dict:
           f"{MESH_NOTE}; card {card}", flush=True)
     return {"prefill": prefill_counts, "decode_per_step": per_step,
             "pipeline": pipeline["launches"]}
+
+
+def shard_of(t: torch.Tensor, spec, model_rank: int) -> torch.Tensor:
+    """``t``'s shard on a (data 1, model TP_MODEL) mesh at 'model' rank
+    ``model_rank`` under ``spec``."""
+    for dim, entry in enumerate(spec):
+        if "model" in axes_of(entry):
+            size = t.shape[dim] // TP_MODEL
+            t = t.narrow(dim, model_rank * size, size)
+    return t
+
+
+class _Recorder:
+    """The widths K5 and K4 are launched at (P; q-heads) while set, by
+    wrapping the kernels' forwards (their launch counts are unchanged:
+    the wrapped functions count)."""
+
+    def __init__(self):
+        self.ssd_p, self.fa_heads = set(), set()
+        self._saved = (ssd_ops._ssd_forward, fa_ops._flash_forward)
+
+    def __enter__(self):
+        ssd_fwd, fa_fwd = self._saved
+
+        def ssd_rec(xdt, *a, **k):
+            self.ssd_p.add(xdt.shape[-1])
+            return ssd_fwd(xdt, *a, **k)
+
+        def fa_rec(q, *a, **k):
+            self.fa_heads.add(q.shape[1])
+            return fa_fwd(q, *a, **k)
+
+        ssd_ops._ssd_forward, fa_ops._flash_forward = ssd_rec, fa_rec
+        return self
+
+    def __exit__(self, *exc):
+        ssd_ops._ssd_forward, fa_ops._flash_forward = self._saved
+
+
+@contextlib.contextmanager
+def timed_collectives(log: dict):
+    """Each all_reduce, all_gather and all_to_all_single timed on the host
+    clock between synchronizes, into ``log``: ms, calls and bytes by
+    type."""
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                            "all_to_all_single")}
+
+    def wrap(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            entry = log.setdefault(name, {"ms": 0.0, "calls": 0, "bytes": 0})
+            entry["ms"] += 1e3 * (time.perf_counter() - t0)
+            entry["calls"] += 1
+            first = a[0]
+            entry["bytes"] += sum(t.numel() * t.element_size() for t in (
+                first if isinstance(first, list) else [first]))
+            return out
+        return run
+
+    for name, fn in saved.items():
+        setattr(dist, name, wrap(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def mesh_tp_rank(rank: int, workdir: str) -> None:
+    """One rank of slice 14's ``mesh_tp`` phase, a process of its own
+    (``TP_CHILD``): a gloo rank of TP_MODEL on card 0, its result written
+    to ``workdir/rank<rank>.json``."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import datetime
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "pg"),
+        rank=rank, world_size=TP_MODEL,
+        timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    try:
+        result = mesh_tp_run(rank, workdir)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def rel_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+def mesh_tp_run(rank: int, workdir: str) -> dict:
+    """The body of one ``mesh_tp`` rank; rank 0 also runs the unsharded
+    steps and holds the results to them (see :func:`phase_mesh_tp`)."""
+    from repro_torch.models import transformer as tf
+    mesh = make_test_mesh(data=1, model=TP_MODEL, device_type=DEVICE)
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], compute_dtype="float32")
+    params = init_model(cfg, 0, device=DEVICE)
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                           device=DEVICE, generator=g)
+    prefill, (_, pspecs), _ = build_prefill_step(
+        cfg, ShapeCell("prefill", LM_PROMPT, LM_BATCH, "prefill"), mesh)
+    decode, (_, dspecs), (_, bspecs) = build_decode_step(
+        cfg, ShapeCell("decode", LM_MAX_LEN, LM_BATCH, "decode"), mesh)
+    if tree_leaves(pspecs) != tree_leaves(dspecs):
+        raise AssertionError("mesh_tp: the prefill and decode specs differ; "
+                             "the parameters are placed once for both")
+    placed = place_tree(params, pspecs, mesh)
+    reference = rank == 0
+    if not reference:
+        del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    per_prefill = {"tiled_mm": cfg.n_layers // cfg.attn_every * 6 + 1,
+                   "flash_attention": cfg.n_layers // cfg.attn_every,
+                   "ssd": cfg.n_layers}
+    per_step = {"tiled_mm": per_prefill["tiled_mm"], "flash_attention": 0,
+                "ssd": 0}
+    out: dict = {"rank": rank}
+
+    # 1. the partitioned prefill: launches, the widths, the logits
+    with _Recorder() as rec:
+        reset_launches()
+        got, s = timed(lambda: prefill(placed, {"tokens": tokens}))
+        launches = expect_counts(f"mesh_tp rank {rank} prefill", per_prefill)
+        paths = expect_fp32_paths(f"mesh_tp rank {rank} prefill",
+                                  per_prefill["tiled_mm"])
+    prefill_s = [s] + [timed(lambda: prefill(placed, {"tokens": tokens}))[1]
+                       for _ in range(TP_REPS)]
+    out["prefill"] = {"launches": launches, "tiled_mm_paths": paths,
+                      "ssd_p": sorted(rec.ssd_p),
+                      "flash_attention_heads": sorted(rec.fa_heads),
+                      "ms": [1e3 * t for t in prefill_s],
+                      "median_ms": 1e3 * statistics.median(prefill_s)}
+    if reference:
+        want = prefill_fn(cfg, params, tokens=tokens)
+        ref_s = [timed(lambda: prefill_fn(cfg, params, tokens=tokens))[1]
+                 for _ in range(TP_REPS)]
+        err = rel_scale_err(got, want)
+        if not err <= TP_TOL:
+            raise AssertionError(f"mesh_tp prefill: logits differ by "
+                                 f"{err:.3g} of their scale > {TP_TOL}")
+        out["prefill"].update(err_of_scale=err, unsharded_ms=[
+            1e3 * t for t in ref_s], unsharded_median_ms=1e3
+            * statistics.median(ref_s))
+    dist.barrier()
+
+    # 2. greedy decode at the LM phase's depth, from a cache whose every
+    # leaf holds a seeded random history (the same on every rank), placed
+    # once: the scores' sum over 'model' runs over LM_PROMPT + 1 ..
+    # LM_PROMPT + TP_DECODE live positions of LM_MAX_LEN
+    gc = torch.Generator(device=DEVICE).manual_seed(15)
+    fresh = tree_map(
+        lambda t: torch.randn(t.shape, generator=gc, device=DEVICE,
+                              dtype=t.dtype),
+        init_cache(cfg, LM_BATCH, LM_MAX_LEN, device=DEVICE))
+    ref_cache = tree_map(torch.clone, fresh) if reference else None
+    cache = place_tree(fresh, bspecs["cache"], mesh)
+    tok = got[:, -1].argmax(dim=-1, keepdim=True)
+    ref_tok = want[:, -1].argmax(dim=-1, keepdim=True) if reference else None
+    steps = {"ms": [], "unsharded_ms": [], "err_of_scale": [], "tokens": []}
+    for i in range(TP_DECODE):
+        if reference and not torch.equal(tok, ref_tok):
+            raise AssertionError(f"mesh_tp decode step {i}: greedy tokens "
+                                 f"{tok.flatten().tolist()} vs unsharded "
+                                 f"{ref_tok.flatten().tolist()}")
+        reset_launches()
+        (lg, cache), s = timed(
+            lambda: decode(placed, cache, tok, LM_PROMPT + i))
+        expect_counts(f"mesh_tp rank {rank} decode step {i}", per_step)
+        steps["ms"].append(1e3 * s)
+        steps["tokens"].append(tok.flatten().tolist())
+        if reference:
+            (w, ref_cache), s_ref = timed(
+                lambda: decode_fn(cfg, params, ref_cache, ref_tok,
+                                  LM_PROMPT + i))
+            err = rel_scale_err(lg, w)
+            if not err <= TP_TOL:
+                raise AssertionError(f"mesh_tp decode step {i}: logits "
+                                     f"differ by {err:.3g} of their scale")
+            steps["unsharded_ms"].append(1e3 * s_ref)
+            steps["err_of_scale"].append(err)
+            ref_tok = w[:, -1].argmax(dim=-1, keepdim=True)
+        dist.barrier()
+        tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+    out["decode"] = {**steps, "launches_per_step": per_step,
+                     "median_ms": statistics.median(steps["ms"])}
+    if reference:
+        out["decode"]["unsharded_median_ms"] = statistics.median(
+            steps["unsharded_ms"])
+
+    # 3. every rank's cache shards against the unsharded cache's slices
+    local = [d.to_local() for d in tree_leaves(cache)]
+    torch.save([t.cpu() for t in local],
+               os.path.join(workdir, f"cache{rank}.pt"))
+    dist.barrier()
+    if reference:
+        worst = 0.0
+        names = leaf_names(ref_cache)
+        specs = tree_leaves(bspecs["cache"])
+        for r in range(TP_MODEL):
+            shards = torch.load(os.path.join(workdir, f"cache{r}.pt"))
+            for name, t, w, sp in zip(names, shards, tree_leaves(ref_cache),
+                                      specs):
+                e = rel_scale_err(t, shard_of(w, sp, r).cpu())
+                if not e <= TP_TOL:
+                    raise AssertionError(f"mesh_tp: rank {r}'s cache shard "
+                                         f"{name} differs by {e:.3g}")
+                worst = max(worst, e)
+        out["cache"] = {"leaves": len(names), "ranks": TP_MODEL,
+                        "worst_err_of_scale": worst}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # 4. the collectives' time: one more prefill and decode step, each
+    # collective timed between synchronizes
+    coll: dict = {"prefill": {}, "decode": {}}
+    with timed_collectives(coll["prefill"]):
+        prefill(placed, {"tokens": tokens})
+    with timed_collectives(coll["decode"]):
+        decode(placed, cache, tok, LM_PROMPT + TP_DECODE)
+    out["collectives"] = coll
+    del placed, cache, fresh, ref_cache
+    if reference:
+        del params
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # 5. one zamba2 layer (a Mamba2 layer, then the shared block) in
+    # bf16, mixer by mixer against the unsharded run: each mixer's input
+    # differs from the unsharded run's by what the mixers before it did
+    cfg16 = dataclasses.replace(ARCHS[LM_ARCH], n_layers=1, attn_every=1)
+    p16 = init_model(cfg16, 1, device=DEVICE)
+    pre16, (_, specs16), _ = build_prefill_step(
+        cfg16, ShapeCell("prefill", LM_PROMPT, LM_BATCH, "prefill"), mesh)
+    placed16 = place_tree(p16, specs16, mesh)
+    mixers = {"mamba": [], "attention": []}
+    tf.mixer_probe = lambda kind, o, rerun: mixers[kind].append(o.clone())
+    try:
+        got16 = pre16(placed16, {"tokens": tokens})
+    finally:
+        tf.mixer_probe = None
+    if reference:
+        ref_mixers = {"mamba": [], "attention": []}
+        tf.mixer_probe = lambda kind, o, rerun: ref_mixers[kind].append(o)
+        try:
+            want16 = prefill_fn(cfg16, p16, tokens=tokens)
+        finally:
+            tf.mixer_probe = None
+        errs = {k: [rel_err(a, b) for a, b in zip(mixers[k], ref_mixers[k])]
+                for k in mixers}
+        errs["logits"] = [rel_err(got16, want16)]
+        worst = max(e for v in errs.values() for e in v)
+        if not worst <= BF16_TOL or any(
+                len(mixers[k]) != len(ref_mixers[k]) for k in mixers):
+            raise AssertionError(f"mesh_tp bf16 layer: rel_err {errs}")
+        out["bf16_layer"] = {"layers": cfg16.n_layers, "rel_err": errs,
+                             "tol": BF16_TOL}
+    dist.barrier()
+    return out
+
+
+def phase_mesh_tp(card: str) -> dict:
+    """Slice 14, ``mesh_tp``: the serving steps partitioned over 'model',
+    by TP_MODEL gloo ranks that share the card (each a process of its own,
+    ``make_test_mesh(data=1, model=TP_MODEL, device_type="cuda")``), on
+    zamba2-2.7b at its published widths and all 54 layers, compute in
+    fp32, made on each rank from seed 0 and placed once:
+
+    1. ``build_prefill_step`` on LM_BATCH x LM_PROMPT tokens: each rank's
+       launches (counts set to 0 just before, read just after) K5 54 at
+       P = 32, K4 9 at 16 q-heads, K1 55; rank 0 holds the logits within
+       TP_TOL of their scale to the unsharded ``prefill_fn`` on the same
+       card.
+    2. ``build_decode_step`` TP_DECODE greedy steps at the LM phase's
+       depth: a cache of LM_MAX_LEN holding a seeded random history,
+       positions LM_PROMPT on (K1 55, K4 0, K5 0 a step): logits within
+       TP_TOL, greedy tokens equal to the unsharded decode's; then every
+       rank's cache shards (``to_local``, written in place) within
+       TP_TOL of their slices of the unsharded cache.
+    3. One more prefill and decode step with each collective timed.
+    4. One zamba2 layer in bf16 (a Mamba2 layer and the shared block),
+       mixer by mixer against the unsharded run at BF16_TOL.
+    Per rank: prefill ms, decode ms a step, ``max_memory_allocated`` and
+    collective ms, beside rank 0's unsharded times.  Fails if a rank
+    fails or outlives TP_TIMEOUT."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="mesh-tp-")
+    logs = [open(os.path.join(workdir, f"log{r}.txt"), "w+")
+            for r in range(TP_MODEL)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", TP_CHILD, str(ROOT), str(r), workdir],
+        cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(TP_MODEL)]
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs if p.poll() is not None):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    if failed:
+        shutil.rmtree(workdir, ignore_errors=True)
+        raise AssertionError("mesh_tp: ranks failed or ran past "
+                             f"{TP_TIMEOUT} s: " + "\n".join(
+                                 f"rank {r} (exit {procs[r].returncode}):\n"
+                                 f"{texts[r][-3000:]}" for r in failed))
+    ranks = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    for res in ranks:
+        pre = res["prefill"]
+        if pre["ssd_p"] != [ARCHS[LM_ARCH].ssm_head_dim // TP_MODEL] or \
+                pre["flash_attention_heads"] != [
+                    ARCHS[LM_ARCH].n_heads // TP_MODEL]:
+            raise AssertionError(f"mesh_tp rank {res['rank']}: K5 at P "
+                                 f"{pre['ssd_p']}, K4 at heads "
+                                 f"{pre['flash_attention_heads']}")
+    result = {"mesh_tp": LM_ARCH, "mesh": f"make_test_mesh(data=1, model="
+              f"{TP_MODEL}): {TP_MODEL} gloo ranks sharing one card",
+              "compute": "float32", "prompt": [LM_BATCH, LM_PROMPT],
+              "decode_steps": TP_DECODE, "max_len": LM_MAX_LEN,
+              "first_pos": LM_PROMPT,
+              "tol": TP_TOL, "ranks": ranks,
+              "timer": f"host clock around synchronize; prefill "
+                       f"{TP_REPS + 1} runs, decode each step; collectives "
+                       f"of one more prefill and decode step, each between "
+                       f"synchronizes",
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    for res in ranks:
+        coll = {k: sum(e["ms"] for e in v.values())
+                for k, v in res["collectives"].items()}
+        r0 = ranks[0]
+        print(f"mesh_tp rank {res['rank']}: {LM_ARCH} fp32 prefill "
+              f"{LM_BATCH} x {LM_PROMPT} median "
+              f"{res['prefill']['median_ms']:.1f} ms (unsharded "
+              f"{r0['prefill']['unsharded_median_ms']:.1f}), decode at "
+              f"positions {LM_PROMPT}.. of {LM_MAX_LEN} "
+              f"{res['decode']['median_ms']:.1f} ms a step (unsharded "
+              f"{r0['decode']['unsharded_median_ms']:.1f}), "
+              f"collectives {coll['prefill']:.1f} ms a prefill and "
+              f"{coll['decode']:.1f} ms a decode step, peak "
+              f"{res['peak_memory_gb']:.2f} GB; launches a prefill "
+              f"{res['prefill']['launches']} (K5 at P "
+              f"{res['prefill']['ssd_p']}, K4 at "
+              f"{res['prefill']['flash_attention_heads']} heads, K1 paths "
+              f"{res['prefill']['tiled_mm_paths']}); card {card}",
+              flush=True)
+    r0 = ranks[0]
+    print(f"mesh_tp: logits within {TP_TOL} of the unsharded step's scale "
+          f"(prefill {r0['prefill']['err_of_scale']:.3g}, decode worst "
+          f"{max(r0['decode']['err_of_scale']):.3g}), greedy tokens equal "
+          f"over {TP_DECODE} steps, {r0['cache']['leaves']} cache leaves "
+          f"of {TP_MODEL} ranks within {r0['cache']['worst_err_of_scale']:.3g}"
+          f"; one bf16 layer, worst rel_err "
+          f"{max(e for v in r0['bf16_layer']['rel_err'].values() for e in v):.3g}"
+          f"; card {card}", flush=True)
+    return {"prefill_per_rank": r0["prefill"]["launches"],
+            "decode_per_step_per_rank": r0["decode"]["launches_per_step"]}
 
 
 def mesh_pipeline() -> dict:
@@ -4254,6 +4749,16 @@ def mesh_launches(mesh: dict, mesh_train: dict, name: str) -> dict:
                     f"a one-rank mesh")}
 
 
+def mesh_tp_launches(mesh_tp: dict, name: str) -> dict:
+    """A kernel's launches on each rank of slice 14's partitioned steps."""
+    return {"prefill_per_rank": mesh_tp["prefill_per_rank"].get(name, 0),
+            "decode_per_step_per_rank":
+                mesh_tp["decode_per_step_per_rank"].get(name, 0),
+            "per": f"{LM_ARCH} fp32, prefill {LM_BATCH} x {LM_PROMPT} and "
+                   f"decode steps, partitioned over {TP_MODEL} gloo ranks "
+                   f"sharing the card"}
+
+
 def training_launches(training: dict, name: str) -> dict:
     return {"launches_per_step": training["launches_per_step"][name],
             "per": f"one {LM_ARCH} train step of "
@@ -4314,6 +4819,7 @@ def main() -> int:
     flash_err = phase_flash_kernel()
     ssd_err = phase_ssd_kernel()
     phase_ssd_witness()
+    ssd_widths = phase_ssd_widths(card)
     backward = phase_kernel_backward(card)
 
     # phase 4: the main paths (fp32, then int8)
@@ -4344,6 +4850,8 @@ def main() -> int:
     lm_profiled = phase_lm_profile(card, lm)
     # slice 12: the launchers over a one-rank mesh, on the LM parameters
     mesh = phase_mesh(card, lm)
+    # slice 14: the serving steps partitioned over two ranks on the card
+    mesh_tp = phase_mesh_tp(card)
     # slice 10: the training path, last user of the LM phase's parameters
     training = phase_training(card, lm)
     mesh_train = phase_mesh_training(card)
@@ -4385,6 +4893,7 @@ def main() -> int:
                    "durability": durability_launches(durability, name),
                    "training": training_launches(training, name),
                    "mesh": mesh_launches(mesh, mesh_train, name),
+                   "mesh_tp": mesh_tp_launches(mesh_tp, name),
                    "dryrun": dryrun_calls(dry, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
@@ -4442,6 +4951,7 @@ def main() -> int:
                     "durability": durability_launches(durability, "qmm"),
                     "training": training_launches(training, "qmm"),
                     "mesh": mesh_launches(mesh, mesh_train, "qmm"),
+                    "mesh_tp": mesh_tp_launches(mesh_tp, "qmm"),
                     "dryrun": dryrun_calls(dry, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
@@ -4469,6 +4979,7 @@ def main() -> int:
                 "serving": serving_launches(serving, name),
                 "durability": durability_launches(durability, name),
                 "mesh": mesh_launches(mesh, mesh_train, name),
+                "mesh_tp": mesh_tp_launches(mesh_tp, name),
                 "dryrun": dryrun_calls(dry, name),
                 "training": {**training_launches(training, name),
                              "profiled": {
@@ -4485,6 +4996,10 @@ def main() -> int:
                                  "device_ms_per_step": training[
                                      "backward_device_ms_per_step"].get(
                                      name)}}}})
+    entries[-1]["widths"] = {
+        "rows": ssd_widths,
+        "per": "one call at a rank's share of P (SSD_WIDTH_SHAPES, fp32): "
+               "CUDA-event median of REPS; bound by ssd_bound"}
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -51,8 +51,17 @@
 // skips only products by the masked zeros), and the two contractions nvcc
 // made there written as fmaf: y = fmaf(exp(seg_i), C S^T, G xdt) and
 // S = fmaf(exp(total), S, sum).  No fast-math flag.  Tensor cores would
-// change the bits (fp32 needs 3xTF32) and are later work.  The reduced
-// configs' P = 16 and N = 16 take one slab of all of P.
+// change the bits (fp32 needs 3xTF32) and are later work.
+//
+// Widths: P in {4, 8, 16, 32, 64} x N in {16, 64, 128}.  P = 64 takes
+// slabs of 32 columns; a smaller P one slab of all of it, which is what a
+// rank of a mesh that splits P over 'model' gets (64 over 2, 4 and 16
+// ranks; the reduced configs' 16 over 2 and 4).  No sum runs over p, and
+// every tile keeps each element's chains, so a call on columns [p0, p1)
+// gives the bits of those columns of the full-P call.  Where a slab is too
+// narrow for the tiles, threads idle: at PS = 4 a warp's y tile is a row
+// a lane on 16 lanes, and where PS N < 256 the state update runs on the
+// first PS N threads.
 //
 // Interface: plain C, bound with ctypes.  The launches go on the caller's
 // stream, allocate nothing and do not synchronise; the function returns
@@ -197,16 +206,20 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
            const T* __restrict__ bm, const T* __restrict__ cm,
            const float* __restrict__ cbw, T* __restrict__ y,
            float* __restrict__ state, int h, int l, int q) {
-  // y: a warp's RB rows x PS columns, YI rows x 4 columns a lane
+  // y: a warp's RB rows x PS columns, YI rows x 4 columns a lane, on
+  // its first YL lanes (16 at PS = 4: a row a lane; the rest idle)
   constexpr int YPG = PS / 4;
-  constexpr int YI = RB * YPG / 32;
-  // the state update: SP p x SN n a thread, p fastest across threads
+  constexpr int YI = RB * YPG >= 32 ? RB * YPG / 32 : 1;
+  constexpr int YL = RB * YPG / YI;
+  // the state update: SP p x SN n a thread, p fastest across threads, on
+  // the first ST threads (all of them unless PS N < THREADS)
   constexpr int SN = PS * N >= 4 * THREADS ? 4 : 1;
-  constexpr int SP = PS * N / (THREADS * SN);
+  constexpr int SP = PS * N >= THREADS ? PS * N / (THREADS * SN) : 1;
+  constexpr int ST = PS * N / (SP * SN);
   constexpr int PG = PS / SP;
-  static_assert(P % PS == 0 && PS % 4 == 0 && N % 4 == 0 && YI >= 1 &&
-                    YI * 32 == RB * YPG && SP >= 1 &&
-                    SP * SN * THREADS == PS * N && PG * (N / SN) == THREADS,
+  static_assert(P % PS == 0 && PS % 4 == 0 && N % 4 == 0 && YL <= 32 &&
+                    YI * YL == RB * YPG && SP >= 1 && ST <= THREADS &&
+                    SP * SN * ST == PS * N && PG * (N / SN) == ST,
                 "tile shape");
   extern __shared__ __align__(16) float smem[];
   float* G = smem;                  // packed rows: CB, then T(CB * decay)
@@ -309,7 +322,7 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
     }
     __syncthreads();                // eseg; G (each warp reads its own)
 
-    if (r0 < q) {
+    if (r0 < q && lane < YL) {
       // ya = G xdt over j (the masked zeros past the row are skipped up
       // to the row block's width), yi = C S_prev^T over n
       float ya[YI][4], yi[YI][4];
@@ -384,42 +397,49 @@ ssd_kernel(const T* __restrict__ xdt, const float* __restrict__ dta,
     __syncthreads();                // w and B
 
     // S = exp(total) S + sum_j w_j^T B_j, the slab tile in registers
-    const float etot = expf(total);
-    float acc[SP][SN];
-#pragma unroll
-    for (int a = 0; a < SP; ++a)
-#pragma unroll
-      for (int e = 0; e < SN; ++e) acc[a][e] = 0.0f;
-#pragma unroll 4
-    for (int j = 0; j < q; ++j) {
-      float wv[SP], bv[SN];
-#pragma unroll
-      for (int a = 0; a < SP; ++a) wv[a] = X[j * PS + sp + a];
-#pragma unroll
-      for (int e = 0; e < SN; ++e) bv[e] = CBs[j * N + sn + e];
+    if (tid < ST) {
+      const float etot = expf(total);
+      float acc[SP][SN];
 #pragma unroll
       for (int a = 0; a < SP; ++a)
 #pragma unroll
-        for (int e = 0; e < SN; ++e) acc[a][e] = fmaf(wv[a], bv[e], acc[a][e]);
+        for (int e = 0; e < SN; ++e) acc[a][e] = 0.0f;
+#pragma unroll 4
+      for (int j = 0; j < q; ++j) {
+        float wv[SP], bv[SN];
+#pragma unroll
+        for (int a = 0; a < SP; ++a) wv[a] = X[j * PS + sp + a];
+#pragma unroll
+        for (int e = 0; e < SN; ++e) bv[e] = CBs[j * N + sn + e];
+#pragma unroll
+        for (int a = 0; a < SP; ++a)
+#pragma unroll
+          for (int e = 0; e < SN; ++e)
+            acc[a][e] = fmaf(wv[a], bv[e], acc[a][e]);
+      }
+#pragma unroll
+      for (int a = 0; a < SP; ++a)
+#pragma unroll
+        for (int e = 0; e < SN; ++e) s[a][e] = fmaf(etot, s[a][e], acc[a][e]);
     }
-#pragma unroll
-    for (int a = 0; a < SP; ++a)
-#pragma unroll
-      for (int e = 0; e < SN; ++e) s[a][e] = fmaf(etot, s[a][e], acc[a][e]);
     __syncthreads();                // w and B read
+    if (tid < ST) {
 #pragma unroll
-    for (int a = 0; a < SP; ++a)
+      for (int a = 0; a < SP; ++a)
 #pragma unroll
-      for (int e = 0; e < SN; ++e) Ss[(sn + e) * PS + sp + a] = s[a][e];
+        for (int e = 0; e < SN; ++e) Ss[(sn + e) * PS + sp + a] = s[a][e];
+    }
     if (c + 1 < nc) stage_xc(c + 1);
     cp_async_commit();
   }
 
-  float* stp = state + (bh * P + p0) * N;
+  if (tid < ST) {
+    float* stp = state + (bh * P + p0) * N;
 #pragma unroll
-  for (int a = 0; a < SP; ++a)
+    for (int a = 0; a < SP; ++a)
 #pragma unroll
-    for (int e = 0; e < SN; ++e) stp[(sp + a) * N + sn + e] = s[a][e];
+      for (int e = 0; e < SN; ++e) stp[(sp + a) * N + sn + e] = s[a][e];
+  }
 }
 
 template <typename T, int P, int N>
@@ -427,8 +447,8 @@ int launch(const void* xdt, const void* dta, const void* bm, const void* cm,
            void* y, void* state, void* cbw, int b, int h, int l, int q,
            cudaStream_t stream) {
   // a P-slab of 32 columns at P = 64 (16 took 1.6x as long at prefill:
-  // scripts/ssd_probe.py --variants slab16), all of P at P = 16
-  constexpr int PS = P == 64 ? 32 : P;
+  // scripts/ssd_probe.py --variants slab16), all of P below
+  constexpr int PS = P > 32 ? 32 : P;
   const int nt = (q + CBT - 1) / CBT;
   const dim3 cb_grid(nt * (nt + 1) / 2 * (l / q), b);
   ssd_cb_kernel<T, N><<<cb_grid, THREADS, 0, stream>>>(
@@ -451,20 +471,40 @@ int launch(const void* xdt, const void* dta, const void* bm, const void* cm,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int P>
+int launch_p(int n, const void* xdt, const void* dta, const void* bm,
+             const void* cm, void* y, void* state, void* cbw, int b, int h,
+             int l, int q, cudaStream_t st) {
+  switch (n) {
+    case 16:
+      return launch<T, P, 16>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
+    case 64:
+      return launch<T, P, 64>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
+    case 128:
+      return launch<T, P, 128>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
+                               st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int launch_n(int p, int n, const void* xdt, const void* dta, const void* bm,
              const void* cm, void* y, void* state, void* cbw, int b, int h,
              int l, int q, cudaStream_t st) {
-  if (p == 16 && n == 16) {
-    return launch<T, 16, 16>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
-  }
-  if (p != 64) return (int)cudaErrorInvalidValue;
-  switch (n) {
+  switch (p) {
+    case 4:
+      return launch_p<T, 4>(n, xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
+    case 8:
+      return launch_p<T, 8>(n, xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
+    case 16:
+      return launch_p<T, 16>(n, xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
+                             st);
+    case 32:
+      return launch_p<T, 32>(n, xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
+                             st);
     case 64:
-      return launch<T, 64, 64>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q, st);
-    case 128:
-      return launch<T, 64, 128>(xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
-                                st);
+      return launch_p<T, 64>(n, xdt, dta, bm, cm, y, state, cbw, b, h, l, q,
+                             st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -474,13 +514,14 @@ int launch_n(int p, int n, const void* xdt, const void* dta, const void* bm,
 // xdt: (b, h, l, p) of dtype; dta: (b, h, l) fp32; bm, cm: (b, l, n) of
 // dtype; y: like xdt; state: (b, h, p, n) fp32; cbw: the fp32 workspace of
 // b (l / q) q^2 floats for C B^T; all contiguous.  l is a multiple of the
-// chunk q (1 <= q <= 128); (p, n) one of (64, 64), (64, 128), (16, 16).
+// chunk q (1 <= q <= 128); p one of 4, 8, 16, 32, 64 and n one of 16,
+// 64, 128.
 extern "C" int ssd(const void* xdt, const void* dta, const void* bm,
                    const void* cm, void* y, void* state, void* cbw, int b,
                    int h, int l, int p, int n, int q, int dtype,
                    void* stream) {
   if (b < 1 || h < 1 || l < 1 || q < 1 || q > QMAX || l % q != 0 ||
-      b > 65535 || (int64_t)h * (p / 16) > 0x7fffffff ||
+      b > 65535 || (int64_t)h * (p > 32 ? p / 32 : 1) > 0x7fffffff ||
       (dtype != DT_F32 && dtype != DT_BF16)) {
     return (int)cudaErrorInvalidValue;
   }

@@ -29,7 +29,8 @@ from repro_torch.kernels.common.gemm import (_DTYPE_CODES, _INT_MAX,
                                              report_meta_call)
 
 from .ref import ssd_ref
-from .ssd import SSD_MAX_CHUNK, SSD_SHAPES, load_ssd
+from .ssd import (SSD_HEAD_DIMS, SSD_MAX_CHUNK, SSD_SHAPES,
+                  SSD_STATE_SIZES, load_ssd)
 
 __all__ = ["SSDFunction", "cb_workspace", "check_kernel_shape", "ssd",
            "ssd_chunked", "ssd_cuda", "ssd_flops"]
@@ -120,9 +121,9 @@ def check_kernel_shape(b: int, h: int, l: int, p: int, n: int,
     :data:`~.ssd.SSD_SHAPES`, a chunk of at most SSD_MAX_CHUNK, B and H
     within the grid."""
     if (p, n) not in SSD_SHAPES or chunk > SSD_MAX_CHUNK:
-        raise ValueError(f"ssd: the kernel takes (P, N) in {SSD_SHAPES} and "
-                         f"chunks up to {SSD_MAX_CHUNK}, got P={p} N={n} "
-                         f"chunk={chunk}")
+        raise ValueError(f"ssd: the kernel takes P in {SSD_HEAD_DIMS}, N in "
+                         f"{SSD_STATE_SIZES} and chunks up to "
+                         f"{SSD_MAX_CHUNK}, got P={p} N={n} chunk={chunk}")
     if b > 65535 or h > _INT_MAX or l > _INT_MAX:
         raise ValueError("ssd: a dimension exceeds the grid")
 

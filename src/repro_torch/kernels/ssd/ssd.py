@@ -18,7 +18,8 @@ from pathlib import Path
 
 from repro_torch.kernels.common.build import load_library
 
-__all__ = ["SSD_ARGTYPES", "SSD_SHAPES", "SSD_MAX_CHUNK",
+__all__ = ["SSD_ARGTYPES", "SSD_HEAD_DIMS", "SSD_MAX_CHUNK", "SSD_SHAPES",
+           "SSD_STATE_SIZES",
            "SSD_WITNESS_ARGTYPES", "load_ssd", "load_ssd_witness"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -32,10 +33,14 @@ SSD_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 SSD_WITNESS_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
                         + [ctypes.c_void_p])
 
-#: the (head dim P, state size N) pairs the kernel is instantiated for:
-#: the zoo's SSM configs (P 64; N 64 zamba2, 128 mamba2-130m) and their
-#: ``reduced()`` versions (P 16, N 16)
-SSD_SHAPES = ((64, 64), (64, 128), (16, 16))
+#: the head dims P the kernel is instantiated for: the zoo's SSM configs'
+#: 64 and their ``reduced()`` versions' 16, whole or as one rank's share
+#: when a mesh splits P over 'model' (2, 4 or 16 ranks)
+SSD_HEAD_DIMS = (4, 8, 16, 32, 64)
+#: the state sizes N: 64 (zamba2), 128 (mamba2-130m), 16 (reduced)
+SSD_STATE_SIZES = (16, 64, 128)
+#: every (P, N) pair the kernel takes
+SSD_SHAPES = tuple((p, n) for p in SSD_HEAD_DIMS for n in SSD_STATE_SIZES)
 SSD_MAX_CHUNK = 128
 
 

@@ -9,7 +9,10 @@ state placed as rank 0's shards, under
 :func:`~repro_torch.launch.hlo_analysis.analyze_step`.  Nothing is
 allocated on any device and nothing is launched; the kernels' wrappers
 report their calls from their ``meta`` routes, and the GEMMs take the
-engines the card would give them.  It runs on any machine, card or not.
+engines the card would give them.  The serving steps compute partitioned
+over 'model', so their in-block all-reduces, all-to-alls and gathers
+are counted as the rank issues them; the train step gathers every leaf
+whole.  It runs on any machine, card or not.
 
 A process has one default process group, and ``main()`` starts the fake
 one in ITS OWN process: never import this module to run it from tests or

@@ -32,13 +32,15 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.models.partition import ModelAxis, all_gather_dim
 from repro_torch.tree import tree_map
 from .mesh import MODEL_AXIS, dp_axes
 
 __all__ = ["PartitionSpec", "param_pspecs", "input_pspecs", "opt_pspecs",
            "state_pspecs", "to_placements", "cache_pspecs", "place_tree",
            "gather_tree", "local_shard", "axes_of", "mean_over",
-           "gather_over"]
+           "gather_over", "model_axis_of", "without_model",
+           "gather_data", "gather_data_tree"]
 
 
 class PartitionSpec(tuple):
@@ -324,10 +326,51 @@ def gather_over(t: torch.Tensor, axes: tuple, mesh,
                 dim: int = 0) -> torch.Tensor:
     """The shards of ``t`` along ``dim`` from every rank of ``axes``
     (``axes[0]`` the major one), concatenated: :func:`local_shard`
-    undone."""
+    undone.  An axis of one rank gathers nothing."""
     for a in reversed(axes):        # the minor axis first
-        group = mesh.get_group(a)
-        parts = [torch.empty_like(t) for _ in range(_axis_size(mesh, a))]
-        dist.all_gather(parts, t.contiguous(), group=group)
-        t = torch.cat(parts, dim)
+        size = _axis_size(mesh, a)
+        if size > 1:
+            t = all_gather_dim(t, dim, size, mesh.get_group(a))
     return t
+
+
+def model_axis_of(mesh) -> ModelAxis:
+    """This rank's 'model' axis of ``mesh``, for :func:`use_model_axis`."""
+    return ModelAxis(mesh.get_group(MODEL_AXIS),
+                     _axis_size(mesh, MODEL_AXIS),
+                     mesh.get_local_rank(MODEL_AXIS))
+
+
+def without_model(spec: P) -> P:
+    """``spec`` with the 'model' axis taken out of every entry: the
+    layout of a leaf gathered over the data axes alone."""
+    def drop(entry):
+        axes = tuple(a for a in axes_of(entry) if a != MODEL_AXIS)
+        if axes and len(axes) != len(axes_of(entry)):
+            raise ValueError(f"{spec}: an entry mixes 'model' with "
+                             f"data axes")
+        return axes
+    return P(*map(drop, spec))
+
+
+def gather_data(t: torch.Tensor, spec: P, mesh,
+                keep: int | None = None) -> torch.Tensor:
+    """``t``, one rank's shard under ``spec``, gathered over the data
+    axes alone, along every dimension but ``keep``: a dimension split over
+    'model' stays this rank's shard."""
+    for dim, entry in enumerate(without_model(spec)):
+        if dim != keep and entry:
+            t = gather_over(t, axes_of(entry), mesh, dim)
+    return t
+
+
+def gather_data_tree(tree, spec_tree, mesh):
+    """:func:`gather_data` of every leaf of a tree of DTensors placed by
+    ``spec_tree``: FSDP's gather for use, the 'model' shards kept.  A
+    plain tensor is refused: the tree was not placed."""
+    def mine(t, spec):
+        if not isinstance(t, DTensor):
+            raise TypeError("gather_data_tree takes a tree placed by "
+                            f"place_tree, given a plain {type(t).__name__}")
+        return gather_data(t.to_local(), spec, mesh)
+    return tree_map(mine, tree, spec_tree)

@@ -25,9 +25,12 @@ averaged).  AdamW then updates each rank's own shards, clipped by the
 global norm of the whole averaged gradient; Adafactor, whose factored
 statistics are means over whole rows and columns, gathers its
 statistics, updates the whole leaves and keeps each rank's shards.
-Partitioned compute over 'model' (Megatron products with collectives
-inside the blocks) is not ported: leaves sharded over 'model' are stored
-sharded and gathered for use.  ``mesh=None`` is the single-device step.
+The train step does not compute partitioned over 'model', as the
+serving steps do (``launch/serve.py``): that needs autograd-aware
+collectives (Megatron's f/g pair), the global norm over sharded
+gradients and Adafactor over sharded rows.  So leaves sharded over
+'model' are stored sharded and gathered for use.  ``mesh=None`` is the
+single-device step.
 """
 
 from __future__ import annotations

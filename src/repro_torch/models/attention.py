@@ -24,10 +24,13 @@ from repro_torch.engines import register_op_impl, resolve_op
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from .layers import init_dense, rope
+from .partition import (all_gather_dim, all_reduce_sum, all_to_all_rows,
+                        model_axis)
 
 __all__ = ["init_attention", "attention", "decode_attention",
            "decode_attend", "decode_project_kv", "flash_attention_torch",
-           "is_scalar_pos", "project_kv"]
+           "from_cache_layout", "is_scalar_pos", "project_kv",
+           "to_cache_layout"]
 
 _NEG = -1e30
 
@@ -147,12 +150,20 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     b, s, _ = x.shape
     src = x if kv_x is None else kv_x
     sk = src.shape[1]
+    # in a mesh step the projections may hold this rank's heads only
+    hq = params["wq"].shape[-1] // head_dim
+    hkv = params["wk"].shape[-1] // head_dim
     q = synergy_matmul(x, params["wq"], name=f"{name}/wq")
     kk = synergy_matmul(src, params["wk"], name=f"{name}/wk")
     vv = synergy_matmul(src, params["wv"], name=f"{name}/wv")
-    q = q.reshape(b, s, n_heads, head_dim).transpose(1, 2)
-    kk = kk.reshape(b, sk, n_kv_heads, head_dim).transpose(1, 2)
-    vv = vv.reshape(b, sk, n_kv_heads, head_dim).transpose(1, 2)
+    q = q.reshape(b, s, hq, head_dim).transpose(1, 2)
+    kk = kk.reshape(b, sk, hkv, head_dim).transpose(1, 2)
+    vv = vv.reshape(b, sk, hkv, head_dim).transpose(1, 2)
+    axis = model_axis()
+    if axis is not None and hq != n_heads and hkv == n_kv_heads:
+        # q-heads split, K/V whole: this rank's q-heads' K/V
+        kk, vv = _kv_for_heads(kk, vv, axis.rank * hq, hq,
+                               n_heads // n_kv_heads)
     if use_rope:
         pos_q = (positions if positions is not None
                  else torch.arange(s, device=x.device))
@@ -164,8 +175,29 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     # result is the same.
     o = _scores_engine(q.contiguous(), kk.contiguous(), vv.contiguous(),
                        causal=causal, impl=impl)
-    o = o.transpose(1, 2).reshape(b, s, n_heads * head_dim)
-    return synergy_matmul(o, params["wo"], name=f"{name}/wo")
+    o = o.transpose(1, 2).reshape(b, s, hq * head_dim)
+    return _row_parallel(synergy_matmul(o, params["wo"], name=f"{name}/wo"),
+                         hq != n_heads)
+
+
+def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, first: int, count: int,
+                  group: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The K/V heads (B, Hkv, S, D) that q-heads ``first`` ..
+    ``first + count - 1`` read (q-head h reads kv head h // group): a
+    slice of whole groups where the q-heads cover whole groups, else one
+    kv head per q-head (``repro`` repeats K/V to the q-heads)."""
+    if first % group == 0 and count % group == 0:
+        lo = first // group
+        return k[:, lo:lo + count // group], v[:, lo:lo + count // group]
+    idx = torch.arange(first, first + count, device=k.device) // group
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
+def _row_parallel(y: torch.Tensor, split: bool) -> torch.Tensor:
+    """A row-parallel output projection's result, summed over 'model'
+    where its rows were split (in a mesh step)."""
+    axis = model_axis()
+    return all_reduce_sum(y, axis.group) if split and axis else y
 
 
 def project_kv(params: dict, src: torch.Tensor, *, n_kv_heads: int,
@@ -173,10 +205,11 @@ def project_kv(params: dict, src: torch.Tensor, *, n_kv_heads: int,
                use_rope: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """K/V projection for cache prefill (encoder output or prompt)."""
     b, sk, _ = src.shape
+    hkv = params["wk"].shape[-1] // head_dim   # this rank's, in a mesh step
     kk = synergy_matmul(src, params["wk"], name="kv/wk")
     vv = synergy_matmul(src, params["wv"], name="kv/wv")
-    kk = kk.reshape(b, sk, n_kv_heads, head_dim).transpose(1, 2)
-    vv = vv.reshape(b, sk, n_kv_heads, head_dim).transpose(1, 2)
+    kk = kk.reshape(b, sk, hkv, head_dim).transpose(1, 2)
+    vv = vv.reshape(b, sk, hkv, head_dim).transpose(1, 2)
     if use_rope:
         kk = rope(kk, torch.arange(sk, device=src.device)[None, None, :],
                   rope_theta)
@@ -216,30 +249,92 @@ def decode_project_kv(params: dict, x: torch.Tensor, pos, *,
     """Project the new token's K/V -> (B, Hkv, 1, hd) each (for in-place
     cache insertion).  ``pos``: scalar or per-slot (B,)."""
     b = x.shape[0]
+    hkv = params["wk"].shape[-1] // head_dim   # this rank's, in a mesh step
     kk = synergy_matmul(x, params["wk"], name="attn/wk")
     vv = synergy_matmul(x, params["wv"], name="attn/wv")
-    kk = kk.reshape(b, 1, n_kv_heads, head_dim).transpose(1, 2)
-    vv = vv.reshape(b, 1, n_kv_heads, head_dim).transpose(1, 2)
+    kk = kk.reshape(b, 1, hkv, head_dim).transpose(1, 2)
+    vv = vv.reshape(b, 1, hkv, head_dim).transpose(1, 2)
     if use_rope:
         kk = rope(kk, _rope_positions(pos, b, x.device), rope_theta)
     return kk, vv
 
 
+# ---------------------------------------------------------------------------
+# decode in a mesh step: the cache split on head_dim over 'model'
+# ---------------------------------------------------------------------------
+
+def to_cache_layout(t: torch.Tensor, heads: int, cache_hd: int
+                    ) -> torch.Tensor:
+    """One token's per-head vectors (B, h, 1, hd) as this rank computed
+    them (its heads, or all ``heads``, at the whole head dim) in the
+    decode cache's layout (``cache_pspecs``): all heads at this rank's
+    ``cache_hd`` slice of the head dim.  An all-to-all where the heads
+    are split too, else a slice; O(B·H·hd) bytes.  Outside a mesh step
+    (nothing split) ``t`` itself."""
+    b, h, one, hd = t.shape
+    if cache_hd == hd and h == heads:
+        return t
+    axis = model_axis()
+    if cache_hd == hd:
+        raise ValueError(f"decode cache layout: heads split ({h} of "
+                         f"{heads}) with the head dim {hd} whole")
+    if h == heads:
+        lo = axis.rank * cache_hd
+        return t[..., lo:lo + cache_hd]
+    parts = t.reshape(b, h, one, axis.size, cache_hd).permute(
+        3, 0, 1, 2, 4)
+    got = all_to_all_rows(parts.contiguous(), [1] * axis.size,
+                          [1] * axis.size, axis.group)
+    return got.permute(1, 0, 2, 3, 4).reshape(b, heads, one, cache_hd)
+
+
+def from_cache_layout(o: torch.Tensor, heads: int, head_dim: int
+                      ) -> torch.Tensor:
+    """:func:`to_cache_layout` undone: (B, H, 1, cache_hd) of every head
+    -> (B, ``heads``, 1, ``head_dim``), this rank's heads (or all) at the
+    whole head dim, the layout the output projection's rows are split
+    by."""
+    b, h, one, cache_hd = o.shape
+    if cache_hd == head_dim and h == heads:
+        return o
+    axis = model_axis()
+    if cache_hd == head_dim:
+        raise ValueError(f"decode cache layout: heads split ({heads} of "
+                         f"{h}) with the head dim {head_dim} whole")
+    if h == heads:
+        return all_gather_dim(o, -1, axis.size, axis.group)
+    parts = o.reshape(b, axis.size, heads, one, cache_hd).permute(
+        1, 0, 2, 3, 4)
+    got = all_to_all_rows(parts.contiguous(), [1] * axis.size,
+                          [1] * axis.size, axis.group)
+    return got.permute(1, 2, 3, 0, 4).reshape(b, heads, one, head_dim)
+
+
 def _attend_cache(q, k_cache, v_cache, valid, *, b, n_heads, n_kv_heads,
                   head_dim, dtype):
-    """softmax over the cache of one query token per row -> (B, 1, Hq*hd)
-    in ``dtype``; products of cache-dtype values, fp32 sums."""
+    """softmax over the cache of one query token per row -> (B, 1, h*hd)
+    in ``dtype``; products of cache-dtype values, fp32 sums.  In a mesh
+    step ``q`` (B, h, 1, hd) holds this rank's heads (or all) at the
+    whole head dim and the caches every head at this rank's slice of the
+    head dim: the scores are partial products over the slice, summed
+    over 'model' (O(B·H·S)) before the softmax; p·v is taken on the
+    slice, and the output moved back to this rank's heads."""
+    hq, cache_hd = q.shape[1], k_cache.shape[-1]
     g = n_heads // n_kv_heads
-    qg = q.reshape(b, n_kv_heads, g, 1, head_dim)
+    qs = to_cache_layout(q, n_heads, cache_hd)
+    qg = qs.reshape(b, n_kv_heads, g, 1, cache_hd)
     f32 = torch.float32
     s = torch.einsum("bhgqd,bhkd->bhgqk", qg.to(k_cache.dtype).to(f32),
-                     k_cache.to(f32)) / math.sqrt(head_dim)
+                     k_cache.to(f32))
+    if cache_hd != head_dim:
+        s = all_reduce_sum(s, model_axis().group)
+    s = s / math.sqrt(head_dim)
     s = torch.where(valid, s, _NEG)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v_cache.dtype).to(f32),
                      v_cache.to(f32))
-    o = o.reshape(b, n_heads, 1, head_dim).transpose(1, 2)
-    return o.reshape(b, 1, n_heads * head_dim).to(dtype)
+    o = from_cache_layout(o.reshape(b, n_heads, 1, cache_hd), hq, head_dim)
+    return o.transpose(1, 2).reshape(b, 1, hq * head_dim).to(dtype)
 
 
 def decode_attend(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
@@ -252,15 +347,17 @@ def decode_attend(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
     slot attends only to its own prefix)."""
     b = x.shape[0]
     s_max = k_cache.shape[2]
+    hq = params["wq"].shape[-1] // head_dim    # this rank's, in a mesh step
     q = synergy_matmul(x, params["wq"], name=f"{name}/wq")
-    q = q.reshape(b, 1, n_heads, head_dim).transpose(1, 2)
+    q = q.reshape(b, 1, hq, head_dim).transpose(1, 2)
     if use_rope:
         q = rope(q, _rope_positions(pos, b, x.device), rope_theta)
     o = _attend_cache(q, k_cache, v_cache,
                       _cache_valid_mask(pos, s_max, x.device), b=b,
                       n_heads=n_heads, n_kv_heads=n_kv_heads,
                       head_dim=head_dim, dtype=x.dtype)
-    return synergy_matmul(o, params["wo"], name=f"{name}/wo")
+    return _row_parallel(synergy_matmul(o, params["wo"], name=f"{name}/wo"),
+                         hq != n_heads)
 
 
 def decode_attention(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
@@ -304,3 +401,4 @@ def decode_attention(params: dict, x: torch.Tensor, k_cache: torch.Tensor,
     o = o.reshape(b, 1, n_heads * head_dim).to(x.dtype)
     return (synergy_matmul(o, params["wo"], name=f"{name}/wo"), k_cache,
             v_cache)
+

@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.synergy_mm import synergy_matmul
+from .partition import all_reduce_sum, glu_regroup, model_axis
 
 __all__ = ["rms_norm", "layer_norm", "rope", "dense", "glu_mlp",
            "init_dense", "init_glu_mlp", "softmax_xent", "normal", "MetaKey"]
@@ -102,11 +103,49 @@ def init_glu_mlp(g: torch.Generator, d_model: int, d_ff: int,
 
 
 def glu_mlp(params: dict, x: torch.Tensor, act: str = "silu",
-            name: str = "mlp") -> torch.Tensor:
-    """SwiGLU (act='silu', llama-style) or GeGLU (act='gelu', gemma-style)."""
+            name: str = "mlp", *, d_ff: int) -> torch.Tensor:
+    """SwiGLU (act='silu', llama-style) or GeGLU (act='gelu', gemma-style).
+
+    In a mesh step ``wi``'s columns and ``wo``'s rows may be this rank's
+    'model' shards of the global ``d_ff``: see
+    :func:`_glu_mlp_partitioned`."""
+    axis = model_axis()
+    if axis is not None and params["wi"].shape[-1] != 2 * d_ff:
+        return _glu_mlp_partitioned(params, x, act, name, d_ff, axis)
     h = dense(x, params["wi"], name=f"{name}/wi")
     gate, up = torch.chunk(h, 2, dim=-1)
     return dense(_ACTS[act](gate) * up, params["wo"], name=f"{name}/wo")
+
+
+def _glu_mlp_partitioned(params: dict, x: torch.Tensor, act: str, name: str,
+                         d_ff: int, axis) -> torch.Tensor:
+    """The GLU MLP with ``wi`` split over 'model' in contiguous column
+    blocks (``repro``'s layout: rank s holds blocks 2s, 2s + 1 of
+    ``[gate | up]``) and ``wo``'s rows split by ``d_ff`` (Megatron's
+    column- then row-parallel pair).  Each rank takes ``gate`` and ``up``
+    for its ``wo`` rows by one all-to-all (:func:`glu_regroup`) of its
+    ``wi`` shard or of the activations it makes, whichever is fewer
+    bytes at this call's token count, and the row-parallel products are
+    summed over 'model'."""
+    wi, wo = params["wi"], params["wo"]
+    if wo.shape[0] == d_ff:
+        raise ValueError(f"GLU MLP layout: wi split over 'model' "
+                         f"({wi.shape[-1]} of {2 * d_ff} columns) with "
+                         f"wo's {d_ff} rows whole")
+    d, width = wi.shape[0], wi.shape[-1] // 2
+    tokens = x.numel() // x.shape[-1]
+    if tokens * x.element_size() < d * wi.element_size():
+        h = dense(x, wi, name=f"{name}/wi")
+        lead = h.shape[:-1]
+        blocks = h.reshape(tokens, 2, width).transpose(0, 1)
+        gate, up = glu_regroup(blocks.contiguous(), axis)
+        gate, up = gate.reshape(*lead, width), up.reshape(*lead, width)
+    else:
+        blocks = wi.reshape(d, 2, width).transpose(0, 1).contiguous()
+        mine = glu_regroup(blocks, axis).transpose(0, 1).reshape(d, 2 * width)
+        gate, up = torch.chunk(dense(x, mine, name=f"{name}/wi"), 2, dim=-1)
+    y = dense(_ACTS[act](gate) * up, wo, name=f"{name}/wo")
+    return all_reduce_sum(y, axis.group)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,

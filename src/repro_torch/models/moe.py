@@ -7,6 +7,11 @@ router score.  All shapes stay static (C = T·k·cf/E) and no sorting
 network is needed.  Token-choice top-k (the dbrx/kimi papers' routing) is
 kept as a small-scale oracle (``moe_ffn_tc``).  Plain torch: no kernel.
 
+In a mesh step the experts are split over 'model' (``w1``/``w2`` hold
+this rank's E/R): every rank routes with the whole router, runs only its
+experts' tokens and sums the partial outputs over 'model' (expert
+parallelism; the tokens are on every rank already).
+
 ``torch.topk`` and ``jax.lax.top_k`` may order tied scores differently;
 ties are improbable on random float router scores, so the two packages
 pick the same tokens in the conformance tests.
@@ -17,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from .layers import _ACTS, init_dense, normal
+from .partition import all_reduce_sum, model_axis
 
 __all__ = ["init_moe", "moe_ffn", "moe_ffn_tc", "ec_capacity"]
 
@@ -55,6 +61,13 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     probs = torch.softmax(logits, dim=-1)                      # (G,T,E)
     gate, idx = torch.topk(probs.transpose(1, 2), c, dim=-1)   # (G,E,C)
 
+    e_mine = params["w1"].shape[0]
+    if e_mine != e:
+        # a mesh step: this rank's experts only (the router is whole, so
+        # every rank made the same choice); their outputs summed below
+        lo = model_axis().rank * e_mine
+        gate, idx = gate[:, lo:lo + e_mine], idx[:, lo:lo + e_mine]
+
     rows = torch.arange(g, device=x.device)[:, None, None]
     xe = x[rows, idx]                                          # (G,E,C,d)
     # products in x's dtype with fp32 sums; the hidden activation is
@@ -71,6 +84,8 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     y = torch.zeros((g * t, d), dtype=o.dtype, device=x.device)
     flat = (idx + rows * t).reshape(-1)
     y.index_add_(0, flat, o.reshape(-1, d))
+    if e_mine != e:
+        y = all_reduce_sum(y, model_axis().group)
     return y.reshape(g, t, d).to(x.dtype)
 
 

@@ -9,6 +9,16 @@ separate structured weights, as in ``repro`` (whose layout serves a 16-way
 tensor-parallel mesh), so parameters carry across key for key.  The
 projection einsums are plain products that ``repro`` also leaves outside
 any Pallas kernel.
+
+In a mesh step P is split over 'model' (``wz``, ``wx``, ``conv_wx``,
+``norm_scale``, ``out_proj``, the ``ssm`` state and ``conv_x`` hold this
+rank's share; ``wbc``, ``wdt``, ``a_log``, ``dt_bias``, ``d_skip`` and the
+B/C conv are whole).  P is a batch dimension of the scan, so the SSD (K5
+at the rank's P) needs nothing from the other ranks.  Two sums cross
+'model': the row-parallel out-projection, and the gated RMSNorm, whose
+mean of squares runs over the whole (H, P), so each rank's sum of squares
+is summed before the ``rsqrt``.  (``repro``'s docstring counts only the
+out-projection: XLA partitions the norm's reduction implicitly.)
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ssd
 from .layers import init_dense, normal
+from .partition import all_reduce_sum, model_axis
 
 __all__ = ["init_mamba2", "mamba2_block", "mamba2_decode_step",
            "init_mamba2_state", "CONV_K"]
@@ -62,12 +73,29 @@ def init_mamba2(g: torch.Generator, d_model: int, d_inner: int,
 
 
 def _gated_rms_hp(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    """RMSNorm over the full (H, P) inner dim of y * silu(z)."""
+                  eps: float, head_dim: int) -> torch.Tensor:
+    """RMSNorm over the full (H, P) inner dim of y * silu(z).  Where y
+    holds this rank's share of P (``head_dim``, the whole P, larger), the
+    sum of squares is summed over 'model' before the mean."""
     dt = y.dtype
     g = y.to(torch.float32) * F.silu(z.to(torch.float32))
-    var = torch.mean(torch.square(g), dim=(-2, -1), keepdim=True)
+    if y.shape[-1] == head_dim:
+        var = torch.mean(torch.square(g), dim=(-2, -1), keepdim=True)
+    else:
+        var = all_reduce_sum(
+            torch.sum(torch.square(g), dim=(-2, -1), keepdim=True),
+            model_axis().group) / (y.shape[-2] * head_dim)
     return (g * torch.rsqrt(var + eps) * scale).to(dt)
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor, head_dim: int,
+              dtype: torch.dtype) -> torch.Tensor:
+    """The out-projection over (H, P), row-parallel: summed over 'model'
+    where y holds this rank's share of P."""
+    out = torch.einsum("blhp,hpd->bld", y, w.to(y.dtype))
+    if y.shape[-1] != head_dim:
+        out = all_reduce_sum(out, model_axis().group)
+    return out.to(dtype)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -110,9 +138,8 @@ def mamba2_block(params: dict, x: torch.Tensor, *, d_inner: int,
     a = -torch.exp(params["a_log"])
     y, _ = ssd(xs, dt, a, bm, cm, chunk=chunk, impl=impl)   # (B,L,H,P)
     y = y + params["d_skip"].to(y.dtype)[None, None, :, None] * xs
-    y = _gated_rms_hp(y, z, params["norm_scale"], eps)
-    return torch.einsum("blhp,hpd->bld", y,
-                        params["out_proj"].to(y.dtype)).to(x.dtype)
+    y = _gated_rms_hp(y, z, params["norm_scale"], eps, head_dim)
+    return _out_proj(y, params["out_proj"], head_dim, x.dtype)
 
 
 def init_mamba2_state(batch: int, d_inner: int, ssm_state: int,
@@ -153,7 +180,6 @@ def mamba2_decode_step(params: dict, x: torch.Tensor, state: dict, *,
     y = torch.einsum("bhpn,bn->bhp", s, cm.to(f32))
     y = y + params["d_skip"][None, :, None] * xs1.to(f32)
     y = _gated_rms_hp(y[:, None].to(x.dtype), z,
-                      params["norm_scale"], eps)                # (B,1,H,P)
-    out = torch.einsum("blhp,hpd->bld", y,
-                       params["out_proj"].to(y.dtype)).to(x.dtype)
+                      params["norm_scale"], eps, head_dim)      # (B,1,H,P)
+    out = _out_proj(y, params["out_proj"], head_dim, x.dtype)
     return out, {"conv_x": win_x[:, 1:], "conv_bc": win_bc[:, 1:], "ssm": s}

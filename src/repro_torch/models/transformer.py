@@ -17,6 +17,13 @@ stacked (L, ...) layout, so weights carry across key for key
 ``torch.inference_mode``; ``decode_step`` writes the caches in place.
 Training rematerializes each scanned block when ``cfg.remat`` is set
 (``torch.utils.checkpoint``, where ``repro`` uses ``jax.checkpoint``).
+
+In a serving step over a mesh (:mod:`repro_torch.models.partition`) the
+parameters and caches are this rank's 'model' shards, and the blocks
+compute partitioned: the embedding and the head on the vocabulary,
+attention on heads (decode on the caches' head-dim slice), the MLP
+column- then row-parallel, MoE on experts, Mamba2 on P; ``decode_step``
+writes the rank's cache shards in place.
 """
 
 from __future__ import annotations
@@ -31,10 +38,12 @@ from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 from .attention import (attention, decode_attend, decode_project_kv,
-                        init_attention, is_scalar_pos, project_kv)
+                        init_attention, is_scalar_pos, project_kv,
+                        to_cache_layout)
 from .layers import (MetaKey, glu_mlp, init_glu_mlp, normal, rms_norm,
                      softmax_xent)
 from .moe import init_moe, moe_ffn
+from .partition import all_gather_dim, all_reduce_sum, model_axis
 from .ssm import (init_mamba2, init_mamba2_state, mamba2_block,
                   mamba2_decode_step)
 
@@ -129,7 +138,7 @@ def _attn_block_fwd(cfg: ArchConfig, p: dict, x: torch.Tensor, *,
         x = x + moe_ffn(p["moe"], h, top_k=cfg.top_k,
                         capacity_factor=cfg.capacity_factor, act=cfg.act)
     else:
-        x = x + glu_mlp(p["mlp"], h, act=cfg.act)
+        x = x + glu_mlp(p["mlp"], h, act=cfg.act, d_ff=cfg.d_ff)
     return x
 
 
@@ -251,15 +260,38 @@ def _encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
 
 
 def _head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The vocabulary head -> fp32 logits.  In a mesh step whose head is
+    split on the vocabulary over 'model', each rank computes its logit
+    columns and they are gathered."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
-    return synergy_matmul(x, w.to(x.dtype), name="lm_head",
-                          out_dtype=torch.float32)
+    logits = synergy_matmul(x, w.to(x.dtype), name="lm_head",
+                            out_dtype=torch.float32)
+    axis = model_axis()
+    if axis is not None and w.shape[-1] != cfg.padded_vocab:
+        logits = all_gather_dim(logits, -1, axis.size, axis.group)
+    return logits
+
+
+def _lookup(cfg: ArchConfig, embed: torch.Tensor,
+            tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``.  In a mesh step whose embedding is split on the
+    vocabulary over 'model', each rank looks up the tokens of its range,
+    zeros the rest, and the rows are summed over 'model'."""
+    axis = model_axis()
+    if axis is None or embed.shape[0] == cfg.padded_vocab:
+        return embed[tokens]
+    rows = embed.shape[0]
+    local = tokens - axis.rank * rows
+    mine = (local >= 0) & (local < rows)
+    found = embed[torch.where(mine, local, 0)]
+    found = torch.where(mine[..., None], found, 0)
+    return all_reduce_sum(found, axis.group)
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens, embeds) -> torch.Tensor:
     if embeds is None:
-        embeds = params["embed"][tokens]
+        embeds = _lookup(cfg, params["embed"], tokens)
     return embeds.to(cfg.compute_torch_dtype)
 
 
@@ -374,6 +406,9 @@ def _decode_attn_block_inplace(cfg, p, x, K, V, l, pos, xk=None, xv=None):
                                n_kv_heads=cfg.n_kv_heads,
                                head_dim=cfg.resolved_head_dim,
                                rope_theta=cfg.rope_theta)
+    # in a mesh step, this rank's slice of the caches' head dim
+    kk = to_cache_layout(kk, cfg.n_kv_heads, K.shape[-1])
+    vv = to_cache_layout(vv, cfg.n_kv_heads, V.shape[-1])
     _write_token_kv(K, V, kk, vv, l, pos)
     x = x + decode_attend(p["attn"], h, K[l], V[l], pos, **kw)
     if xk is not None:
@@ -387,7 +422,7 @@ def _decode_attn_block_inplace(cfg, p, x, K, V, l, pos, xk=None, xv=None):
                     capacity_factor=cfg.capacity_factor, act=cfg.act)
         x = x + y.reshape(b, 1, cfg.d_model)
     else:
-        x = x + glu_mlp(p["mlp"], h, act=cfg.act)
+        x = x + glu_mlp(p["mlp"], h, act=cfg.act, d_ff=cfg.d_ff)
     return x
 
 
@@ -434,7 +469,7 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     if cfg.takes_embeddings and tokens.dim() == 3:
         x = tokens.to(cfg.compute_torch_dtype)
     else:
-        x = params["embed"][tokens].to(cfg.compute_torch_dtype)
+        x = _lookup(cfg, params["embed"], tokens).to(cfg.compute_torch_dtype)
 
     if cfg.family in ("dense", "moe", "vlm"):
         for l in range(cfg.n_layers):

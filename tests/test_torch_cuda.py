@@ -57,6 +57,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.kernels.qmm import qmm_library, qmm_matmul, qmm_ref
 from repro_torch.kernels.ssd import ssd, ssd_cuda
 from repro_torch.kernels.ssd.ref import ssd_witness
+from repro_torch.kernels.ssd.ssd import SSD_SHAPES
 from repro_torch.kernels.tiled_mm import (PATHS, ffma_chain_ref,
                                           tiled_matmul, tiled_mm_library,
                                           tiled_mm_ref)
@@ -631,6 +632,41 @@ def test_ssd_kernel_is_bitwise_the_witness(cuda, case, dtype):
     torch.cuda.synchronize()
     assert ssd_cuda.launches == before + 1
     assert torch.equal(y, wy) and torch.equal(s, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p,n", SSD_SHAPES, ids=lambda v: str(v))
+def test_ssd_kernel_at_a_ranks_share_of_p(cuda, p, n, dtype):
+    """K5 at every width it is built for (P 4-64, N 16/64/128: a rank's
+    share of P when a mesh splits it over 'model'): within 2e-5·sqrt(L)
+    of its plain version, and every P-column slab of a P = 64 call (and
+    of a P = 16 call, the reduced configs', where P < 16) equal bit for
+    bit to the kernel's call on that slab alone."""
+    b, h, l, chunk = 2, 3, 200, 64
+    g = torch.Generator(device=cuda).manual_seed(10 * p + n)
+    x = (_rand(g, b, l, h, p) * 0.5).to(dtype)
+    dt = F.softplus(_rand(g, b, l, h) - 1.0)
+    a = -torch.exp(_rand(g, h) * 0.5)
+    bm = (_rand(g, b, l, n) * 0.3).to(dtype)
+    cm = (_rand(g, b, l, n) * 0.3).to(dtype)
+    before = ssd_cuda.launches
+    y, s = ssd(x, dt, a, bm, cm, chunk=chunk, impl="cuda")
+    torch.cuda.synchronize()
+    assert ssd_cuda.launches == before + 1
+    ry, rs = ssd(x, dt, a, bm, cm, chunk=chunk, impl="torch")
+    tol = 2e-5 * math.sqrt(l) if dtype == torch.float32 else 3e-2
+    assert rel_err(y, ry) <= tol and rel_err(s, rs) <= tol
+    for full in sorted({64, 16} - {p} if p < 16 else {64} - {p}):
+        wide = (_rand(g, b, l, h, full) * 0.5).to(dtype)
+        xdt, dta, bm_, cm_, q = _chip_smoke().ssd_operands(
+            wide, dt, a, bm, cm, chunk)
+        wy, ws = ssd_cuda(xdt, dta, bm_, cm_, chunk=q)
+        for p0 in range(0, full, p):
+            cols = xdt[..., p0:p0 + p].contiguous()
+            sy, ss = ssd_cuda(cols, dta, bm_, cm_, chunk=q)
+            torch.cuda.synchronize()
+            assert torch.equal(sy, wy[..., p0:p0 + p]), (full, p0)
+            assert torch.equal(ss, ws[:, :, p0:p0 + p]), (full, p0)
 
 
 # ------------------------------------------------------ the LM zoo

@@ -8,11 +8,14 @@
   with repro's reason.
 * Collectives and memory of reduced archs' steps on fake (2, 2) and
   (2, 2, 2) meshes (a subprocess: the fake group is process-global), as
-  rank 0: the all-gathers, all-reduces and sends of every step, count
-  and bytes, equal those derived here from the pspec trees alone
-  (``param_pspecs``, ``input_pspecs``, ``cache_pspecs``, ``opt_pspecs``)
-  and the launchers' scheme; ``argument_size_in_bytes`` equals the bytes
-  of the rank's placed shards and input slices.
+  rank 0: the all-gathers, all-reduces, all-to-alls and sends of every
+  step, count and bytes, equal those derived here from the pspec trees
+  alone (``param_pspecs``, ``input_pspecs``, ``cache_pspecs``,
+  ``opt_pspecs``) and the launchers' schemes: the train step gathers
+  every leaf whole; the serving steps gather over the data axes only and
+  compute partitioned over 'model' (``_partitioned_blocks``);
+  ``argument_size_in_bytes`` equals the bytes of the rank's placed shards
+  and input slices.
 """
 
 import json
@@ -237,6 +240,11 @@ class _Expect:
             self.add("all-gather", nbytes)
         return nbytes
 
+    def gather_data(self, nbytes, entry):
+        """:meth:`gather` over an entry's data axes ('model' kept)."""
+        axes = [a for a in axes_of(entry) if a != "model"]
+        return self.gather(nbytes, axes[::-1])
+
     def gather_tree(self, tree, specs):
         for t, spec in zip(tree_leaves(tree), tree_leaves(specs)):
             shard = t.numel() * t.element_size() // _split(spec, self.sizes)
@@ -273,25 +281,96 @@ def _expected(name, kind, key):
     mode = "decode" if kind == "decode" else "train"
     params = param_specs(cfg)
     pspecs = param_pspecs(cfg, params, mesh, mode=mode)
-    ex.gather_tree(params, pspecs)
+    # each leaf gathered over the data axes only; its 'model' shard kept
+    for t, spec in zip(tree_leaves(params), tree_leaves(pspecs)):
+        shard = t.numel() * t.element_size() // _split(spec, sizes)
+        for entry in spec:
+            ex.gather_data(shard, entry)
     argument += sum(t.numel() * t.element_size() // _split(s, sizes)
                     for t, s in zip(tree_leaves(params),
                                     tree_leaves(pspecs)))
     name_in = "tokens" if "tokens" in bspecs else "embeds"
     axes = axes_of(bspecs[name_in][0])
+    rows = BATCH // math.prod(sizes[a] for a in axes)
     if kind == "decode":
         split = decode_rows_independent(cfg)
-        axes = axes if split else ()
         cache, cspecs = ins["cache"], bspecs["cache"]
         for t, spec in zip(tree_leaves(cache), tree_leaves(cspecs)):
             shard = t.numel() * t.element_size() // _split(spec, sizes)
             argument += shard
             for dim, entry in enumerate(spec):
-                if entry and not (split and dim == 1):
-                    shard = ex.gather(shard, list(axes_of(entry))[::-1])
-    rows = BATCH // math.prod(sizes[a] for a in axes)
+                if not (split and dim == 1):
+                    shard = ex.gather_data(shard, entry)
+        if not split:
+            axes, rows = (), BATCH
+    _partitioned_blocks(ex, cfg, kind, sizes["model"], rows)
     ex.gather(rows * cfg.padded_vocab * 4, list(axes)[::-1])  # the logits
     return ex, argument
+
+
+def _partitioned_blocks(ex, cfg, kind, r, rows):
+    """The collectives over 'model' of one partitioned prefill (``rows`` x
+    SEQ tokens) or decode step (``rows`` x 1 against a SEQ-deep cache), on
+    ``r`` ranks: the vocabulary-parallel embedding (an all-reduce of the
+    looked-up rows) and head (an all-gather of the logit columns); per
+    attention block the row-parallel output's all-reduce, and in decode
+    the new token's K/V and q moved to the cache's head-dim slice (an
+    all-to-all each where heads and head dim both split), the partial
+    scores' all-reduce and the output moved back; per GLU MLP one
+    all-to-all of ``wi``'s shard or of its activations (fewer bytes) and
+    the output's all-reduce; per MoE the partial outputs' all-reduce;
+    per Mamba2 mixer the norm's sum of squares and the out-projection
+    summed.  Every tensor here is fp32 (the reduced configs' compute
+    and param dtypes), the K/V cache bf16 (``cache_specs``)."""
+    f32, d, v = 4, cfg.d_model, cfg.padded_vocab
+    tokens = rows * (1 if kind == "decode" else SEQ)
+    if v % r == 0:
+        ex.add("all-reduce", tokens * d * f32)
+        ex.add("all-gather", rows * v * f32)
+    hd = cfg.resolved_head_dim if cfg.n_heads else 0
+
+    def attn():
+        heads = cfg.n_heads % r == 0 and (
+            kind != "decode" or cfg.n_kv_heads % r == 0)
+        if kind == "decode" and hd % r == 0:
+            per_head = rows * hd * f32 // r
+            if heads:           # k, v, q to the slice; o back
+                ex.add("all-to-all", per_head * cfg.n_kv_heads, 2)
+                ex.add("all-to-all", per_head * cfg.n_heads, 2)
+            else:               # o gathered on the head dim
+                ex.add("all-gather", rows * cfg.n_heads * hd * f32)
+            ex.add("all-reduce", rows * cfg.n_heads * SEQ * f32)
+        if heads:
+            ex.add("all-reduce", tokens * d * f32)
+
+    def mlp():
+        if cfg.family == "moe":
+            if cfg.n_experts % r == 0:
+                ex.add("all-reduce", tokens * d * f32)
+            return
+        if (2 * cfg.d_ff) % r == 0 and cfg.d_ff % r == 0:
+            # the activations where they are fewer bytes, else wi
+            ex.add("all-to-all", min(tokens, d) * 2 * cfg.d_ff // r * f32)
+            ex.add("all-reduce", tokens * d * f32)
+
+    def mamba():
+        if cfg.ssm_head_dim % r == 0:
+            ex.add("all-reduce", tokens * f32)          # sum of squares
+            ex.add("all-reduce", tokens * d * f32)      # out-projection
+
+    if cfg.family in ("dense", "moe", "vlm"):
+        for _ in range(cfg.n_layers):
+            attn()
+            mlp()
+    elif cfg.family == "ssm":
+        for _ in range(cfg.n_layers):
+            mamba()
+    elif cfg.family == "hybrid":
+        for layer in range(cfg.n_layers):
+            mamba()
+            if (layer + 1) % cfg.attn_every == 0:
+                attn()
+                mlp()
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -145,7 +145,31 @@ def test_kernel_is_built_for_every_zoo_ssd_shape(p, n, chunk):
     check_kernel_shape(2, 8, 4 * chunk, p, n, chunk)
 
 
-@pytest.mark.parametrize("p,n,chunk", [(16, 64, 16), (64, 16, 16),
+@pytest.mark.parametrize("p", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("n", [16, 64, 128])
+def test_kernel_takes_a_ranks_share_of_p(p, n):
+    """P 64 (16 reduced) split over 2, 4 or 16 'model' ranks: the kernel is
+    built for every such P at every state size of the zoo."""
+    assert (p, n) in SSD_SHAPES
+    check_kernel_shape(4, 80, 1024, p, n, 128)
+
+
+def test_meta_route_at_p4_reports_its_call():
+    """A rank of the production mesh hands K5 P = 64 / 16 = 4 columns: the
+    ``meta`` route (the dry run) takes the call and reports it with its
+    plain formulation's flops."""
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.kernels.ssd.ops import ssd_flops
+    b, h, l, p, n, chunk = 4, 80, 1024, 4, 64, 128
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    (y, st), acct = analyze_step(ssd_cuda, meta(b, h, l, p), meta(b, h, l),
+                                 meta(b, l, n), meta(b, l, n), chunk=chunk)
+    assert y.shape == (b, h, l, p) and st.shape == (b, h, p, n)
+    assert acct.kernels == {"ssd": 1}
+    assert acct.kernel_flops["ssd"] == ssd_flops(b, h, l, p, n, chunk)
+
+
+@pytest.mark.parametrize("p,n,chunk", [(12, 64, 16), (64, 32, 16),
                                        (32, 32, 32), (16, 16, 256),
                                        (128, 128, 64)])
 def test_kernel_shape_check_refuses_other_shapes(p, n, chunk):
