@@ -315,7 +315,8 @@ from repro_torch.launch import (build_train_step,  # noqa: E402
                                 loss_and_grads, make_train_state, train_loop)
 from repro_torch.models import model_flops  # noqa: E402
 from repro_torch.models.attention import flash_attention_torch  # noqa: E402
-from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
+                               cosine_lr)
 from repro_torch.runtime import run_with_recovery  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
@@ -548,6 +549,20 @@ TP_REPS = 2
 TP_TIMEOUT = 600
 TP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
             "chip_smoke.mesh_tp_rank(int(sys.argv[2]), sys.argv[3])")
+
+#: slice 15, ``mesh_tp_train``: the train step partitioned over a 'model'
+#: axis of TP_MODEL gloo ranks sharing the card (each a process of its own
+#: with TP_TIMEOUT seconds), zamba2-2.7b at full width and depth in fp32,
+#: MESH_TRAIN_STEPS AdamW steps of TRAIN_CELL from seed 0, held to the
+#: unsharded steps: the loss within TPT_LOSS_TOL and the grad norm within
+#: TPT_NORM_TOL (relative), the moments within TPT_STATE_TOL of each
+#: leaf's largest entry, the parameters within AdamW's own bound
+#: (:func:`adamw_step_bound`); see :func:`phase_mesh_tp_train`
+TPT_LOSS_TOL = 1e-4
+TPT_NORM_TOL = 1e-3
+TPT_STATE_TOL = 1e-3
+TPT_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+             "chip_smoke.mesh_tp_train_rank(int(sys.argv[2]), sys.argv[3])")
 
 #: slice 13, ``dryrun``: the production cell traced in subprocesses, and
 #: the tolerance of the traced train-step peak against the card's
@@ -4120,10 +4135,56 @@ def timed_collectives(log: dict):
             setattr(dist, name, fn)
 
 
-def mesh_tp_rank(rank: int, workdir: str) -> None:
-    """One rank of slice 14's ``mesh_tp`` phase, a process of its own
-    (``TP_CHILD``): a gloo rank of TP_MODEL on card 0, its result written
-    to ``workdir/rank<rank>.json``."""
+def run_ranks(child: str, label: str) -> list:
+    """TP_MODEL processes (``python3 -c child ROOT rank workdir``), each a
+    gloo rank on card 0; their results (``workdir/rank<r>.json``), in rank
+    order.  Fails, killing every rank, as soon as one fails or TP_TIMEOUT
+    seconds pass."""
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix=f"{label}-")
+    logs = [open(os.path.join(workdir, f"log{r}.txt"), "w+")
+            for r in range(TP_MODEL)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", child, str(ROOT), str(r), workdir],
+        cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(TP_MODEL)]
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode for p in procs if p.poll() is not None):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    texts = []
+    for log in logs:
+        log.seek(0)
+        texts.append(log.read())
+        log.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode]
+    if failed:
+        shutil.rmtree(workdir, ignore_errors=True)
+        raise AssertionError(f"{label}: ranks failed or ran past "
+                             f"{TP_TIMEOUT} s: " + "\n".join(
+                                 f"rank {r} (exit {procs[r].returncode}):\n"
+                                 f"{texts[r][-3000:]}" for r in failed))
+    ranks = []
+    for r in range(TP_MODEL):
+        with open(os.path.join(workdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return ranks
+
+
+def gloo_rank(rank: int, workdir: str, body) -> None:
+    """One rank of a ``run_ranks`` phase: a gloo rank of TP_MODEL on card
+    0 running ``body(rank, workdir)``, its result written to
+    ``workdir/rank<rank>.json``."""
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4133,11 +4194,16 @@ def mesh_tp_rank(rank: int, workdir: str) -> None:
         rank=rank, world_size=TP_MODEL,
         timeout=datetime.timedelta(seconds=TP_TIMEOUT))
     try:
-        result = mesh_tp_run(rank, workdir)
+        result = body(rank, workdir)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
         json.dump(result, f)
+
+
+def mesh_tp_rank(rank: int, workdir: str) -> None:
+    """One rank of slice 14's ``mesh_tp`` phase (``TP_CHILD``)."""
+    gloo_rank(rank, workdir, mesh_tp_run)
 
 
 def rel_scale_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -4342,44 +4408,7 @@ def phase_mesh_tp(card: str) -> dict:
     collective ms, beside rank 0's unsharded times.  Fails if a rank
     fails or outlives TP_TIMEOUT."""
     t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
-    workdir = tempfile.mkdtemp(prefix="mesh-tp-")
-    logs = [open(os.path.join(workdir, f"log{r}.txt"), "w+")
-            for r in range(TP_MODEL)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-c", TP_CHILD, str(ROOT), str(r), workdir],
-        cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
-        for r in range(TP_MODEL)]
-    deadline = time.monotonic() + TP_TIMEOUT
-    try:
-        while any(p.poll() is None for p in procs):
-            if any(p.returncode for p in procs if p.poll() is not None):
-                break
-            if time.monotonic() > deadline:
-                break
-            time.sleep(0.2)
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-            p.wait()
-    texts = []
-    for log in logs:
-        log.seek(0)
-        texts.append(log.read())
-        log.close()
-    failed = [r for r, p in enumerate(procs) if p.returncode]
-    if failed:
-        shutil.rmtree(workdir, ignore_errors=True)
-        raise AssertionError("mesh_tp: ranks failed or ran past "
-                             f"{TP_TIMEOUT} s: " + "\n".join(
-                                 f"rank {r} (exit {procs[r].returncode}):\n"
-                                 f"{texts[r][-3000:]}" for r in failed))
-    ranks = []
-    for r in range(TP_MODEL):
-        with open(os.path.join(workdir, f"rank{r}.json")) as f:
-            ranks.append(json.load(f))
-    shutil.rmtree(workdir, ignore_errors=True)
+    ranks = run_ranks(TP_CHILD, "mesh_tp")
     for res in ranks:
         pre = res["prefill"]
         if pre["ssd_p"] != [ARCHS[LM_ARCH].ssm_head_dim // TP_MODEL] or \
@@ -4430,6 +4459,261 @@ def phase_mesh_tp(card: str) -> dict:
           f"; card {card}", flush=True)
     return {"prefill_per_rank": r0["prefill"]["launches"],
             "decode_per_step_per_rank": r0["decode"]["launches_per_step"]}
+
+
+def adamw_step_bound(opt_cfg, steps: int) -> float:
+    """The most an entry of two AdamW runs from one state can differ after
+    ``steps`` steps when their gradients differ (by rounding, or in sign
+    where an entry's gradient is at rounding level): step t moves an
+    entry by lr_t·(m̂_t/(√v̂_t + ε) + wd·p), and by Cauchy–Schwarz
+    |m̂_t/√v̂_t| <= r_t = √(Σ_k c_k²/d_k)·√(1 - b2^t)/(1 - b1^t) over the
+    weights c_k = (1 - b1)·b1^(t-k) of the gradients in m and d_k =
+    (1 - b2)·b2^(t-k) in v (r_1 = 1), so two moves differ by at most
+    2·lr_t·r_t, and a difference of the parameters by a factor
+    1 + lr_t·wd more."""
+    b1, b2, bound = opt_cfg.b1, opt_cfg.b2, 0.0
+    for t in range(1, steps + 1):
+        lr = float(cosine_lr(opt_cfg, torch.tensor(t, dtype=torch.int32)))
+        r = math.sqrt(sum(((1 - b1) * b1 ** (t - k)) ** 2
+                          / ((1 - b2) * b2 ** (t - k))
+                          for k in range(1, t + 1))
+                      * (1 - b2 ** t)) / (1 - b1 ** t)
+        bound = bound * (1 + lr * opt_cfg.weight_decay) + 2 * lr * r
+    return bound
+
+
+def mesh_tp_train_rank(rank: int, workdir: str) -> None:
+    """One rank of slice 15's ``mesh_tp_train`` phase (``TPT_CHILD``)."""
+    gloo_rank(rank, workdir, mesh_tp_train_run)
+
+
+def mesh_tp_train_run(rank: int, workdir: str) -> dict:
+    """The body of one ``mesh_tp_train`` rank; rank 0 also runs the
+    unsharded steps first and holds the results to them (see
+    :func:`phase_mesh_tp_train`)."""
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], compute_dtype="float32")
+    per_step = train_counts(cfg)
+    batches = list(itertools.islice(
+        synthetic_batches(cfg, TRAIN_CELL, seed=0, device=DEVICE),
+        MESH_TRAIN_STEPS))
+    names = leaf_names(make_train_state(cfg, 0, device="meta"))
+    reference, ref_state = rank == 0, None
+    ref_path = os.path.join(workdir, "unsharded.json")
+    out: dict = {"rank": rank}
+
+    # 1. the unsharded steps, rank 0 alone; the state kept on the host
+    if reference:
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(cfg, 0, device=DEVICE)
+        step_fn = build_train_step(cfg, TRAIN_CELL)[0]
+        ref = {"losses": [], "grad_norms": [], "step_ms": []}
+        for i, batch in enumerate(batches):
+            reset_launches()
+            (state, m), s = timed(lambda: step_fn(state, batch))
+            expect_counts(f"mesh_tp_train unsharded step {i + 1}", per_step)
+            ref["losses"].append(float(m["loss"]))
+            ref["grad_norms"].append(float(m["grad_norm"]))
+            ref["step_ms"].append(1e3 * s)
+        ref["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ref_state = [t.cpu() for t in tree_leaves(state)]
+        del state
+        torch.cuda.empty_cache()
+        with open(ref_path, "w") as f:
+            json.dump(ref, f)
+        out["unsharded"] = ref
+    dist.barrier()
+    with open(ref_path) as f:
+        ref = json.load(f)
+
+    # 2. the partitioned steps; one rank at a time makes the whole state
+    # from the seed and keeps its shards
+    mesh = make_test_mesh(data=1, model=TP_MODEL, device_type=DEVICE)
+    step_fn, (_, sspecs), _ = build_train_step(cfg, TRAIN_CELL, mesh)
+    state = None
+    for r in range(TP_MODEL):
+        if r == rank:
+            state = place_tree(make_train_state(cfg, 0, device=DEVICE),
+                               sspecs, mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    with _Recorder() as rec:
+        for i, batch in enumerate(batches):
+            reset_launches()
+            (state, m), s = timed(lambda: step_fn(state, batch))
+            launches = expect_counts(f"mesh_tp_train rank {rank} step "
+                                     f"{i + 1}", per_step)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(s)
+    out.update(losses=losses, grad_norms=norms,
+               step_ms=[1e3 * t for t in secs],
+               median_ms=1e3 * statistics.median(secs),
+               launches_per_step=launches, ssd_p=sorted(rec.ssd_p),
+               flash_attention_heads=sorted(rec.fa_heads),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+    # 3. the losses and grad norms against the unsharded steps'
+    errs = {"loss": [abs(a - b) / abs(b) for a, b in
+                     zip(losses, ref["losses"])],
+            "grad_norm": [abs(a - b) / abs(b) for a, b in
+                          zip(norms, ref["grad_norms"])]}
+    if not (max(errs["loss"]) <= TPT_LOSS_TOL
+            and max(errs["grad_norm"]) <= TPT_NORM_TOL):
+        raise AssertionError(f"mesh_tp_train rank {rank}: losses {losses} "
+                             f"vs {ref['losses']}, grad norms {norms} vs "
+                             f"{ref['grad_norms']}")
+    out["rel_err"] = errs
+
+    # 4. every rank's shard of every state leaf against the unsharded
+    # state's slice, leaf by leaf: rank 1's shards go to rank 0 (one
+    # all-to-all each), which holds them and its own to the reference
+    bound = adamw_step_bound(AdamWConfig(), MESH_TRAIN_STEPS)
+    worst = {"params": [0.0, None], "moments": [0.0, None]}
+    for j, (name, leaf, spec) in enumerate(zip(
+            names, tree_leaves(state), tree_leaves(sspecs))):
+        local = leaf.to_local()
+        flat = local.contiguous().reshape(-1)
+        n = flat.numel()
+        sizes = [n if (rank == 0 and r > 0) else 0 for r in range(TP_MODEL)]
+        got = flat.new_empty((sum(sizes),))
+        dist.all_to_all_single(
+            got, flat if rank > 0 else flat[:0], sizes,
+            [n if (d == 0 and rank > 0) else 0 for d in range(TP_MODEL)])
+        if not reference:
+            continue
+        want = ref_state[j].to(DEVICE)
+        parts = [local] + list(got.view(TP_MODEL - 1, *local.shape))
+        for r, part in enumerate(parts):
+            w = shard_of(want, spec, r)
+            if name.endswith("step"):
+                ok, err = torch.equal(part, w), 0.0
+            elif name.startswith("/params/"):
+                err = (part.float() - w.float()).abs().max().item()
+                tol = bound + 2 ** -22 * w.float().abs().max().item()
+                ok = err <= tol
+                err = err / tol
+                key = "params"
+            else:
+                err = rel_scale_err(part, w)
+                ok = err <= TPT_STATE_TOL
+                key = "moments"
+            if not ok:
+                raise AssertionError(f"mesh_tp_train: rank {r}'s shard of "
+                                     f"{name} differs from the unsharded "
+                                     f"state's slice ({err:.3g})")
+            if not name.endswith("step") and err >= worst[key][0]:
+                worst[key] = [err, f"{name} (rank {r})"]
+        del want, parts, got
+    if reference:
+        out["state"] = {"leaves": len(names), "ranks": TP_MODEL,
+                        "param_bound": bound,
+                        "worst_param_err_of_bound": worst["params"],
+                        "worst_moment_err_of_scale": worst["moments"],
+                        "moment_tol": TPT_STATE_TOL}
+    del ref_state
+    dist.barrier()
+
+    # 5. one more step, each collective timed between synchronizes
+    coll: dict = {}
+    with timed_collectives(coll):
+        state, _ = step_fn(state, batches[-1])
+    out["collectives"] = coll
+    del state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def phase_mesh_tp_train(card: str) -> dict:
+    """Slice 15, ``mesh_tp_train``: the train step partitioned over
+    'model', by TP_MODEL gloo ranks that share the card (each a process
+    of its own, ``make_test_mesh(data=1, model=TP_MODEL)``), on
+    zamba2-2.7b at its published widths and all 54 layers, compute in
+    fp32, AdamW, MESH_TRAIN_STEPS steps of TRAIN_CELL from seed 0.
+
+    1. Rank 0 runs the unsharded steps (``build_train_step(cfg, cell)``)
+       alone while rank 1 waits, keeps the losses, the grad norms and the
+       state on the host, and frees the card.
+    2. Each rank makes the state from the seed in turn and keeps its
+       shards (``place_tree``), then both run the partitioned steps:
+       launches a step on each rank (counts set to 0 just before, read
+       just after) :func:`train_counts` (K5 108 at P 32, K4 9 at 16
+       q-heads, K1-K3 0).
+    3. Each step's loss within TPT_LOSS_TOL and grad norm within
+       TPT_NORM_TOL of the unsharded step's, relative.  Derivation: both
+       runs are fp32 and differ only in the order of sums (the
+       row-parallel products' halves, the all-reduces); ``mesh_tp`` holds
+       this model's partitioned fp32 logits to TP_TOL (1e-4) of their
+       scale and has measured them within 3e-5 (``PERF.md``), and the
+       loss moves by at most twice the logits' error: 1e-4.  The
+       gradients go back through as many layers again, and the norm adds
+       the squares of every leaf: ten times that, 1e-3.
+    4. Every rank's shard of every state leaf after the last step against
+       the unsharded state's slice: m and v (linear and quadratic in the
+       clipped gradient) within TPT_STATE_TOL of the slice's largest
+       entry, as the grad norm; each parameter within
+       :func:`adamw_step_bound` (1.8e-5 after the warm-up's steps 1-2:
+       an entry whose gradient is at rounding level may move either way)
+       plus 2 ulps of the slice's largest entry; the step counters equal.
+    5. One more step with each collective timed.
+    Per rank: ms a step, collective ms and ``max_memory_allocated``,
+    beside the unsharded step's.  Fails if a rank fails or outlives
+    TP_TIMEOUT."""
+    t_phase = time.perf_counter()
+    ranks = run_ranks(TPT_CHILD, "mesh_tp_train")
+    lm = ARCHS[LM_ARCH]
+    for res in ranks:
+        if res["ssd_p"] != [lm.ssm_head_dim // TP_MODEL] or \
+                res["flash_attention_heads"] != [lm.n_heads // TP_MODEL]:
+            raise AssertionError(f"mesh_tp_train rank {res['rank']}: K5 at "
+                                 f"P {res['ssd_p']}, K4 at heads "
+                                 f"{res['flash_attention_heads']}")
+        if res["losses"] != ranks[0]["losses"] or \
+                res["grad_norms"] != ranks[0]["grad_norms"]:
+            raise AssertionError("mesh_tp_train: the ranks report different "
+                                 "losses or grad norms")
+    r0 = ranks[0]
+    ref = r0["unsharded"]
+    result = {"mesh_tp_train": LM_ARCH, "mesh": f"make_test_mesh(data=1, "
+              f"model={TP_MODEL}): {TP_MODEL} gloo ranks sharing one card",
+              "compute": "float32", "optimizer": "adamw",
+              "cell": dataclasses.asdict(TRAIN_CELL),
+              "steps": MESH_TRAIN_STEPS,
+              "tol": {"loss": TPT_LOSS_TOL, "grad_norm": TPT_NORM_TOL,
+                      "moments": TPT_STATE_TOL,
+                      "params": r0["state"]["param_bound"]},
+              "ranks": ranks,
+              "timer": "host clock around synchronize, each step; "
+                       "collectives of one more step, each between "
+                       "synchronizes",
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    for res in ranks:
+        coll = res["collectives"]
+        print(f"mesh_tp_train rank {res['rank']}: {LM_ARCH} fp32 train "
+              f"step of {TRAIN_CELL.global_batch} x {TRAIN_CELL.seq_len} "
+              f"{[round(t, 1) for t in res['step_ms']]} ms (unsharded "
+              f"{[round(t, 1) for t in ref['step_ms']]}), collectives "
+              f"{sum(e['ms'] for e in coll.values()):.1f} ms a step ("
+              + ", ".join(f"{k} {e['calls']} x {e['bytes'] / 1e9:.3f} GB"
+                          for k, e in sorted(coll.items()))
+              + f"), peak {res['peak_memory_gb']:.2f} GB (unsharded "
+              f"{ref['peak_memory_gb']:.2f}); launches a step "
+              f"{res['launches_per_step']} (K5 at P {res['ssd_p']}, K4 at "
+              f"{res['flash_attention_heads']} heads); card {card}",
+              flush=True)
+    st = r0["state"]
+    print(f"mesh_tp_train: losses {r0['losses']} vs {ref['losses']} "
+          f"(rel_err {max(r0['rel_err']['loss']):.3g}), grad norms "
+          f"{r0['grad_norms']} vs {ref['grad_norms']} (rel_err "
+          f"{max(r0['rel_err']['grad_norm']):.3g}); {st['leaves']} state "
+          f"leaves of {TP_MODEL} ranks: moments within "
+          f"{st['worst_moment_err_of_scale'][0]:.3g} of scale, parameters "
+          f"within {st['worst_param_err_of_bound'][0]:.3g} of AdamW's "
+          f"bound {st['param_bound']:.3g}; card {card}", flush=True)
+    return {"per_step_per_rank": r0["launches_per_step"]}
 
 
 def mesh_pipeline() -> dict:
@@ -4759,6 +5043,17 @@ def mesh_tp_launches(mesh_tp: dict, name: str) -> dict:
                    f"sharing the card"}
 
 
+def mesh_tp_train_launches(mesh_tp_train: dict, name: str) -> dict:
+    """A kernel's launches on each rank of slice 15's partitioned train
+    step."""
+    return {"per_step_per_rank":
+                mesh_tp_train["per_step_per_rank"].get(name, 0),
+            "per": f"one {LM_ARCH} fp32 train step of "
+                   f"{TRAIN_CELL.global_batch} x {TRAIN_CELL.seq_len} "
+                   f"tokens (remat), partitioned over {TP_MODEL} gloo "
+                   f"ranks sharing the card"}
+
+
 def training_launches(training: dict, name: str) -> dict:
     return {"launches_per_step": training["launches_per_step"][name],
             "per": f"one {LM_ARCH} train step of "
@@ -4855,6 +5150,8 @@ def main() -> int:
     # slice 10: the training path, last user of the LM phase's parameters
     training = phase_training(card, lm)
     mesh_train = phase_mesh_training(card)
+    # slice 15: the train step partitioned over two ranks on the card
+    mesh_tp_train = phase_mesh_tp_train(card)
     # slice 13: the dry run, and its traces against the card's counts
     dry = phase_dryrun(card, lm, training, mesh_train)
 
@@ -4894,6 +5191,8 @@ def main() -> int:
                    "training": training_launches(training, name),
                    "mesh": mesh_launches(mesh, mesh_train, name),
                    "mesh_tp": mesh_tp_launches(mesh_tp, name),
+                   "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
+                                                           name),
                    "dryrun": dryrun_calls(dry, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
@@ -4952,6 +5251,8 @@ def main() -> int:
                     "training": training_launches(training, "qmm"),
                     "mesh": mesh_launches(mesh, mesh_train, "qmm"),
                     "mesh_tp": mesh_tp_launches(mesh_tp, "qmm"),
+                    "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
+                                                            "qmm"),
                     "dryrun": dryrun_calls(dry, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
@@ -4980,6 +5281,8 @@ def main() -> int:
                 "durability": durability_launches(durability, name),
                 "mesh": mesh_launches(mesh, mesh_train, name),
                 "mesh_tp": mesh_tp_launches(mesh_tp, name),
+                "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
+                                                        name),
                 "dryrun": dryrun_calls(dry, name),
                 "training": {**training_launches(training, name),
                              "profiled": {
@@ -4990,7 +5293,8 @@ def main() -> int:
                                         "step"},
                              "backward": {
                                  "is": "the plain formulation's VJP "
-                                       "(attention_ref / ssd_chunked), "
+                                       "(attention_ref / ssd_chunked, the "
+                                       "latter in float64), "
                                        "recomputed from the saved inputs",
                                  **backward[name],
                                  "device_ms_per_step": training[

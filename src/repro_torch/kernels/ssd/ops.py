@@ -47,14 +47,18 @@ def _prescale(x, dt, a):
     return xdt, dta
 
 
-def ssd_chunked(xdt, dta, bm, cm, *, chunk: int = 128):
+def ssd_chunked(xdt, dta, bm, cm, *, chunk: int = 128,
+                seg_dtype: torch.dtype = torch.float32):
     """Chunked SSD in plain torch (a loop over chunks) — O(L Q), not
     O(L^2).  xdt (B,H,L,P), dta (B,H,L), bm/cm (B,L,N), L a multiple of
-    ``chunk`` -> y (B,H,L,P) in xdt's dtype, final state (B,H,P,N) fp32."""
+    ``chunk`` -> y (B,H,L,P) in xdt's dtype, final state (B,H,P,N) fp32.
+    ``seg_dtype``: the dtype of the segment sums of dta (the exponents of
+    the decays), which are rounded to fp32 before their exps."""
     b, h, l, p = xdt.shape
     n = bm.shape[-1]
     # fp32 accumulation (float64 operands, as gradcheck passes, keep theirs)
     f32 = torch.promote_types(xdt.dtype, torch.float32)
+    sdt = torch.promote_types(f32, seg_dtype)
     cdt = xdt.dtype                         # compute dtype (bf16/f32)
     q = chunk
     tril = torch.ones((q, q), dtype=torch.bool, device=xdt.device).tril()
@@ -65,22 +69,23 @@ def ssd_chunked(xdt, dta, bm, cm, *, chunk: int = 128):
         dta_i = dta[:, :, c0:c0 + q]        # (B,H,Q)
         bm_i = bm[:, c0:c0 + q]             # (B,Q,N)
         cm_i = cm[:, c0:c0 + q]
-        seg = torch.cumsum(dta_i.to(f32), dim=-1)
+        seg = torch.cumsum(dta_i.to(sdt), dim=-1)
         total = seg[..., -1]
         # mask INSIDE the exp: the j > i half has positive exponents
         diff = torch.where(tril, seg[..., :, None] - seg[..., None, :],
                            -1e30)
         # the (Q, Q) decay and CB products run in the compute dtype, the
         # chunk products accumulate in fp32
-        decay = torch.exp(diff).to(cdt)     # (B,H,Q,Q)
+        decay = torch.exp(diff.to(f32)).to(cdt)  # (B,H,Q,Q)
         cb = torch.einsum("bqn,bkn->bqk", cm_i.to(f32),
                           bm_i.to(f32)).to(cdt)
         y = torch.einsum("bhqk,bhkp->bhqp", (cb[:, None] * decay).to(f32),
                          xdt_i.to(f32))
-        y = y + torch.exp(seg)[..., None] * torch.einsum(
+        y = y + torch.exp(seg.to(f32))[..., None] * torch.einsum(
             "bqn,bhpn->bhqp", cm_i.to(f32), s)
-        w = torch.exp(total[..., None] - seg)[..., None].to(cdt) * xdt_i
-        s = (torch.exp(total)[..., None, None] * s
+        w = torch.exp((total[..., None] - seg).to(f32))
+        w = w[..., None].to(cdt) * xdt_i
+        s = (torch.exp(total.to(f32))[..., None, None] * s
              + torch.einsum("bhqp,bqn->bhpn", w.to(f32), bm_i.to(f32)))
         ys.append(y)
     y = (torch.cat(ys, dim=2) if ys
@@ -190,7 +195,14 @@ class SSDFunction(torch.autograd.Function):
     card, the plain version on the CPU), saving only the inputs.  Backward:
     the VJP of :func:`ssd_chunked` recomputed from them, a gradient for
     each of xdt, dta, bm and cm; the final state is differentiable too
-    (its gradient, when one reaches it, joins y's in the same VJP)."""
+    (its gradient, when one reaches it, joins y's in the same VJP).  The
+    segment sums of dta are recomputed in float64 (``seg_dtype``), so
+    that dta's gradient sums back through their differences in float64:
+    in fp32 their cancellation makes the gradient of ``a_log`` wrong by
+    ~1e-5 of its largest entry (reduced mamba2-130m, 16 tokens) and
+    depend on how the products over P are grouped (P split over 'model'
+    regroups them).  Everything that autograd saves stays in the
+    inputs' dtypes and fp32, as in the forward."""
 
     @staticmethod
     def forward(ctx, xdt, dta, bm, cm, chunk):
@@ -205,7 +217,8 @@ class SSDFunction(torch.autograd.Function):
         with torch.enable_grad():
             inputs = [t.detach().requires_grad_(n)
                       for t, n in zip(ctx.saved_tensors, need)]
-            outs = ssd_chunked(*inputs, chunk=ctx.chunk)
+            outs = ssd_chunked(*inputs, chunk=ctx.chunk,
+                               seg_dtype=torch.float64)
             pairs = [(o, g) for o, g in zip(outs, (gy, gstate))
                      if g is not None]
             grads = list(torch.autograd.grad(

@@ -9,10 +9,13 @@ state placed as rank 0's shards, under
 :func:`~repro_torch.launch.hlo_analysis.analyze_step`.  Nothing is
 allocated on any device and nothing is launched; the kernels' wrappers
 report their calls from their ``meta`` routes, and the GEMMs take the
-engines the card would give them.  The serving steps compute partitioned
-over 'model', so their in-block all-reduces, all-to-alls and gathers
-are counted as the rank issues them; the train step gathers every leaf
-whole.  It runs on any machine, card or not.
+engines the card would give them.  Every step computes partitioned over
+'model', so the in-block all-reduces, all-to-alls and gathers are
+counted as the rank issues them: the train step's forward, the
+recomputation of each rematerialized block, and the backward's (f's
+all-reduces, the inverse all-to-alls), then its gradients averaged over
+the data axes and the optimizer's sums over the axes that split each
+leaf.  It runs on any machine, card or not.
 
 A process has one default process group, and ``main()`` starts the fake
 one in ITS OWN process: never import this module to run it from tests or

@@ -25,6 +25,8 @@ from a ``DeviceMesh`` (or anything with ``mesh_dim_names`` and
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -40,7 +42,7 @@ __all__ = ["PartitionSpec", "param_pspecs", "input_pspecs", "opt_pspecs",
            "state_pspecs", "to_placements", "cache_pspecs", "place_tree",
            "gather_tree", "local_shard", "axes_of", "mean_over",
            "gather_over", "model_axis_of", "without_model",
-           "gather_data", "gather_data_tree"]
+           "gather_data", "gather_data_tree", "LeafSplit", "leaf_split"]
 
 
 class PartitionSpec(tuple):
@@ -314,11 +316,14 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 def mean_over(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
     """``t``, in place, made the mean of ``t`` over the ranks of ``axes``:
     an all-reduce SUM over each axis's group (gloo has no AVG), then one
-    division by their product."""
+    division by their product.  An axis of one rank sums nothing."""
     count = 1
     for a in axes:
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.get_group(a))
-        count *= _axis_size(mesh, a)
+        size = _axis_size(mesh, a)
+        if size > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM,
+                            group=mesh.get_group(a))
+        count *= size
     return t.div_(torch.full((), count, dtype=t.dtype, device=t.device))
 
 
@@ -374,3 +379,47 @@ def gather_data_tree(tree, spec_tree, mesh):
                             f"place_tree, given a plain {type(t).__name__}")
         return gather_data(t.to_local(), spec, mesh)
     return tree_map(mine, tree, spec_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSplit:
+    """How one rank's shard of a leaf is split over a mesh, for the
+    optimizers' whole-leaf sums: for each dimension of the leaf, the
+    (axis name, process group, ranks) of every axis of more than one
+    rank that splits it."""
+
+    dims: tuple
+
+    def _axes(self, of=None) -> list:
+        if of is None:
+            return list(self.parts)
+        return [a for d in ((of,) if isinstance(of, int) else of)
+                for a in self.dims[d]]
+
+    @property
+    def parts(self) -> tuple:
+        """Every axis that splits some dimension, by name."""
+        return tuple(sorted({a for d in self.dims for a in d},
+                            key=lambda a: a[0]))
+
+    def ranks(self, of=None) -> int:
+        """The number of shards of the dimensions ``of`` (None: all)."""
+        return math.prod(size for _, _, size in self._axes(of))
+
+    def sum(self, t: torch.Tensor, of=None) -> torch.Tensor:
+        """``t``, in place, summed over the axes that split the
+        dimensions ``of`` (None: all), one all-reduce an axis."""
+        for _, group, _ in self._axes(of):
+            dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        return t
+
+
+def leaf_split(spec: P, mesh, ndim: int) -> LeafSplit:
+    """How ``spec`` splits a leaf of ``ndim`` dimensions: for each
+    dimension, the axes of more than one rank that split it (the
+    optimizers' whole-leaf sums over one rank's shards)."""
+    return LeafSplit(tuple(
+        tuple((a, mesh.get_group(a), _axis_size(mesh, a))
+              for a in axes_of(spec[d] if d < len(spec) else None)
+              if _axis_size(mesh, a) > 1)
+        for d in range(ndim)))

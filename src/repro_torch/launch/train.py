@@ -16,21 +16,28 @@ Over a device mesh (``build_train_step(cfg, cell, mesh)``) the step is
 called on every rank with the whole batch, as ``repro``'s jitted step is
 called with global arrays.  The state is a tree of DTensors placed by
 ``state_pspecs``: the caller places it once with ``place_tree``, as
-``train_loop`` does, and the step returns it placed.  Each rank
-gathers the parameters whole, takes the loss and its gradient on its
-data-parallel slice of the batch (``input_pspecs``), and averages loss
-and gradients over the data-parallel axes, which gives the global-batch
-mean on every rank ('model' replicas took the same slice and are not
-averaged).  AdamW then updates each rank's own shards, clipped by the
-global norm of the whole averaged gradient; Adafactor, whose factored
-statistics are means over whole rows and columns, gathers its
-statistics, updates the whole leaves and keeps each rank's shards.
-The train step does not compute partitioned over 'model', as the
-serving steps do (``launch/serve.py``): that needs autograd-aware
-collectives (Megatron's f/g pair), the global norm over sharded
-gradients and Adafactor over sharded rows.  So leaves sharded over
-'model' are stored sharded and gathered for use.  ``mesh=None`` is the
-single-device step.
+``train_loop`` does, and the step returns it placed.  The step computes
+partitioned over 'model', as XLA's partitioner splits ``repro``'s jitted
+step: each rank gathers every parameter leaf over the data-parallel axes
+only (``gather_data_tree``, FSDP's gather for use) and keeps its 'model'
+shards, takes the loss and its gradient on its data-parallel slice of
+the batch (``input_pspecs``) inside ``use_model_axis``, where the blocks
+compute their parts and autograd differentiates the collectives that
+join them (:mod:`repro_torch.models.partition`; the loss is
+vocabulary-parallel where the head is split), and averages loss and
+gradients over the data-parallel axes, which gives the global-batch mean
+on every rank ('model' ranks took the same slice and are not averaged).
+Each gradient comes out as the rank's 'model' shard; the rank keeps its
+data shard of it and updates only its shards of the parameters and of
+the optimizer state: AdamW clipped by the global norm of the whole
+gradient (the squares of each shard summed over the axes that split its
+leaf, a replicated leaf once), Adafactor with its factored statistics in
+their ``opt_pspecs`` shards and every mean (of ``g²`` over rows and
+columns, of ``vr``, the update's RMS) summed over the axes that split
+the dimensions it runs over (:class:`.sharding.LeafSplit`).
+No leaf split over 'model' is gathered whole, forwards or backwards.  At
+a 'model' size of 1 the step is the single-process step's arithmetic, bit
+for bit.  ``mesh=None`` is the single-device step.
 """
 
 from __future__ import annotations
@@ -45,12 +52,14 @@ from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import init_model, input_specs, loss_fn
+from repro_torch.models.partition import use_model_axis
 from repro_torch.optim import (AdafactorConfig, AdamWConfig, adafactor_init,
                                adafactor_update, adamw_init, adamw_update)
 from repro_torch.optim.adamw import global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-from .sharding import (axes_of, gather_tree, input_pspecs, local_shard,
-                       mean_over, place_tree, state_pspecs)
+from .sharding import (axes_of, gather_data_tree, gather_tree, input_pspecs,
+                       leaf_split, local_shard, mean_over, model_axis_of,
+                       place_tree, state_pspecs, without_model)
 
 __all__ = ["make_train_state", "build_train_step", "train_loop",
            "train_state_specs", "default_opt_cfg", "loss_and_grads"]
@@ -114,12 +123,14 @@ def default_opt_cfg(cfg: ArchConfig):
 
 def _mesh_loss_and_grads(cfg: ArchConfig, mesh, bspecs: dict, params: dict,
                         batch: dict) -> tuple[torch.Tensor, dict]:
-    """:func:`loss_and_grads` of the whole ``params`` on this rank's
-    slice of the global ``batch`` (split by ``bspecs``), averaged over
-    the data-parallel axes: the global batch's loss and gradient, on
-    every rank."""
+    """:func:`loss_and_grads` of ``params`` (this rank's 'model' shards,
+    whole over the data axes) on this rank's slice of the global
+    ``batch`` (split by ``bspecs``), computed partitioned over 'model'
+    and averaged over the data-parallel axes: the global batch's loss,
+    and this rank's 'model' shards of its gradient, on every rank."""
     mine = {k: local_shard(v, bspecs[k], mesh) for k, v in batch.items()}
-    loss, grads = loss_and_grads(cfg, params, mine)
+    with use_model_axis(model_axis_of(mesh)):
+        loss, grads = loss_and_grads(cfg, params, mine)
     axes = axes_of(bspecs["labels"][0])
     return (mean_over(loss, axes, mesh),
             tree_map(lambda g: mean_over(g, axes, mesh), grads))
@@ -130,28 +141,24 @@ def _mesh_train_step(cfg: ArchConfig, opt_cfg, mesh, sspecs: dict,
                      donate: bool = True):
     if not donate:
         state = tree_map(lambda d: d.clone(), state)
-    params = gather_tree(state["params"])
+    pspecs = sspecs["params"]
+    params = gather_data_tree(state["params"], pspecs, mesh)
     loss, grads = _mesh_loss_and_grads(cfg, mesh, bspecs, params, batch)
+    del params
+    # this rank's data shard of each 'model' shard of the gradient
+    shards = tree_map(lambda g, s: local_shard(g, without_model(s), mesh),
+                      grads, pspecs)
+    split = tree_map(lambda g, s: leaf_split(s, mesh, g.dim()), shards,
+                     pspecs)
     local = lambda tree: tree_map(DTensor.to_local, tree)
     if cfg.optimizer == "adafactor":
-        stats = gather_tree(state["opt"])
-        _, _, metrics = adafactor_update(opt_cfg, grads, stats, params,
-                                         inplace=True)
-        kept = {"params": sspecs["params"], "opt": sspecs["opt"]}
-        for whole, shard, spec in zip(
-                tree_leaves({"params": params, "opt": stats}),
-                tree_leaves(local({"params": state["params"],
-                                   "opt": state["opt"]})),
-                tree_leaves(kept)):
-            whole = local_shard(whole, spec, mesh)
-            if whole.data_ptr() != shard.data_ptr():
-                shard.copy_(whole)
+        _, _, metrics = adafactor_update(
+            opt_cfg, shards, local(state["opt"]), local(state["params"]),
+            inplace=True, split=split)
     else:
-        shards = tree_map(lambda g, s: local_shard(g, s, mesh), grads,
-                          sspecs["params"])
         _, _, metrics = adamw_update(
             opt_cfg, shards, local(state["opt"]), local(state["params"]),
-            inplace=True, grad_norm=global_norm(grads))
+            inplace=True, grad_norm=global_norm(shards, split))
     state["step"].to_local().add_(1)
     return state, {"loss": loss, **metrics}
 

@@ -25,7 +25,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention)
 from .layers import init_dense, rope
 from .partition import (all_gather_dim, all_reduce_sum, all_to_all_rows,
-                        model_axis)
+                        copy_to_model, model_axis, reduce_from_model)
 
 __all__ = ["init_attention", "attention", "decode_attention",
            "decode_attend", "decode_project_kv", "flash_attention_torch",
@@ -148,18 +148,27 @@ def attention(params: dict, x: torch.Tensor, *, n_heads: int,
     x (B, S, d).  kv_x: source for K/V (cross-attention); defaults to x.
     """
     b, s, _ = x.shape
-    src = x if kv_x is None else kv_x
-    sk = src.shape[1]
     # in a mesh step the projections may hold this rank's heads only
     hq = params["wq"].shape[-1] // head_dim
     hkv = params["wk"].shape[-1] // head_dim
+    axis = model_axis()
+    wk, wv = params["wk"], params["wv"]
+    if axis is not None and hq != n_heads:
+        # heads split: x (and the cross source) enter partitioned compute
+        x = copy_to_model(x, axis)
+        kv_x = None if kv_x is None else copy_to_model(kv_x, axis)
+        if hkv == n_kv_heads:
+            # whole K/V heads that feed this rank's q-heads only: a part
+            # of their gradient on each rank
+            wk, wv = copy_to_model(wk, axis), copy_to_model(wv, axis)
+    src = x if kv_x is None else kv_x
+    sk = src.shape[1]
     q = synergy_matmul(x, params["wq"], name=f"{name}/wq")
-    kk = synergy_matmul(src, params["wk"], name=f"{name}/wk")
-    vv = synergy_matmul(src, params["wv"], name=f"{name}/wv")
+    kk = synergy_matmul(src, wk, name=f"{name}/wk")
+    vv = synergy_matmul(src, wv, name=f"{name}/wv")
     q = q.reshape(b, s, hq, head_dim).transpose(1, 2)
     kk = kk.reshape(b, sk, hkv, head_dim).transpose(1, 2)
     vv = vv.reshape(b, sk, hkv, head_dim).transpose(1, 2)
-    axis = model_axis()
     if axis is not None and hq != n_heads and hkv == n_kv_heads:
         # q-heads split, K/V whole: this rank's q-heads' K/V
         kk, vv = _kv_for_heads(kk, vv, axis.rank * hq, hq,
@@ -195,9 +204,9 @@ def _kv_for_heads(k: torch.Tensor, v: torch.Tensor, first: int, count: int,
 
 def _row_parallel(y: torch.Tensor, split: bool) -> torch.Tensor:
     """A row-parallel output projection's result, summed over 'model'
-    where its rows were split (in a mesh step)."""
+    where its rows were split (in a mesh step): g."""
     axis = model_axis()
-    return all_reduce_sum(y, axis.group) if split and axis else y
+    return reduce_from_model(y, axis) if split and axis else y
 
 
 def project_kv(params: dict, src: torch.Tensor, *, n_kv_heads: int,

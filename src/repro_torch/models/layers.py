@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.synergy_mm import synergy_matmul
-from .partition import all_reduce_sum, glu_regroup, model_axis
+from .partition import (all_reduce_max, copy_to_model, glu_regroup,
+                        model_axis, reduce_from_model)
 
 __all__ = ["rms_norm", "layer_norm", "rope", "dense", "glu_mlp",
            "init_dense", "init_glu_mlp", "softmax_xent", "normal", "MetaKey"]
@@ -133,6 +134,7 @@ def _glu_mlp_partitioned(params: dict, x: torch.Tensor, act: str, name: str,
                          f"({wi.shape[-1]} of {2 * d_ff} columns) with "
                          f"wo's {d_ff} rows whole")
     d, width = wi.shape[0], wi.shape[-1] // 2
+    x = copy_to_model(x, axis)
     tokens = x.numel() // x.shape[-1]
     if tokens * x.element_size() < d * wi.element_size():
         h = dense(x, wi, name=f"{name}/wi")
@@ -145,15 +147,44 @@ def _glu_mlp_partitioned(params: dict, x: torch.Tensor, act: str, name: str,
         mine = glu_regroup(blocks, axis).transpose(0, 1).reshape(d, 2 * width)
         gate, up = torch.chunk(dense(x, mine, name=f"{name}/wi"), 2, dim=-1)
     y = dense(_ACTS[act](gate) * up, wo, name=f"{name}/wo")
-    return all_reduce_sum(y, axis.group)
+    return reduce_from_model(y, axis)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 z_loss: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy; logits (..., V) fp32-softmaxed."""
+                 z_loss: float = 0.0, *, vocab: int | None = None
+                 ) -> torch.Tensor:
+    """Mean token cross-entropy; logits (..., V) fp32-softmaxed.  In a
+    mesh step whose logits hold this rank's columns of the ``vocab``
+    (rank r the r-th block), see :func:`_vocab_parallel_xent`."""
+    axis = model_axis()
+    if axis is not None and vocab is not None and logits.shape[-1] != vocab:
+        return _vocab_parallel_xent(logits, labels, z_loss, axis)
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    loss = (lse - ll).mean()
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse).mean()
+    return loss
+
+
+def _vocab_parallel_xent(logits: torch.Tensor, labels: torch.Tensor,
+                         z_loss: float, axis) -> torch.Tensor:
+    """:func:`softmax_xent` of logits split on the vocabulary over
+    'model', from three sums over 'model': the row maximum (detached,
+    as ``logsumexp`` holds it), the row's sum of exponentials (``lse``
+    over every column, padding included) and the label's logit, taken by
+    the rank whose columns hold it.  Every rank gets the same loss."""
+    logits = logits.to(torch.float32)
+    cols = logits.shape[-1]
+    top = all_reduce_max(logits.amax(dim=-1, keepdim=True), axis.group)
+    sums = reduce_from_model(torch.exp(logits - top).sum(dim=-1), axis)
+    lse = top[..., 0] + torch.log(sums)
+    local = labels.long() - axis.rank * cols
+    mine = (local >= 0) & (local < cols)
+    picked = torch.gather(logits, -1,
+                          torch.where(mine, local, 0)[..., None])[..., 0]
+    ll = reduce_from_model(torch.where(mine, picked, 0.0), axis)
     loss = (lse - ll).mean()
     if z_loss:
         loss = loss + z_loss * torch.square(lse).mean()

@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from .layers import _ACTS, init_dense, normal
-from .partition import all_reduce_sum, model_axis
+from .partition import copy_to_model, model_axis, reduce_from_model
 
 __all__ = ["init_moe", "moe_ffn", "moe_ffn_tc", "ec_capacity"]
 
@@ -53,19 +53,24 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     """Expert-choice MoE.  x (G, T, d) — G token groups (batch dim for
     train/prefill; a single group for decode).  Returns (G, T, d)."""
     g, t, d = x.shape
-    e = params["router"].shape[1]
+    router = params["router"]
+    e = router.shape[1]
     c = ec_capacity(t, e, top_k, capacity_factor)
+    e_mine = params["w1"].shape[0]
+    axis = model_axis() if e_mine != e else None
+    if axis is not None:
+        # the tokens and the whole router feed this rank's experts only:
+        # a part of their gradient on each rank
+        x, router = copy_to_model(x, axis), copy_to_model(router, axis)
 
-    logits = torch.einsum("gtd,de->gte", x.to(torch.float32),
-                          params["router"])
+    logits = torch.einsum("gtd,de->gte", x.to(torch.float32), router)
     probs = torch.softmax(logits, dim=-1)                      # (G,T,E)
     gate, idx = torch.topk(probs.transpose(1, 2), c, dim=-1)   # (G,E,C)
 
-    e_mine = params["w1"].shape[0]
-    if e_mine != e:
+    if axis is not None:
         # a mesh step: this rank's experts only (the router is whole, so
         # every rank made the same choice); their outputs summed below
-        lo = model_axis().rank * e_mine
+        lo = axis.rank * e_mine
         gate, idx = gate[:, lo:lo + e_mine], idx[:, lo:lo + e_mine]
 
     rows = torch.arange(g, device=x.device)[:, None, None]
@@ -84,8 +89,8 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     y = torch.zeros((g * t, d), dtype=o.dtype, device=x.device)
     flat = (idx + rows * t).reshape(-1)
     y.index_add_(0, flat, o.reshape(-1, d))
-    if e_mine != e:
-        y = all_reduce_sum(y, model_axis().group)
+    if axis is not None:
+        y = reduce_from_model(y, axis)
     return y.reshape(g, t, d).to(x.dtype)
 
 

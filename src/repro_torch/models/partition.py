@@ -1,8 +1,8 @@
 """The 'model' axis of a mesh, as the model code sees it in a mesh step.
 
-``repro``'s serving steps are jitted with shardings, and XLA's partitioner
-splits every product over 'model'.  Here a serving step over a mesh
-(``launch/serve.py``) runs the model functions inside
+``repro``'s serving and train steps are jitted with shardings, and XLA's
+partitioner splits every product over 'model'.  Here a step over a mesh
+(``launch/serve.py``, ``launch/train.py``) runs the model functions inside
 :func:`use_model_axis`: each parameter leaf that ``param_pspecs`` shards
 over 'model' reaches them as this rank's shard, each cache leaf that
 ``cache_pspecs`` shards over 'model' as this rank's shard, and a function
@@ -21,6 +21,19 @@ card gloo takes CUDA tensors for all_reduce, all_gather and
 all_to_all_single (torch 2.11: ``chip_smoke.py``'s ``mesh_tp`` phase
 runs each of them at two ranks), so the helpers call the same
 collectives whatever the backend; the compute stays on the card.
+
+Under autograd (the train step) the collectives are
+``torch.autograd.Function``s with the same forward bits, Megatron's pair
+among them: :func:`copy_to_model` (f: identity forward, the gradient
+summed over 'model' backward) marks a replicated tensor where it enters
+partitioned compute, and :func:`reduce_from_model` (g: the sum forward,
+identity backward) the partial results that replicated compute then
+consumes.  :func:`all_gather_dim` takes back this rank's slice of the
+gradient, :func:`all_to_all_rows` the inverse all-to-all.  Where autograd
+does not record (serving, ``torch.inference_mode``) each is the plain
+collective it was.  (``torch.distributed.nn.functional.all_reduce``
+all-reduces in its backward too: used as g it multiplies the gradients by
+the number of ranks.)
 """
 
 from __future__ import annotations
@@ -33,7 +46,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ModelAxis", "model_axis", "use_model_axis", "all_reduce_sum",
-           "all_gather_dim", "all_to_all_rows", "glu_regroup"]
+           "all_gather_dim", "all_to_all_rows", "glu_regroup",
+           "copy_to_model", "reduce_from_model", "all_reduce_max"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,33 +80,128 @@ def use_model_axis(axis: ModelAxis | None):
         _AXIS.reset(token)
 
 
+def _records(t: torch.Tensor) -> bool:
+    """True when autograd records an op on ``t``."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """``t`` summed over the ranks of ``group``, in place where ``t`` is
-    contiguous (returned either way)."""
+    contiguous (returned either way).  No gradient: see
+    :func:`reduce_from_model`."""
     t = t.contiguous()
     dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
 
-def all_gather_dim(t: torch.Tensor, dim: int, size: int,
-                   group) -> torch.Tensor:
-    """The ``t`` of every rank of ``group`` (``size`` ranks) concatenated
-    along ``dim`` in rank order."""
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise maximum of ``t`` over the ranks of ``group``, a new
+    tensor that autograd does not see."""
+    t = t.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return t
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad.clone(memory_format=torch.contiguous_format),
+                              ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce_sum(t.clone(memory_format=torch.contiguous_format),
+                              group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def copy_to_model(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Megatron's f: ``t`` (the same on every rank of ``axis``) where it
+    enters partitioned compute.  Forward the identity; backward the
+    gradient, a part from each rank, summed over 'model'."""
+    return _CopyToModel.apply(t, axis.group) if _records(t) else t
+
+
+def reduce_from_model(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
+    """Megatron's g: ``t``, this rank's partial result, summed over
+    'model' (:func:`all_reduce_sum`'s bits) for replicated compute to
+    consume.  Backward the identity: every rank holds the whole
+    gradient of the sum."""
+    if _records(t):
+        return _ReduceFromModel.apply(t, axis.group)
+    return all_reduce_sum(t, axis.group)
+
+
+def _gather(t: torch.Tensor, dim: int, size: int, group) -> torch.Tensor:
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(size)]
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim)
 
 
-def all_to_all_rows(t: torch.Tensor, in_splits: list, out_splits: list,
-                    group) -> torch.Tensor:
-    """``all_to_all_single`` over the first dimension: ``in_splits[d]``
-    rows of ``t`` (in order) go to rank d, and the result holds
-    ``out_splits[s]`` rows from each rank s, in rank order."""
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, dim, size, group):
+        ctx.dim, ctx.size = dim, size
+        ctx.rank = dist.get_rank(group)
+        return _gather(t, dim, size, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        width = grad.shape[ctx.dim] // ctx.size
+        return grad.narrow(ctx.dim, ctx.rank * width, width), None, None, None
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, size: int,
+                   group) -> torch.Tensor:
+    """The ``t`` of every rank of ``group`` (``size`` ranks) concatenated
+    along ``dim`` in rank order.  Backward: this rank's slice of the
+    gradient (the consumers are replicated compute)."""
+    if _records(t):
+        return _GatherDim.apply(t, dim, size, group)
+    return _gather(t, dim, size, group)
+
+
+def _all_to_all(t: torch.Tensor, in_splits: list, out_splits: list,
+                group) -> torch.Tensor:
     t = t.contiguous()
     out = t.new_empty((sum(out_splits), *t.shape[1:]))
     dist.all_to_all_single(out, t, out_splits, in_splits, group=group)
     return out
+
+
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, in_splits, out_splits, group):
+        ctx.splits, ctx.group = (in_splits, out_splits), group
+        return _all_to_all(t, in_splits, out_splits, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        in_splits, out_splits = ctx.splits
+        return (_all_to_all(grad, out_splits, in_splits, ctx.group), None,
+                None, None)
+
+
+def all_to_all_rows(t: torch.Tensor, in_splits: list, out_splits: list,
+                    group) -> torch.Tensor:
+    """``all_to_all_single`` over the first dimension: ``in_splits[d]``
+    rows of ``t`` (in order) go to rank d, and the result holds
+    ``out_splits[s]`` rows from each rank s, in rank order.  Backward:
+    the inverse all-to-all, the splits swapped."""
+    if _records(t):
+        return _AllToAllRows.apply(t, in_splits, out_splits, group)
+    return _all_to_all(t, in_splits, out_splits, group)
 
 
 def glu_regroup(blocks: torch.Tensor, axis: ModelAxis) -> torch.Tensor:

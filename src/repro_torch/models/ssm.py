@@ -18,17 +18,23 @@ at the rank's P) needs nothing from the other ranks.  Two sums cross
 'model': the row-parallel out-projection, and the gated RMSNorm, whose
 mean of squares runs over the whole (H, P), so each rank's sum of squares
 is summed before the ``rsqrt``.  (``repro``'s docstring counts only the
-out-projection: XLA partitions the norm's reduction implicitly.)
+out-projection: XLA partitions the norm's reduction implicitly.)  Under
+autograd the gradient of everything whole that feeds the rank's share of
+P is a part on each rank and is summed over 'model' (f): the block's
+input, the norm's mean of squares, and the whole leaves (``wbc``,
+``wdt``, ``conv_wbc``, ``a_log``, ``dt_bias``, ``d_skip``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd import ssd
-from .layers import init_dense, normal
-from .partition import all_reduce_sum, model_axis
+from .layers import MetaKey, init_dense, normal
+from .partition import copy_to_model, model_axis, reduce_from_model
 
 __all__ = ["init_mamba2", "mamba2_block", "mamba2_decode_step",
            "init_mamba2_state", "CONV_K"]
@@ -82,9 +88,11 @@ def _gated_rms_hp(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     if y.shape[-1] == head_dim:
         var = torch.mean(torch.square(g), dim=(-2, -1), keepdim=True)
     else:
-        var = all_reduce_sum(
-            torch.sum(torch.square(g), dim=(-2, -1), keepdim=True),
-            model_axis().group) / (y.shape[-2] * head_dim)
+        # g, then f: the whole sum feeds this rank's share of P
+        axis = model_axis()
+        var = copy_to_model(reduce_from_model(
+            torch.sum(torch.square(g), dim=(-2, -1), keepdim=True), axis),
+            axis) / (y.shape[-2] * head_dim)
     return (g * torch.rsqrt(var + eps) * scale).to(dt)
 
 
@@ -94,8 +102,28 @@ def _out_proj(y: torch.Tensor, w: torch.Tensor, head_dim: int,
     where y holds this rank's share of P."""
     out = torch.einsum("blhp,hpd->bld", y, w.to(y.dtype))
     if y.shape[-1] != head_dim:
-        out = all_reduce_sum(out, model_axis().group)
+        out = reduce_from_model(out, model_axis())
     return out.to(dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_shapes(d_model: int, d_inner: int, ssm_state: int,
+                  head_dim: int) -> dict:
+    """Each mixer leaf's shape for one layer, whole."""
+    meta = init_mamba2(MetaKey(), d_model, d_inner, ssm_state, head_dim)
+    return {k: tuple(v.shape) for k, v in meta.items()}
+
+
+def _enter_partitioned(params: dict, x: torch.Tensor, axis, *,
+                       d_inner: int, ssm_state: int, head_dim: int):
+    """(``params``, ``x``) with f (:func:`copy_to_model`) on ``x`` and on
+    every leaf that this rank holds whole though P is split: each feeds
+    this rank's share of P only, so each rank's gradient is a part.  A
+    leaf is whole where its shape is the whole one, so ``param_pspecs``
+    stays the one place that decides."""
+    whole = _whole_shapes(x.shape[-1], d_inner, ssm_state, head_dim)
+    return ({k: copy_to_model(v, axis) if tuple(v.shape) == whole[k] else v
+             for k, v in params.items()}, copy_to_model(x, axis))
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -120,6 +148,10 @@ def mamba2_block(params: dict, x: torch.Tensor, *, d_inner: int,
     """x (B, L, d) -> (B, L, d)."""
     b, l, _ = x.shape
     n = ssm_state
+    axis = model_axis()
+    if axis is not None and params["wx"].shape[-1] != head_dim:
+        params, x = _enter_partitioned(params, x, axis, d_inner=d_inner,
+                                       ssm_state=n, head_dim=head_dim)
 
     z, xs, bc, dt = _projections(params, x)
 

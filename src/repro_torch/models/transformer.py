@@ -18,16 +18,19 @@ stacked (L, ...) layout, so weights carry across key for key
 Training rematerializes each scanned block when ``cfg.remat`` is set
 (``torch.utils.checkpoint``, where ``repro`` uses ``jax.checkpoint``).
 
-In a serving step over a mesh (:mod:`repro_torch.models.partition`) the
+In a step over a mesh (:mod:`repro_torch.models.partition`) the
 parameters and caches are this rank's 'model' shards, and the blocks
 compute partitioned: the embedding and the head on the vocabulary,
 attention on heads (decode on the caches' head-dim slice), the MLP
 column- then row-parallel, MoE on experts, Mamba2 on P; ``decode_step``
-writes the rank's cache shards in place.
+writes the rank's cache shards in place, and ``lm_loss`` takes the
+logits split on the vocabulary.  Under autograd (the train step) the
+collectives are differentiated (Megatron's f and g).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
@@ -43,7 +46,8 @@ from .attention import (attention, decode_attend, decode_project_kv,
 from .layers import (MetaKey, glu_mlp, init_glu_mlp, normal, rms_norm,
                      softmax_xent)
 from .moe import init_moe, moe_ffn
-from .partition import all_gather_dim, all_reduce_sum, model_axis
+from .partition import (all_gather_dim, copy_to_model, model_axis,
+                        reduce_from_model, use_model_axis)
 from .ssm import (init_mamba2, init_mamba2_state, mamba2_block,
                   mamba2_decode_step)
 
@@ -214,14 +218,21 @@ def _records(x: torch.Tensor, stacked: dict) -> bool:
 def _scan_blocks(body, x, stacked, n: int, remat: bool = False):
     """``body`` over the ``n`` stacked layers.  With ``remat``, a block that
     autograd records keeps only its input and recomputes its activations
-    in the backward (``repro``'s ``jax.checkpoint`` per scanned block)."""
+    in the backward (``repro``'s ``jax.checkpoint`` per scanned block),
+    under the 'model' axis of the forward: autograd runs a CUDA backward
+    on a thread of its own, which does not see the caller's
+    :func:`use_model_axis`."""
     remat = remat and _records(x, stacked)
+    if remat:
+        axis = model_axis()
+        recompute = lambda: (contextlib.nullcontext(), use_model_axis(axis))
     # one unbind per leaf: its backward stacks the n layers' gradients
     # once, where a slice per layer would add n zero-padded stacks
     layers = tree_map(torch.unbind, stacked)
     for l in range(n):
         p = tree_map(lambda t: t[l], layers)
-        x = (checkpoint(body, p, x, use_reentrant=False) if remat
+        x = (checkpoint(body, p, x, use_reentrant=False,
+                        context_fn=recompute) if remat
              else body(p, x))
     return x
 
@@ -259,16 +270,21 @@ def _encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
     return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
 
-def _head(cfg: ArchConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
+          gather: bool = True) -> torch.Tensor:
     """The vocabulary head -> fp32 logits.  In a mesh step whose head is
     split on the vocabulary over 'model', each rank computes its logit
-    columns and they are gathered."""
+    columns (x enters partitioned compute: f), which are gathered unless
+    ``gather`` is False (the loss takes them split)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    axis = model_axis()
+    split = axis is not None and w.shape[-1] != cfg.padded_vocab
+    if split:
+        x = copy_to_model(x, axis)
     logits = synergy_matmul(x, w.to(x.dtype), name="lm_head",
                             out_dtype=torch.float32)
-    axis = model_axis()
-    if axis is not None and w.shape[-1] != cfg.padded_vocab:
+    if split and gather:
         logits = all_gather_dim(logits, -1, axis.size, axis.group)
     return logits
 
@@ -286,7 +302,7 @@ def _lookup(cfg: ArchConfig, embed: torch.Tensor,
     mine = (local >= 0) & (local < rows)
     found = embed[torch.where(mine, local, 0)]
     found = torch.where(mine[..., None], found, 0)
-    return all_reduce_sum(found, axis.group)
+    return reduce_from_model(found, axis)
 
 
 def _embed(cfg: ArchConfig, params: dict, tokens, embeds) -> torch.Tensor:
@@ -299,24 +315,31 @@ def lm_forward(cfg: ArchConfig, params: dict, *,
                tokens: torch.Tensor | None = None,
                embeds: torch.Tensor | None = None,
                enc_embeds: torch.Tensor | None = None,
-               impl: str = "auto") -> torch.Tensor:
-    """Full-sequence forward -> logits (B, S, padded_vocab) fp32."""
+               impl: str = "auto", gather: bool = True) -> torch.Tensor:
+    """Full-sequence forward -> logits (B, S, padded_vocab) fp32; in a
+    mesh step whose head is split on the vocabulary, the rank's columns
+    unless ``gather`` (see :func:`_head`)."""
     x = _embed(cfg, params, tokens, embeds)
     enc = (_encode(cfg, params, enc_embeds, impl)
            if cfg.family == "audio" else None)
     x = _backbone(cfg, params, x, enc=enc, impl=impl)
-    return _head(cfg, params, x)
+    return _head(cfg, params, x, gather=gather)
 
 
 def lm_loss(cfg: ArchConfig, params: dict, batch: dict, *,
             impl: str = "auto") -> torch.Tensor:
+    """Mean token cross-entropy (z-loss 1e-4) of :func:`lm_forward`'s
+    logits.  In a mesh step whose head is split on the vocabulary the
+    logits stay split and the loss is vocabulary-parallel
+    (:func:`~repro_torch.models.layers.softmax_xent`)."""
     logits = lm_forward(
         cfg, params,
         tokens=batch.get("tokens"),
         embeds=batch.get("embeds"),
         enc_embeds=batch.get("enc_embeds"),
-        impl=impl)
-    return softmax_xent(logits, batch["labels"], z_loss=1e-4)
+        impl=impl, gather=False)
+    return softmax_xent(logits, batch["labels"], z_loss=1e-4,
+                        vocab=cfg.padded_vocab)
 
 
 # ---------------------------------------------------------------------------

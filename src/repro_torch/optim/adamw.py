@@ -2,12 +2,15 @@
 dicts of tensors), ``repro``'s update leaf for leaf.
 
 Leaves are walked in ``jax.tree``'s order (dict keys sorted), so the
-global norm's fp32 sum adds them in ``repro``'s order.  ``inplace=True``
-is the counterpart of donating the state to ``repro``'s jitted step: each
-leaf's new parameter and moments are written into the given tensors as
-soon as they are computed, so the update never holds a second copy of the
-parameters or the moments, and the clipped gradient exists for one leaf
-at a time."""
+global norm's fp32 sum adds them in ``repro``'s order.  Where each leaf is
+one rank's shard of the gradient (a mesh step), :func:`global_norm` takes
+a tree that says how each is split (``launch/sharding.py::LeafSplit``)
+and sums the squares over the ranks that split each leaf, a replicated
+leaf once.  ``inplace=True`` is the counterpart of donating the state to
+``repro``'s jitted step: each leaf's new parameter and moments are
+written into the given tensors as soon as they are computed, so the
+update never holds a second copy of the parameters or the moments, and
+the clipped gradient exists for one leaf at a time."""
 
 from __future__ import annotations
 
@@ -54,12 +57,25 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, split=None) -> torch.Tensor:
     """sqrt of the fp32 sum of squares of every leaf, the leaves' sums
-    added one by one in ``jax.tree`` order."""
+    added one by one in ``jax.tree`` order.  ``split``: where the leaves
+    are one rank's shards, a tree like ``tree`` of objects with ``parts``
+    (the ranks that split the leaf, hashable) and ``sum`` (a tensor
+    summed over those ranks).  The sums of the leaves split alike are
+    added in order, then summed over their ranks (one all-reduce an
+    axis), and these added in the order they first appear: a leaf no
+    rank splits counts once."""
+    leaves = tree_leaves(tree)
+    splits = [None] * len(leaves) if split is None else tree_leaves(split)
+    sums: dict = {}
+    for g, sp in zip(leaves, splits):
+        key = () if sp is None else sp.parts
+        first, part = sums.get(key, (sp, 0))
+        sums[key] = (first, part + torch.sum(torch.square(g.to(_F32))))
     total = 0
-    for g in tree_leaves(tree):
-        total = total + torch.sum(torch.square(g.to(_F32)))
+    for key, (sp, part) in sums.items():
+        total = total + (sp.sum(part) if key else part)
     return torch.sqrt(total)
 
 

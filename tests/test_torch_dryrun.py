@@ -11,9 +11,11 @@
   rank 0: the all-gathers, all-reduces, all-to-alls and sends of every
   step, count and bytes, equal those derived here from the pspec trees
   alone (``param_pspecs``, ``input_pspecs``, ``cache_pspecs``,
-  ``opt_pspecs``) and the launchers' schemes: the train step gathers
-  every leaf whole; the serving steps gather over the data axes only and
-  compute partitioned over 'model' (``_partitioned_blocks``);
+  ``opt_pspecs``) and the launchers' schemes: every step gathers over
+  the data axes only and computes partitioned over 'model'
+  (``_partitioned_blocks``; the train step's forward, recomputation and
+  backward, ``_partitioned_train``, then its gradients' mean over the
+  data axes and the optimizer's sums, ``_optimizer``);
   ``argument_size_in_bytes`` equals the bytes of the rank's placed shards
   and input slices.
 """
@@ -91,7 +93,9 @@ def test_a_production_cell_writes_an_ok_record(tmp_path):
     cfg = ARCHS["mamba2-130m"]
     assert mem["argument_size_in_bytes"] >= 16 * 4096 * 2 * 4
     acct = rec["hlo_accounting"]
-    assert acct["flops"] > 6 * cfg.n_params() * 16 * 4096
+    # the step computes partitioned over the 16 ranks of 'model': the
+    # rank's share of 6·N·D on its 16 rows, at least
+    assert acct["flops"] > 6 * cfg.n_params() * 16 * 4096 / 16
     assert acct["count_by_type"]["all-reduce"] > 0
     # K5 under autograd with remat: the forward and its recomputation
     assert rec["kernels"] == {"ssd": 2 * cfg.n_layers}
@@ -264,16 +268,27 @@ def _expected(name, kind, key):
     if kind == "train":
         aval, _ = train_state_specs(cfg)
         sspecs = state_pspecs(cfg, aval, mesh)
-        ex.gather_tree(aval["params"], sspecs["params"])
+        pspecs = sspecs["params"]
+        # each leaf gathered over the data axes only (none splits a
+        # reduced config's leaves: fsdp is off)
+        for t, spec in zip(tree_leaves(aval["params"]),
+                           tree_leaves(pspecs)):
+            shard = t.numel() * t.element_size() // _split(spec, sizes)
+            for entry in spec:
+                ex.gather_data(shard, entry)
         axes = axes_of(bspecs["labels"][0])
-        grads = sum(t.numel() * t.element_size()
-                    for t in tree_leaves(aval["params"]))
-        leaves = len(tree_leaves(aval["params"]))
+        rows = BATCH // math.prod(sizes[a] for a in axes)
+        _partitioned_train(ex, cfg, sizes["model"], rows)
         # per data-parallel axis: the loss, then every leaf's gradient
-        ex.count["all-reduce"] = len(axes) * (1 + leaves)
-        ex.bytes["all-reduce"] = len(axes) * (4 + grads)
-        if cfg.optimizer == "adafactor":
-            ex.gather_tree(aval["opt"], sspecs["opt"])
+        # (this rank's 'model' shard)
+        shards = [t.numel() * t.element_size() // _split(spec, sizes)
+                  for t, spec in zip(tree_leaves(aval["params"]),
+                                     tree_leaves(pspecs))]
+        for _ in axes:
+            ex.add("all-reduce", 4)
+            for n in shards:
+                ex.add("all-reduce", n)
+        _optimizer(ex, cfg, aval, pspecs, sizes)
         argument += sum(t.numel() * t.element_size() // _split(s, sizes)
                         for t, s in zip(tree_leaves(aval),
                                         tree_leaves(sspecs)))
@@ -371,6 +386,126 @@ def _partitioned_blocks(ex, cfg, kind, r, rows):
             if (layer + 1) % cfg.attn_every == 0:
                 attn()
                 mlp()
+
+
+def _partitioned_train(ex, cfg, r, rows):
+    """The collectives over 'model' of one partitioned train step of
+    ``rows`` x SEQ tokens on ``r`` ranks, in three passes.  The forward:
+    the prefill's (:func:`_partitioned_blocks`) but the logits stay split,
+    and the vocabulary-parallel loss sums the row maximum, the sum of
+    exponentials and the label's logit (an all-reduce of a value a token
+    each).  The recomputation of each rematerialized block (every scanned
+    layer; not the hybrid's shared block) runs its forward only as far as
+    its last saved tensor, so it issues again every forward collective
+    but the block's last all-reduce (the MLP's, or the MoE's, the
+    out-projection's).  The backward: f's all-reduce of each replicated
+    tensor that enters partitioned compute (x at each attention with
+    heads split, MLP, MoE, Mamba2 mixer and the head; the norm's
+    variance in a mixer), f's all-reduce of each whole leaf that feeds
+    partitioned compute (the MoE router; the mixer's ``wbc``, ``wdt``,
+    ``conv_wbc``, ``a_log``, ``dt_bias``, ``d_skip``; ``wk``/``wv``
+    where the kv heads stay whole), and the inverse of each all-to-all;
+    g has no backward collective."""
+    f32, d, v = 4, cfg.d_model, cfg.padded_vocab
+    tokens = rows * SEQ
+    hd = cfg.resolved_head_dim if cfg.n_heads else 0
+    heads = cfg.n_heads and cfg.n_heads % r == 0
+    mlp_split = (2 * cfg.d_ff) % r == 0 and cfg.d_ff % r == 0
+    regroup = min(tokens, d) * 2 * cfg.d_ff // r * f32
+    h, n = (cfg.d_inner // cfg.ssm_head_dim, cfg.ssm_state) \
+        if cfg.ssm_state else (0, 0)
+    whole_mixer = [d * 2 * n, d * h, 4 * 2 * n, h, h, h]
+
+    def attn(remat):
+        if not heads:
+            return
+        ex.add("all-reduce", tokens * d * f32, 3 if remat else 2)
+        if cfg.n_kv_heads % r:          # kv heads whole: wk, wv
+            ex.add("all-reduce", d * cfg.n_kv_heads * hd * f32, 2)
+
+    def mlp(remat):
+        if cfg.family == "moe":
+            if cfg.n_experts % r == 0:
+                ex.add("all-reduce", tokens * d * f32, 2)
+                ex.add("all-reduce", d * cfg.n_experts * f32)
+            return
+        if mlp_split:
+            ex.add("all-to-all", regroup, 3 if remat else 2)
+            ex.add("all-reduce", tokens * d * f32, 2)
+
+    def mamba():                        # always rematerialized
+        if cfg.ssm_head_dim % r == 0:
+            ex.add("all-reduce", tokens * f32, 3)       # sum of squares
+            ex.add("all-reduce", tokens * d * f32, 2)   # out-proj, f(x)
+            for nbytes in whole_mixer:
+                ex.add("all-reduce", nbytes * f32)
+
+    if v % r == 0:
+        ex.add("all-reduce", tokens * d * f32, 2)   # lookup; head's f
+        ex.add("all-reduce", tokens * f32, 3)       # the loss
+    if cfg.family in ("dense", "moe", "vlm"):
+        for _ in range(cfg.n_layers):
+            attn(True)
+            mlp(True)
+    elif cfg.family == "ssm":
+        for _ in range(cfg.n_layers):
+            mamba()
+    elif cfg.family == "hybrid":
+        for layer in range(cfg.n_layers):
+            mamba()
+            if (layer + 1) % cfg.attn_every == 0:
+                attn(False)
+                mlp(False)
+
+
+def _optimizer(ex, cfg, aval, pspecs, sizes):
+    """The optimizer's sums over the axes that split each leaf: AdamW's
+    global norm, one all-reduce of a scalar for each set of axes that
+    splits some leaf; Adafactor's means of ``g²`` over the last dimension
+    and over dimension -2, of ``vr`` over its rows, each where an axis
+    splits that dimension, and of the update's square, where one splits
+    any."""
+    def axes(entry):
+        return [a for a in axes_of(entry) if sizes[a] > 1]
+
+    leaves = list(zip(tree_leaves(aval["params"]), tree_leaves(pspecs)))
+    if cfg.optimizer != "adafactor":
+        keys = {tuple(sorted({a for e in s for a in axes(e)}))
+                for _, s in leaves}
+        for key in keys:
+            if key:
+                ex.add("all-reduce", 4, len(key))
+        return
+    for (t, spec), st in zip(leaves, _stats_of(aval)):
+        dims = [axes(spec[i] if i < len(spec) else None)
+                for i in range(t.dim())]
+        local = [t.shape[i] // math.prod(sizes[a] for a in dims[i])
+                 for i in range(t.dim())]
+        if "vr" in st:
+            for dim in (-1, -2):
+                if dims[dim]:
+                    out = math.prod(local) // local[dim] * 4
+                    ex.add("all-reduce", out, len(dims[dim]))
+            if dims[-2]:
+                ex.add("all-reduce", math.prod(local[:-2]) * 4,
+                       len(dims[-2]))
+        if any(dims):
+            ex.add("all-reduce", 4, sum(len(a) for a in dims))
+
+
+def _stats_of(aval):
+    """Adafactor's statistics of each leaf, in ``tree_leaves`` order."""
+    out = []
+
+    def walk(tree):
+        if "vr" in tree or "v" in tree:
+            out.append(tree)
+            return
+        for k in sorted(tree):
+            walk(tree[k])
+
+    walk(aval["opt"]["stats"])
+    return out
 
 
 @pytest.mark.parametrize("kind", KINDS)

@@ -6,7 +6,9 @@ gloo rank each, that import the port and never JAX; inputs and results
 cross as ``torch.save`` files.  Every process group and every spawn has
 a time limit, and a rank that fails takes the others down at once.
 
-* Train step, (pod 2, data 2, model 2) mesh, repro's multipod scenarios
+* Train step (computed partitioned over 'model'; the gradient's 'model'
+  shards gathered for the checks), (pod 2, data 2, model 2) mesh,
+  repro's multipod scenarios
   (reduced granite-3-2b, dbrx-132b on Adafactor, mamba2-130m, and a
   reduced zamba2-2.7b with ``n_layers=4``), 16 tokens x 8 rows, from
   repro's train state carried across: the loss within 1e-5 of the port's
@@ -180,10 +182,19 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.data import make_batch, synthetic_batches
 from repro_torch.launch import (build_train_step, gather_tree,
                                 make_test_mesh, place_tree, train_loop)
+from repro_torch.launch.sharding import axes_of, gather_data_tree, gather_over
 from repro_torch.launch.train import _mesh_loss_and_grads
 from repro_torch.tree import tree_leaves, tree_map
 
 cell = ShapeCell("t", *load("cell"), "train")
+
+
+def whole_over_model(g, spec, mesh):
+    # a gradient's 'model' shards, gathered along the dimension split
+    for dim, entry in enumerate(spec):
+        if "model" in axes_of(entry):
+            g = gather_over(g, ("model",), mesh, dim)
+    return g
 
 
 def run(mesh, name, kw):
@@ -192,8 +203,12 @@ def run(mesh, name, kw):
     batch = make_batch(cfg, cell, seed=0, step=0, device="cpu")
     fn, (_, sspecs), (_, bspecs) = build_train_step(cfg, cell, mesh)
     placed = place_tree(state, sspecs, mesh)
+    # the partitioned loss and gradient shards, the shards gathered here
     loss, grads = _mesh_loss_and_grads(
-        cfg, mesh, bspecs, gather_tree(placed["params"]), batch)
+        cfg, mesh, bspecs,
+        gather_data_tree(placed["params"], sspecs["params"], mesh), batch)
+    grads = tree_map(lambda g, s: whole_over_model(g, s, mesh), grads,
+                     sspecs["params"])
     # not donated: a new state; the input's shards stay as they were
     before = [d.to_local().clone() for d in tree_leaves(placed)]
     kept, kept_metrics = build_train_step(cfg, cell, mesh, donate=False)[0](
