@@ -203,13 +203,20 @@ Phases, in order; each raises on failure and nothing is caught:
    ``ssd_bound``; after ``mesh``, ``mesh_tp``: the serving steps
    partitioned over 'model' by two gloo ranks sharing the card (each a
    process of its own with a time limit), zamba2-2.7b fp32 at full width
-   and depth, prefill and 8 greedy decode steps (at the LM phase's
-   depth: positions 1,024 on of a 1,057 cache holding a seeded random
-   history) within 1e-4 of the unsharded steps (rank 0 runs them), equal
-   tokens, every rank's cache
-   shards; per rank K5 54 at P 32, K4 9 at 16 heads, K1 55 (ffma); one
-   bf16 layer mixer by mixer; prefill, decode and collective ms and peak
-   memory per rank.
+   and TP_LAYERS (18) of its 54 layers, prefill and 8 greedy decode steps
+   (at the LM phase's depth: positions 1,024 on of a 1,057 cache holding
+   a seeded random history) within 1e-4 of the unsharded steps (rank 0
+   runs them), equal tokens, every rank's cache shards; per rank K5 18
+   at P 32, K4 3 at 16 heads, K1 19 (ffma); one bf16 layer mixer by
+   mixer; prefill, decode and collective ms and peak memory per rank.
+   Slice 15, ``mesh_tp_train``: the same ranks train the same model
+   (fp32, 2 AdamW steps), held to rank 0's unsharded steps.  Slice 16,
+   ``mesh_fsdp``: two such ranks over 'data' with ``fsdp=True``, each
+   layer gathered just before it and its gradient reduce-scattered:
+   zamba2-2.7b at all 54 layers trained (2 fp32 AdamW steps), and served
+   at FSDP_SERVE_LAYERS (12) layers (prefill and 8 decode steps), and
+   dbrx-132b's decode at 2 of its 40 layers (FSDP_MOE_DECODE steps, the
+   MoE gathering its input's rows), each held to rank 0's unsharded run.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
    that their plain times are of a float64-summed GEMM.  A kernel's
@@ -227,7 +234,8 @@ Phases, in order; each raises on failure and nothing is caught:
    restored runs, ``training``: per train step (K4's and K5's also
    their backward's time per call and per step), ``mesh``: in slice
    12's runs over the one-rank mesh, ``mesh_tp``: per rank in slice
-   14's partitioned steps, and ``dryrun``: its calls in slice 13's
+   14's partitioned steps, ``mesh_tp_train`` and ``mesh_fsdp``: per rank
+   in slices 15's and 16's, and ``dryrun``: its calls in slice 13's
    traced prefill and train step; K5's ``widths``: a row per (P, N)
    with its time, plain time and bound.
 
@@ -323,13 +331,16 @@ from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
                                 place_tree)
 from repro_torch.launch.hlo_analysis import analyze_step  # noqa: E402
 from repro_torch.launch.sharding import (axes_of,  # noqa: E402
-                                         gather_data_tree, gather_over)
+                                         data_gather_of, gather_over,
+                                         local_tree)
 from repro_torch.launch.pipeline_mode import (  # noqa: E402
     build_pp_forward, split_stages)
 from repro_torch.launch.serve import (build_decode_step,  # noqa: E402
                                       build_prefill_step)
+from repro_torch.models.partition import (gather_for_use,  # noqa: E402
+                                          use_data_gather)
 from repro_torch.models.transformer import (_attn_block_fwd,  # noqa: E402
-                                            _scan_blocks)
+                                            _layer_slice, _scan_blocks)
 from repro_torch.optim.compress import (dequantize_int8,  # noqa: E402
                                         init_error_feedback, quantize_int8)
 from repro_torch.runtime import sync_pods_compressed  # noqa: E402
@@ -538,11 +549,14 @@ SSD_WIDTH_SHAPES = [("zamba2 prefill", 4, 1024, 80, 64, 128),
 #: slice 14, ``mesh_tp``: the serving steps partitioned over a 'model' axis
 #: of TP_MODEL gloo ranks sharing the card (NCCL refuses two ranks on one
 #: device), each a process of its own with TP_TIMEOUT seconds; zamba2-2.7b
-#: at full width and depth in fp32, held to the unsharded steps within
+#: at full width and TP_LAYERS of its 54 layers in fp32 (the depth cut to
+#: leave room for ``mesh_fsdp`` in the time limit), held to the unsharded
+#: steps within
 #: TP_TOL of the logits' scale, decoding at the LM phase's depth (a cache
 #: of LM_MAX_LEN, from position LM_PROMPT); the one-layer bf16 check at
 #: BF16_TOL
 TP_MODEL = 2
+TP_LAYERS = 18
 TP_DECODE = 8
 TP_TOL = 1e-4
 TP_REPS = 2
@@ -552,7 +566,8 @@ TP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
 
 #: slice 15, ``mesh_tp_train``: the train step partitioned over a 'model'
 #: axis of TP_MODEL gloo ranks sharing the card (each a process of its own
-#: with TP_TIMEOUT seconds), zamba2-2.7b at full width and depth in fp32,
+#: with TP_TIMEOUT seconds), zamba2-2.7b at full width and TP_LAYERS of its
+#: 54 layers in fp32,
 #: MESH_TRAIN_STEPS AdamW steps of TRAIN_CELL from seed 0, held to the
 #: unsharded steps: the loss within TPT_LOSS_TOL and the grad norm within
 #: TPT_NORM_TOL (relative), the moments within TPT_STATE_TOL of each
@@ -563,6 +578,23 @@ TPT_NORM_TOL = 1e-3
 TPT_STATE_TOL = 1e-3
 TPT_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
              "chip_smoke.mesh_tp_train_rank(int(sys.argv[2]), sys.argv[3])")
+
+#: slice 16, ``mesh_fsdp``: FSDP gathered layer by layer, by TP_MODEL gloo
+#: ranks sharing the card on a (data TP_MODEL, model 1) mesh (each a
+#: process of its own, TP_TIMEOUT seconds): LM_ARCH with ``fsdp=True``
+#: trained at all 54 layers as ``mesh_tp_train`` trains it (one sequence a
+#: rank) and served as ``mesh_tp`` serves it at FSDP_SERVE_LAYERS layers
+#: (two rows a rank), and FSDP_MOE_ARCH's decode at published widths cut to
+#: FSDP_MOE_LAYERS layers, bf16 parameters computed in fp32, FSDP_MOE_BATCH
+#: rows, FSDP_MOE_DECODE steps from position FSDP_MOE_POS of a seeded
+#: cache of FSDP_MOE_MAX_LEN: the MoE gathers its input's rows.  Every
+#: step gathers its parameters anew over gloo (~0.8 GB/s on one card),
+#: which sets the serving depths and the MoE's steps
+FSDP_SERVE_LAYERS = 12
+FSDP_MOE_ARCH, FSDP_MOE_LAYERS, FSDP_MOE_DECODE = "dbrx-132b", 2, 3
+FSDP_MOE_BATCH, FSDP_MOE_POS, FSDP_MOE_MAX_LEN = 4, 32, 64
+FSDP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+              "chip_smoke.mesh_fsdp_rank(int(sys.argv[2]), sys.argv[3])")
 
 #: slice 13, ``dryrun``: the production cell traced in subprocesses, and
 #: the tolerance of the traced train-step peak against the card's
@@ -3929,6 +3961,19 @@ def ms_of(times: dict) -> dict:
             for k, v in times.items()}
 
 
+def per_layer_gathers(cfg, placed: dict, pspecs: dict, mesh) -> None:
+    """The gathers over the data axes that a step makes of ``placed``
+    (``gather_for_use``): each layer's slice, the shared block, the
+    embedding and the head."""
+    local = local_tree(placed)
+    with use_data_gather(data_gather_of(pspecs, mesh)):
+        for l in range(cfg.n_layers):
+            gather_for_use(_layer_slice(local["blocks"], l), "blocks")
+        for path in ("shared", "embed", "lm_head"):
+            if path in local:
+                gather_for_use(local[path], path)
+
+
 def phase_mesh(card: str, lm: dict) -> dict:
     """Slice 12, ``mesh``: the mesh launchers over a mesh of one rank
     (one NCCL rank, ``make_test_mesh(data=1, model=1)``), on the LM
@@ -3940,7 +3985,8 @@ def phase_mesh(card: str, lm: dict) -> dict:
        55, all on wgmma), counts set to 0 just before and read just
        after.  Timed in turns with the unsharded prefill and with the
        mesh's own parts alone: placing the parameters (once, before the
-       steps), gathering them (each step) and the logits' gather.
+       steps), the per-layer gathers over the data axes (each step: at
+       one rank, what they cost doing nothing) and the logits' gather.
     2. ``build_decode_step`` (donate) MESH_DECODE greedy steps from a fresh
        cache of MESH_MAX_LEN, beside ``decode_fn`` on a cache of its own:
        logits ``torch.equal`` every step, every cache leaf ``torch.equal``
@@ -3986,8 +4032,8 @@ def phase_mesh(card: str, lm: dict) -> dict:
             "unsharded": lambda: prefill_fn(cfg, params, tokens=tokens),
             "mesh": lambda: prefill(placed, {"tokens": tokens}),
             "place_tree": lambda: place_tree(params, pspecs, mesh),
-            "gather_data_tree": lambda: gather_data_tree(placed, pspecs,
-                                                         mesh),
+            "gather_for_use": lambda: per_layer_gathers(cfg, placed,
+                                                        pspecs, mesh),
             "gather_logits": lambda: gather_over(want, axes, mesh)}))
         del got, placed
 
@@ -4044,7 +4090,7 @@ def phase_mesh(card: str, lm: dict) -> dict:
         "pipeline": pipeline, "local_sgd": sgd,
         "timer": f"host clock around synchronize; prefill {MESH_REPS} "
                  f"runs of each side and of the mesh's parts alone "
-                 f"(place_tree once before the steps, gather_data_tree "
+                 f"(place_tree once before the steps, gather_for_use "
                  f"and gather_logits in each) in turns, decode each step of "
                  f"both",
         "phase_s": time.perf_counter() - t_phase, "card": card}
@@ -4053,9 +4099,9 @@ def phase_mesh(card: str, lm: dict) -> dict:
           f"bitwise, median {prefill_ms['mesh']['median_ms']:.1f} ms on "
           f"the mesh vs {prefill_ms['unsharded']['median_ms']:.1f} ms "
           f"unsharded (placing once "
-          f"{prefill_ms['place_tree']['median_ms']:.3f} ms, gathering "
-          f"the params over the data axis "
-          f"{prefill_ms['gather_data_tree']['median_ms']:.3f} and "
+          f"{prefill_ms['place_tree']['median_ms']:.3f} ms, the "
+          f"per-layer gathers over the data axis "
+          f"{prefill_ms['gather_for_use']['median_ms']:.3f} and "
           f"the logits {prefill_ms['gather_logits']['median_ms']:.3f} ms "
           f"a step); {MESH_DECODE} decode steps bitwise, cache in place, "
           f"median {decode_ms['mesh']['median_ms']:.1f} vs "
@@ -4066,13 +4112,14 @@ def phase_mesh(card: str, lm: dict) -> dict:
             "pipeline": pipeline["launches"]}
 
 
-def shard_of(t: torch.Tensor, spec, model_rank: int) -> torch.Tensor:
-    """``t``'s shard on a (data 1, model TP_MODEL) mesh at 'model' rank
-    ``model_rank`` under ``spec``."""
+def shard_of(t: torch.Tensor, spec, rank: int, axis: str = "model",
+             ranks: int = TP_MODEL) -> torch.Tensor:
+    """``t``'s shard under ``spec`` at rank ``rank`` of ``axis``, the only
+    axis of more than one rank (``ranks``) of the mesh."""
     for dim, entry in enumerate(spec):
-        if "model" in axes_of(entry):
-            size = t.shape[dim] // TP_MODEL
-            t = t.narrow(dim, model_rank * size, size)
+        if axis in axes_of(entry):
+            size = t.shape[dim] // ranks
+            t = t.narrow(dim, rank * size, size)
     return t
 
 
@@ -4104,19 +4151,23 @@ class _Recorder:
 
 
 @contextlib.contextmanager
-def timed_collectives(log: dict):
-    """Each all_reduce, all_gather and all_to_all_single timed on the host
-    clock between synchronizes, into ``log``: ms, calls and bytes by
-    type."""
+def timed_collectives(log: dict, sync: bool = True):
+    """Each all_reduce, all_gather, reduce_scatter_tensor and
+    all_to_all_single timed on the host clock between synchronizes, into
+    ``log``: ms, calls and bytes (of the first argument: the result) by
+    type.  Without ``sync`` only counted: the ms is then the host's time
+    in the call."""
     saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather",
+                                            "reduce_scatter_tensor",
                                             "all_to_all_single")}
+    barrier = torch.cuda.synchronize if sync else (lambda: None)
 
     def wrap(name, fn):
         def run(*a, **k):
-            torch.cuda.synchronize()
+            barrier()
             t0 = time.perf_counter()
             out = fn(*a, **k)
-            torch.cuda.synchronize()
+            barrier()
             entry = log.setdefault(name, {"ms": 0.0, "calls": 0, "bytes": 0})
             entry["ms"] += 1e3 * (time.perf_counter() - t0)
             entry["calls"] += 1
@@ -4217,7 +4268,8 @@ def mesh_tp_run(rank: int, workdir: str) -> dict:
     steps and holds the results to them (see :func:`phase_mesh_tp`)."""
     from repro_torch.models import transformer as tf
     mesh = make_test_mesh(data=1, model=TP_MODEL, device_type=DEVICE)
-    cfg = dataclasses.replace(ARCHS[LM_ARCH], compute_dtype="float32")
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], n_layers=TP_LAYERS,
+                              compute_dtype="float32")
     params = init_model(cfg, 0, device=DEVICE)
     g = torch.Generator(device=DEVICE).manual_seed(14)
     tokens = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
@@ -4387,17 +4439,18 @@ def phase_mesh_tp(card: str) -> dict:
     """Slice 14, ``mesh_tp``: the serving steps partitioned over 'model',
     by TP_MODEL gloo ranks that share the card (each a process of its own,
     ``make_test_mesh(data=1, model=TP_MODEL, device_type="cuda")``), on
-    zamba2-2.7b at its published widths and all 54 layers, compute in
-    fp32, made on each rank from seed 0 and placed once:
+    zamba2-2.7b at its published widths and TP_LAYERS of its 54 layers
+    (18: 3 groups of 6 and the shared block 3 times), compute in fp32,
+    made on each rank from seed 0 and placed once:
 
     1. ``build_prefill_step`` on LM_BATCH x LM_PROMPT tokens: each rank's
-       launches (counts set to 0 just before, read just after) K5 54 at
-       P = 32, K4 9 at 16 q-heads, K1 55; rank 0 holds the logits within
+       launches (counts set to 0 just before, read just after) K5 18 at
+       P = 32, K4 3 at 16 q-heads, K1 19; rank 0 holds the logits within
        TP_TOL of their scale to the unsharded ``prefill_fn`` on the same
        card.
     2. ``build_decode_step`` TP_DECODE greedy steps at the LM phase's
        depth: a cache of LM_MAX_LEN holding a seeded random history,
-       positions LM_PROMPT on (K1 55, K4 0, K5 0 a step): logits within
+       positions LM_PROMPT on (K1 19, K4 0, K5 0 a step): logits within
        TP_TOL, greedy tokens equal to the unsharded decode's; then every
        rank's cache shards (``to_local``, written in place) within
        TP_TOL of their slices of the unsharded cache.
@@ -4482,6 +4535,63 @@ def adamw_step_bound(opt_cfg, steps: int) -> float:
     return bound
 
 
+def held_state_shards(label: str, rank: int, state: dict, sspecs: dict,
+                      names: list, ref_state, axis: str) -> dict | None:
+    """Every rank's shard of every leaf of the placed train ``state``
+    (split over ``axis``, TP_MODEL ranks) after MESH_TRAIN_STEPS AdamW
+    steps, against the slice of the unsharded state's leaf (``ref_state``,
+    on rank 0's host), leaf by leaf: rank 1's shards go to rank 0 (one
+    all-to-all each), which holds them and its own to the reference.  The
+    step counters equal, each parameter within :func:`adamw_step_bound`
+    plus 2 ulps of the slice's largest entry, m and v within
+    TPT_STATE_TOL of its largest entry.  Rank 0 returns the worst errors,
+    the others None."""
+    reference = rank == 0
+    bound = adamw_step_bound(AdamWConfig(), MESH_TRAIN_STEPS)
+    worst = {"params": [0.0, None], "moments": [0.0, None]}
+    for j, (name, leaf, spec) in enumerate(zip(
+            names, tree_leaves(state), tree_leaves(sspecs))):
+        local = leaf.to_local()
+        flat = local.contiguous().reshape(-1)
+        n = flat.numel()
+        sizes = [n if (rank == 0 and r > 0) else 0 for r in range(TP_MODEL)]
+        got = flat.new_empty((sum(sizes),))
+        dist.all_to_all_single(
+            got, flat if rank > 0 else flat[:0], sizes,
+            [n if (d == 0 and rank > 0) else 0 for d in range(TP_MODEL)])
+        if not reference:
+            continue
+        want = ref_state[j].to(DEVICE)
+        parts = [local] + list(got.view(TP_MODEL - 1, *local.shape))
+        for r, part in enumerate(parts):
+            w = shard_of(want, spec, r, axis)
+            if name.endswith("step"):
+                ok, err = torch.equal(part, w), 0.0
+            elif name.startswith("/params/"):
+                err = (part.float() - w.float()).abs().max().item()
+                tol = bound + 2 ** -22 * w.float().abs().max().item()
+                ok = err <= tol
+                err = err / tol
+                key = "params"
+            else:
+                err = rel_scale_err(part, w)
+                ok = err <= TPT_STATE_TOL
+                key = "moments"
+            if not ok:
+                raise AssertionError(f"{label}: rank {r}'s shard of {name} "
+                                     f"differs from the unsharded state's "
+                                     f"slice ({err:.3g})")
+            if not name.endswith("step") and err >= worst[key][0]:
+                worst[key] = [err, f"{name} (rank {r})"]
+        del want, parts, got
+    if not reference:
+        return None
+    return {"leaves": len(names), "ranks": TP_MODEL, "param_bound": bound,
+            "worst_param_err_of_bound": worst["params"],
+            "worst_moment_err_of_scale": worst["moments"],
+            "moment_tol": TPT_STATE_TOL}
+
+
 def mesh_tp_train_rank(rank: int, workdir: str) -> None:
     """One rank of slice 15's ``mesh_tp_train`` phase (``TPT_CHILD``)."""
     gloo_rank(rank, workdir, mesh_tp_train_run)
@@ -4491,7 +4601,8 @@ def mesh_tp_train_run(rank: int, workdir: str) -> dict:
     """The body of one ``mesh_tp_train`` rank; rank 0 also runs the
     unsharded steps first and holds the results to them (see
     :func:`phase_mesh_tp_train`)."""
-    cfg = dataclasses.replace(ARCHS[LM_ARCH], compute_dtype="float32")
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], n_layers=TP_LAYERS,
+                              compute_dtype="float32")
     per_step = train_counts(cfg)
     batches = list(itertools.islice(
         synthetic_batches(cfg, TRAIN_CELL, seed=0, device=DEVICE),
@@ -4567,51 +4678,11 @@ def mesh_tp_train_run(rank: int, workdir: str) -> dict:
     out["rel_err"] = errs
 
     # 4. every rank's shard of every state leaf against the unsharded
-    # state's slice, leaf by leaf: rank 1's shards go to rank 0 (one
-    # all-to-all each), which holds them and its own to the reference
-    bound = adamw_step_bound(AdamWConfig(), MESH_TRAIN_STEPS)
-    worst = {"params": [0.0, None], "moments": [0.0, None]}
-    for j, (name, leaf, spec) in enumerate(zip(
-            names, tree_leaves(state), tree_leaves(sspecs))):
-        local = leaf.to_local()
-        flat = local.contiguous().reshape(-1)
-        n = flat.numel()
-        sizes = [n if (rank == 0 and r > 0) else 0 for r in range(TP_MODEL)]
-        got = flat.new_empty((sum(sizes),))
-        dist.all_to_all_single(
-            got, flat if rank > 0 else flat[:0], sizes,
-            [n if (d == 0 and rank > 0) else 0 for d in range(TP_MODEL)])
-        if not reference:
-            continue
-        want = ref_state[j].to(DEVICE)
-        parts = [local] + list(got.view(TP_MODEL - 1, *local.shape))
-        for r, part in enumerate(parts):
-            w = shard_of(want, spec, r)
-            if name.endswith("step"):
-                ok, err = torch.equal(part, w), 0.0
-            elif name.startswith("/params/"):
-                err = (part.float() - w.float()).abs().max().item()
-                tol = bound + 2 ** -22 * w.float().abs().max().item()
-                ok = err <= tol
-                err = err / tol
-                key = "params"
-            else:
-                err = rel_scale_err(part, w)
-                ok = err <= TPT_STATE_TOL
-                key = "moments"
-            if not ok:
-                raise AssertionError(f"mesh_tp_train: rank {r}'s shard of "
-                                     f"{name} differs from the unsharded "
-                                     f"state's slice ({err:.3g})")
-            if not name.endswith("step") and err >= worst[key][0]:
-                worst[key] = [err, f"{name} (rank {r})"]
-        del want, parts, got
+    # state's slice
+    held = held_state_shards("mesh_tp_train", rank, state, sspecs, names,
+                             ref_state, "model")
     if reference:
-        out["state"] = {"leaves": len(names), "ranks": TP_MODEL,
-                        "param_bound": bound,
-                        "worst_param_err_of_bound": worst["params"],
-                        "worst_moment_err_of_scale": worst["moments"],
-                        "moment_tol": TPT_STATE_TOL}
+        out["state"] = held
     del ref_state
     dist.barrier()
 
@@ -4630,8 +4701,9 @@ def phase_mesh_tp_train(card: str) -> dict:
     """Slice 15, ``mesh_tp_train``: the train step partitioned over
     'model', by TP_MODEL gloo ranks that share the card (each a process
     of its own, ``make_test_mesh(data=1, model=TP_MODEL)``), on
-    zamba2-2.7b at its published widths and all 54 layers, compute in
-    fp32, AdamW, MESH_TRAIN_STEPS steps of TRAIN_CELL from seed 0.
+    zamba2-2.7b at its published widths and TP_LAYERS of its 54 layers,
+    compute in fp32, AdamW, MESH_TRAIN_STEPS steps of TRAIN_CELL from
+    seed 0.
 
     1. Rank 0 runs the unsharded steps (``build_train_step(cfg, cell)``)
        alone while rank 1 waits, keeps the losses, the grad norms and the
@@ -4714,6 +4786,384 @@ def phase_mesh_tp_train(card: str) -> dict:
           f"within {st['worst_param_err_of_bound'][0]:.3g} of AdamW's "
           f"bound {st['param_bound']:.3g}; card {card}", flush=True)
     return {"per_step_per_rank": r0["launches_per_step"]}
+
+
+def mesh_fsdp_rank(rank: int, workdir: str) -> None:
+    """One rank of slice 16's ``mesh_fsdp`` phase (``FSDP_CHILD``)."""
+    gloo_rank(rank, workdir, mesh_fsdp_run)
+
+
+def coll_summary(log: dict, times: int = 1) -> dict:
+    """Calls and GB by collective type from a ``timed_collectives`` log,
+    per one of ``times`` steps."""
+    return {k: {"calls": e["calls"] / times, "gb": e["bytes"] / times / 1e9}
+            for k, e in sorted(log.items())}
+
+
+def mesh_fsdp_train(rank: int, workdir: str, mesh) -> dict:
+    """Part 1 of a ``mesh_fsdp`` rank: LM_ARCH with ``fsdp=True``, fp32,
+    MESH_TRAIN_STEPS AdamW steps of TRAIN_CELL from seed 0, each rank one
+    sequence, beside rank 0's unsharded steps (run first, alone; the
+    state kept on the host)."""
+    cfg = dataclasses.replace(ARCHS[LM_ARCH], compute_dtype="float32",
+                              fsdp=True)
+    per_step = train_counts(cfg)
+    batches = list(itertools.islice(
+        synthetic_batches(cfg, TRAIN_CELL, seed=0, device=DEVICE),
+        MESH_TRAIN_STEPS))
+    names = leaf_names(make_train_state(cfg, 0, device="meta"))
+    reference, ref_state = rank == 0, None
+    ref_path = os.path.join(workdir, "fsdp_train_unsharded.json")
+    out: dict = {}
+    if reference:
+        torch.cuda.reset_peak_memory_stats()
+        state = make_train_state(cfg, 0, device=DEVICE)
+        step_fn = build_train_step(cfg, TRAIN_CELL)[0]
+        ref = {"losses": [], "grad_norms": [], "step_ms": []}
+        for i, batch in enumerate(batches):
+            reset_launches()
+            (state, m), s = timed(lambda: step_fn(state, batch))
+            expect_counts(f"mesh_fsdp unsharded step {i + 1}", per_step)
+            ref["losses"].append(float(m["loss"]))
+            ref["grad_norms"].append(float(m["grad_norm"]))
+            ref["step_ms"].append(1e3 * s)
+        ref["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        ref_state = [t.cpu() for t in tree_leaves(state)]
+        del state
+        torch.cuda.empty_cache()
+        with open(ref_path, "w") as f:
+            json.dump(ref, f)
+        out["unsharded"] = ref
+    dist.barrier()
+    with open(ref_path) as f:
+        ref = json.load(f)
+
+    step_fn, (_, sspecs), _ = build_train_step(cfg, TRAIN_CELL, mesh)
+    split = sum(1 for s in tree_leaves(sspecs["params"])
+                if any("data" in axes_of(e) for e in s))
+    state = None
+    for r in range(TP_MODEL):
+        if r == rank:
+            state = place_tree(make_train_state(cfg, 0, device=DEVICE),
+                               sspecs, mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs, coll = [], [], [], {}
+    with timed_collectives(coll, sync=False):
+        for i, batch in enumerate(batches):
+            reset_launches()
+            (state, m), s = timed(lambda: step_fn(state, batch))
+            launches = expect_counts(f"mesh_fsdp rank {rank} train step "
+                                     f"{i + 1}", per_step)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            secs.append(s)
+    out.update(losses=losses, grad_norms=norms,
+               step_ms=[1e3 * t for t in secs],
+               launches_per_step=launches, leaves_split_over_data=split,
+               collectives_per_step=coll_summary(coll, len(batches)),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    errs = {"loss": [abs(a - b) / abs(b) for a, b in
+                     zip(losses, ref["losses"])],
+            "grad_norm": [abs(a - b) / abs(b) for a, b in
+                          zip(norms, ref["grad_norms"])]}
+    if not (max(errs["loss"]) <= TPT_LOSS_TOL
+            and max(errs["grad_norm"]) <= TPT_NORM_TOL):
+        raise AssertionError(f"mesh_fsdp rank {rank}: losses {losses} vs "
+                             f"{ref['losses']}, grad norms {norms} vs "
+                             f"{ref['grad_norms']}")
+    out["rel_err"] = errs
+    held = held_state_shards("mesh_fsdp", rank, state, sspecs, names,
+                             ref_state, "data")
+    if reference:
+        out["state"] = held
+    del state, ref_state
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def random_cache(cfg, batch: int, max_len: int, seed: int) -> dict:
+    """A decode cache whose every leaf holds a seeded random history."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return tree_map(
+        lambda t: torch.randn(t.shape, generator=g, device=DEVICE,
+                              dtype=t.dtype),
+        init_cache(cfg, batch, max_len, device=DEVICE))
+
+
+def mesh_fsdp_serve(rank: int, workdir: str, mesh, label: str, cfg,
+                    batch: int, prompt: int, max_len: int, first_pos: int,
+                    steps: int, per_prefill: dict | None,
+                    per_step: dict) -> dict:
+    """Parts 2 and 3 of a ``mesh_fsdp`` rank: ``cfg``'s prefill of
+    ``batch`` x ``prompt`` seeded tokens (none where ``per_prefill`` is
+    None: the first token is then seeded) and ``steps`` greedy decode
+    steps from ``first_pos`` of a seeded cache of ``max_len``, by
+    ``build_prefill_step`` / ``build_decode_step`` on ``mesh`` (the
+    parameters made from seed 0 by one rank at a time and placed), beside
+    rank 0's unsharded ``prefill_fn`` / ``decode_fn``, run first and
+    alone, its results kept on the host: logits within TP_TOL of their
+    scale, greedy tokens equal, every rank's cache shards within TP_TOL
+    of the unsharded cache's rows."""
+    reference = rank == 0
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, max(prompt, 1)),
+                           device=DEVICE, generator=g)
+    out: dict = {}
+    ref: dict = {}
+    if reference:
+        params = init_model(cfg, 0, device=DEVICE)
+        if per_prefill is not None:
+            want, s = timed(lambda: prefill_fn(cfg, params, tokens=tokens))
+            ref["prefill"], ref["prefill_ms"] = want.cpu(), 1e3 * s
+            tok = want[:, -1].argmax(dim=-1, keepdim=True)
+        else:
+            tok = tokens[:, :1]
+        cache = random_cache(cfg, batch, max_len, 17)
+        ref.update(decode=[], tokens=[], decode_ms=[])
+        for i in range(steps):
+            (w, cache), s = timed(lambda: decode_fn(cfg, params, cache, tok,
+                                                    first_pos + i))
+            ref["decode"].append(w.cpu())
+            ref["tokens"].append(tok.flatten().tolist())
+            ref["decode_ms"].append(1e3 * s)
+            tok = w[:, -1].argmax(dim=-1, keepdim=True)
+        ref["cache"] = [t.cpu() for t in tree_leaves(cache)]
+        ref["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, cache, w
+        torch.cuda.empty_cache()
+        out["unsharded"] = {"prefill_ms": ref.get("prefill_ms"),
+                            "decode_ms": ref["decode_ms"],
+                            "peak_memory_gb": ref["peak_memory_gb"]}
+    dist.barrier()
+
+    prefill, (_, pspecs), _ = build_prefill_step(
+        cfg, ShapeCell("prefill", max(prompt, 1), batch, "prefill"), mesh)
+    decode, (_, dspecs), (_, bspecs) = build_decode_step(
+        cfg, ShapeCell("decode", max_len, batch, "decode"), mesh)
+    if tree_leaves(pspecs) != tree_leaves(dspecs):
+        raise AssertionError(f"{label}: the prefill and decode specs "
+                             f"differ; the parameters are placed once")
+    placed = None
+    for r in range(TP_MODEL):
+        if r == rank:
+            placed = place_tree(init_model(cfg, 0, device=DEVICE), pspecs,
+                                mesh)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    coll: dict = {"prefill": {}, "decode": {}}
+    if per_prefill is not None:
+        reset_launches()
+        with timed_collectives(coll["prefill"], sync=False):
+            got, s = timed(lambda: prefill(placed, {"tokens": tokens}))
+        out["prefill"] = {
+            "launches": expect_counts(f"{label} rank {rank} prefill",
+                                      per_prefill),
+            "tiled_mm_paths": expect_fp32_paths(
+                f"{label} rank {rank} prefill", per_prefill["tiled_mm"]),
+            "ms": 1e3 * s}
+        if reference:
+            err = rel_scale_err(got.cpu(), ref["prefill"])
+            if not err <= TP_TOL:
+                raise AssertionError(f"{label} prefill: logits differ by "
+                                     f"{err:.3g} of their scale")
+            out["prefill"]["err_of_scale"] = err
+        tok = got[:, -1].argmax(dim=-1, keepdim=True)
+    else:
+        tok = tokens[:, :1]
+    cache = place_tree(random_cache(cfg, batch, max_len, 17),
+                       bspecs["cache"], mesh)
+    done = {"ms": [], "err_of_scale": []}
+    for i in range(steps):
+        if reference and tok.flatten().tolist() != ref["tokens"][i]:
+            raise AssertionError(f"{label} decode step {i}: greedy tokens "
+                                 f"{tok.flatten().tolist()} vs unsharded "
+                                 f"{ref['tokens'][i]}")
+        reset_launches()
+        with timed_collectives(coll["decode"], sync=False):
+            (lg, cache), s = timed(lambda: decode(placed, cache, tok,
+                                                  first_pos + i))
+        expect_counts(f"{label} rank {rank} decode step {i}", per_step)
+        expect_fp32_paths(f"{label} rank {rank} decode step {i}",
+                          per_step["tiled_mm"])
+        done["ms"].append(1e3 * s)
+        if reference:
+            err = rel_scale_err(lg.cpu(), ref["decode"][i])
+            if not err <= TP_TOL:
+                raise AssertionError(f"{label} decode step {i}: logits "
+                                     f"differ by {err:.3g} of their scale")
+            done["err_of_scale"].append(err)
+        tok = lg[:, -1].argmax(dim=-1, keepdim=True)
+    out["decode"] = {**done, "launches_per_step": per_step,
+                     "median_ms": statistics.median(done["ms"])}
+    out["collectives"] = {
+        "prefill": coll_summary(coll["prefill"]),
+        "decode_per_step": coll_summary(coll["decode"], steps)}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+
+    # every rank's cache rows against the unsharded cache's
+    torch.save([d.to_local().cpu() for d in tree_leaves(cache)],
+               os.path.join(workdir, f"{label}-cache{rank}.pt"))
+    dist.barrier()
+    if reference:
+        worst = 0.0
+        for r in range(TP_MODEL):
+            shards = torch.load(os.path.join(workdir,
+                                             f"{label}-cache{r}.pt"))
+            for t, w, sp in zip(shards, ref["cache"],
+                                tree_leaves(bspecs["cache"])):
+                e = rel_scale_err(t, shard_of(w, sp, r, "data"))
+                if not e <= TP_TOL:
+                    raise AssertionError(f"{label}: rank {r}'s cache rows "
+                                         f"differ by {e:.3g}")
+                worst = max(worst, e)
+        out["cache"] = {"leaves": len(ref["cache"]),
+                        "worst_err_of_scale": worst}
+    del placed, cache
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def mesh_fsdp_run(rank: int, workdir: str) -> dict:
+    """The body of one ``mesh_fsdp`` rank (see :func:`phase_mesh_fsdp`)."""
+    mesh = make_test_mesh(data=TP_MODEL, model=1, device_type=DEVICE)
+    lm = dataclasses.replace(ARCHS[LM_ARCH], n_layers=FSDP_SERVE_LAYERS,
+                             compute_dtype="float32", fsdp=True)
+    moe = dataclasses.replace(ARCHS[FSDP_MOE_ARCH], n_layers=FSDP_MOE_LAYERS,
+                              compute_dtype="float32", fsdp=True)
+    lm_prefill = {"tiled_mm": lm.n_layers // lm.attn_every * 6 + 1,
+                  "flash_attention": lm.n_layers // lm.attn_every,
+                  "ssd": lm.n_layers}
+    out = {"rank": rank, "train": mesh_fsdp_train(rank, workdir, mesh)}
+    out["serve"] = mesh_fsdp_serve(
+        rank, workdir, mesh, "mesh_fsdp serve", lm, LM_BATCH, LM_PROMPT,
+        LM_MAX_LEN, LM_PROMPT, TP_DECODE, lm_prefill,
+        {**lm_prefill, "flash_attention": 0, "ssd": 0})
+    out["moe_decode"] = mesh_fsdp_serve(
+        rank, workdir, mesh, "mesh_fsdp moe", moe, FSDP_MOE_BATCH, 0,
+        FSDP_MOE_MAX_LEN, FSDP_MOE_POS, FSDP_MOE_DECODE, None,
+        {"tiled_mm": 4 * moe.n_layers + 1, "flash_attention": 0, "ssd": 0})
+    return out
+
+
+def phase_mesh_fsdp(card: str) -> dict:
+    """Slice 16, ``mesh_fsdp``: FSDP gathered layer by layer, by TP_MODEL
+    gloo ranks that share the card (each a process of its own,
+    ``make_test_mesh(data=TP_MODEL, model=1)``): every leaf that
+    ``fsdp=True`` splits over 'data' is the rank's shard, gathered just
+    before its layer and its gradient reduce-scattered.
+
+    1. LM_ARCH (zamba2-2.7b) at its published widths and all 54 layers,
+       fp32, ``fsdp=True``: MESH_TRAIN_STEPS AdamW steps of TRAIN_CELL
+       from seed 0, one sequence a rank, beside rank 0's unsharded steps
+       (run first, alone): losses within TPT_LOSS_TOL and grad norms
+       within TPT_NORM_TOL relative, every rank's state shards as
+       ``mesh_tp_train`` holds them (:func:`held_state_shards`, the
+       derivations of :func:`phase_mesh_tp_train`); launches a step
+       :func:`train_counts`.
+    2. LM_ARCH served at FSDP_SERVE_LAYERS (12) of its layers, so the
+       shared block serves two groups: a prefill of LM_BATCH x LM_PROMPT
+       and TP_DECODE greedy decode steps at the LM phase's cache depth,
+       two rows a rank, against rank 0's unsharded steps at TP_TOL,
+       greedy tokens equal, the cache rows too
+       (:func:`mesh_fsdp_serve`); K1 13 (ffma), K4 2 and K5 12 a
+       prefill, K1 13 a decode step.
+    3. FSDP_MOE_ARCH (dbrx-132b) at published widths cut to
+       FSDP_MOE_LAYERS of its 40 layers, bf16 parameters computed in
+       fp32: FSDP_MOE_DECODE greedy decode steps of FSDP_MOE_BATCH rows, two a
+       rank, the MoE's input rows gathered over 'data' for its one
+       expert-choice group; held as part 2; K1 4 a layer and the head's
+       1 a step.
+    Per rank: peak memory, ms a step, the collectives' calls and GB by
+    type (counted, not timed), launches.  Fails if a rank fails or
+    outlives TP_TIMEOUT."""
+    t_phase = time.perf_counter()
+    ranks = run_ranks(FSDP_CHILD, "mesh_fsdp")
+    for res in ranks:
+        if res["train"]["losses"] != ranks[0]["train"]["losses"] or \
+                res["train"]["grad_norms"] != ranks[0]["train"]["grad_norms"]:
+            raise AssertionError("mesh_fsdp: the ranks report different "
+                                 "losses or grad norms")
+    r0 = ranks[0]
+    result = {"mesh_fsdp": [LM_ARCH, FSDP_MOE_ARCH],
+              "mesh": f"make_test_mesh(data={TP_MODEL}, model=1): "
+                      f"{TP_MODEL} gloo ranks sharing one card",
+              "compute": "float32", "optimizer": "adamw",
+              "train_cell": dataclasses.asdict(TRAIN_CELL),
+              "train_steps": MESH_TRAIN_STEPS,
+              "serve": {"layers": FSDP_SERVE_LAYERS,
+                        "prompt": [LM_BATCH, LM_PROMPT], "max_len":
+                        LM_MAX_LEN, "decode_steps": TP_DECODE},
+              "moe_decode": {"layers": FSDP_MOE_LAYERS, "params": "bfloat16",
+                             "batch": FSDP_MOE_BATCH, "first_pos":
+                             FSDP_MOE_POS, "max_len": FSDP_MOE_MAX_LEN,
+                             "decode_steps": FSDP_MOE_DECODE},
+              "tol": {"loss": TPT_LOSS_TOL, "grad_norm": TPT_NORM_TOL,
+                      "moments": TPT_STATE_TOL,
+                      "params": r0["train"]["state"]["param_bound"],
+                      "logits": TP_TOL},
+              "ranks": ranks,
+              "timer": "host clock around synchronize, each step; the "
+                       "collectives counted, not timed",
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+
+    def colls(c):
+        return ", ".join(f"{k} {e['calls']:g} x {e['gb']:.3f} GB"
+                         for k, e in c.items())
+
+    for res in ranks:
+        tr, sv, moe = res["train"], res["serve"], res["moe_decode"]
+        print(f"mesh_fsdp rank {res['rank']}: {LM_ARCH} fsdp fp32 train "
+              f"step {[round(t, 1) for t in tr['step_ms']]} ms (unsharded "
+              f"{[round(t, 1) for t in r0['train']['unsharded']['step_ms']]}"
+              f"), peak {tr['peak_memory_gb']:.2f} GB (unsharded "
+              f"{r0['train']['unsharded']['peak_memory_gb']:.2f}), "
+              f"{tr['leaves_split_over_data']} leaves split over 'data', a "
+              f"step {colls(tr['collectives_per_step'])}, launches "
+              f"{tr['launches_per_step']}; serving ({FSDP_SERVE_LAYERS} "
+              f"layers) prefill "
+              f"{sv['prefill']['ms']:.1f} ms (unsharded "
+              f"{r0['serve']['unsharded']['prefill_ms']:.1f}), "
+              f"{colls(sv['collectives']['prefill'])}; decode "
+              f"{sv['decode']['median_ms']:.1f} ms a step (unsharded "
+              f"{statistics.median(r0['serve']['unsharded']['decode_ms']):.1f}"
+              f"), {colls(sv['collectives']['decode_per_step'])}, peak "
+              f"{sv['peak_memory_gb']:.2f} GB; {FSDP_MOE_ARCH} "
+              f"{FSDP_MOE_LAYERS}-layer decode "
+              f"{moe['decode']['median_ms']:.1f} ms a step (unsharded "
+              f"{statistics.median(r0['moe_decode']['unsharded']['decode_ms']):.1f}"
+              f"), {colls(moe['collectives']['decode_per_step'])}, peak "
+              f"{moe['peak_memory_gb']:.2f} GB (unsharded "
+              f"{r0['moe_decode']['unsharded']['peak_memory_gb']:.2f}), "
+              f"launches a step {moe['decode']['launches_per_step']}; card "
+              f"{card}", flush=True)
+    tr, st = r0["train"], r0["train"]["state"]
+    print(f"mesh_fsdp: train losses {tr['losses']} vs "
+          f"{tr['unsharded']['losses']} (rel_err "
+          f"{max(tr['rel_err']['loss']):.3g}), grad norms rel_err "
+          f"{max(tr['rel_err']['grad_norm']):.3g}; {st['leaves']} state "
+          f"leaves: moments within {st['worst_moment_err_of_scale'][0]:.3g} "
+          f"of scale, parameters within "
+          f"{st['worst_param_err_of_bound'][0]:.3g} of AdamW's bound; "
+          f"serving logits within {TP_TOL} (prefill "
+          f"{r0['serve']['prefill']['err_of_scale']:.3g}, decode worst "
+          f"{max(r0['serve']['decode']['err_of_scale']):.3g}), MoE decode "
+          f"worst {max(r0['moe_decode']['decode']['err_of_scale']):.3g}, "
+          f"greedy tokens equal, caches within "
+          f"{r0['serve']['cache']['worst_err_of_scale']:.3g} / "
+          f"{r0['moe_decode']['cache']['worst_err_of_scale']:.3g}; card "
+          f"{card}", flush=True)
+    return {"train_per_step_per_rank": tr["launches_per_step"],
+            "prefill_per_rank": r0["serve"]["prefill"]["launches"],
+            "decode_per_step_per_rank":
+                r0["serve"]["decode"]["launches_per_step"],
+            "moe_decode_per_step_per_rank":
+                r0["moe_decode"]["decode"]["launches_per_step"]}
 
 
 def mesh_pipeline() -> dict:
@@ -5054,6 +5504,19 @@ def mesh_tp_train_launches(mesh_tp_train: dict, name: str) -> dict:
                    f"ranks sharing the card"}
 
 
+def mesh_fsdp_launches(mesh_fsdp: dict, name: str) -> dict:
+    """A kernel's launches on each rank of slice 16's FSDP steps."""
+    return {k: v.get(name, 0) for k, v in mesh_fsdp.items()} | {
+        "per": f"{LM_ARCH} fp32 with fsdp: a train step on one of "
+               f"{TRAIN_CELL.global_batch} sequences of "
+               f"{TRAIN_CELL.seq_len} tokens; at "
+               f"{FSDP_SERVE_LAYERS} layers a prefill of "
+               f"{LM_BATCH // TP_MODEL} x {LM_PROMPT} and decode steps; "
+               f"{FSDP_MOE_ARCH} at {FSDP_MOE_LAYERS} layers, decode steps "
+               f"of {FSDP_MOE_BATCH // TP_MODEL} rows; each rank of "
+               f"{TP_MODEL} gloo ranks over 'data' sharing the card"}
+
+
 def training_launches(training: dict, name: str) -> dict:
     return {"launches_per_step": training["launches_per_step"][name],
             "per": f"one {LM_ARCH} train step of "
@@ -5152,6 +5615,8 @@ def main() -> int:
     mesh_train = phase_mesh_training(card)
     # slice 15: the train step partitioned over two ranks on the card
     mesh_tp_train = phase_mesh_tp_train(card)
+    # slice 16: FSDP layer by layer, and the MoE decode on its own rows
+    mesh_fsdp = phase_mesh_fsdp(card)
     # slice 13: the dry run, and its traces against the card's counts
     dry = phase_dryrun(card, lm, training, mesh_train)
 
@@ -5193,6 +5658,7 @@ def main() -> int:
                    "mesh_tp": mesh_tp_launches(mesh_tp, name),
                    "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
                                                            name),
+                   "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, name),
                    "dryrun": dryrun_calls(dry, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
@@ -5253,6 +5719,7 @@ def main() -> int:
                     "mesh_tp": mesh_tp_launches(mesh_tp, "qmm"),
                     "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
                                                             "qmm"),
+                    "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, "qmm"),
                     "dryrun": dryrun_calls(dry, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
@@ -5283,6 +5750,7 @@ def main() -> int:
                 "mesh_tp": mesh_tp_launches(mesh_tp, name),
                 "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
                                                         name),
+                "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, name),
                 "dryrun": dryrun_calls(dry, name),
                 "training": {**training_launches(training, name),
                              "profiled": {

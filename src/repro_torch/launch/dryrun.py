@@ -15,7 +15,9 @@ counted as the rank issues them: the train step's forward, the
 recomputation of each rematerialized block, and the backward's (f's
 all-reduces, the inverse all-to-alls), then its gradients averaged over
 the data axes and the optimizer's sums over the axes that split each
-leaf.  It runs on any machine, card or not.
+leaf; with ``fsdp``, each layer's data shards gathered just before the
+layer (again in the recomputation) and reduce-scattered in the
+backward.  It runs on any machine, card or not.
 
 A process has one default process group, and ``main()`` starts the fake
 one in ITS OWN process: never import this module to run it from tests or

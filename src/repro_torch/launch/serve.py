@@ -7,36 +7,37 @@ once, by the specs the builder returns, with ``place_tree``, as
 ``repro``'s steps take arrays that carry their shardings.
 
 The steps compute partitioned over 'model', as XLA's partitioner splits
-``repro``'s jitted steps: each rank gathers every parameter leaf over the
-data-parallel axes only (FSDP's gather for use) and keeps its own 'model'
-shard, keeps its decode cache as its own shards, and runs its
-data-parallel slice of the batch (``input_pspecs``) through the port's
-``prefill_fn`` / ``decode_fn`` inside ``use_model_axis``, where the
-blocks compute their parts and combine them with all-reduces and narrow
-all-to-alls or gathers of activations
-(:mod:`repro_torch.models.partition`).  No leaf split over 'model' and
-no cache leaf is gathered whole over 'model'.  The logits come back
-whole over 'model' from the head and are gathered over the data-parallel
-axes, so every rank returns the global logits.  The decode cache stays a
-tree of DTensors placed by ``cache_pspecs``: each rank works on its batch
-rows of it (all rows where they are not independent: an MoE decode routes
-the whole batch as one group, so the rows are gathered over the data
-axes) and writes the new entries into its own shards.
+``repro``'s jitted steps: each rank passes its own shards of the
+parameters and of the decode cache to the port's ``prefill_fn`` /
+``decode_fn`` with its data-parallel slice of the batch
+(``input_pspecs``), inside ``use_model_axis`` and ``use_data_gather``.
+There the blocks compute their parts over 'model' and combine them with
+all-reduces and narrow all-to-alls or gathers of activations, and each
+layer's leaves that a data axis splits (FSDP) are gathered over the data
+axes just before the layer, its 'model' shard kept
+(:mod:`repro_torch.models.partition`).  No leaf and no cache leaf is
+gathered whole over 'model', no cache leaf over the data axes, and the
+parameter tree is never gathered whole over the data axes at once.  The
+logits come back whole over 'model' from the head and are gathered over
+the data-parallel axes, so every rank returns the global logits.  The
+decode cache stays a tree of DTensors placed by ``cache_pspecs``: each
+rank decodes its own batch rows of it and writes the new entries into
+its own shards; an MoE decode, which routes the whole batch as one
+expert-choice group, gathers the rows of the MoE's input and keeps its
+own rows of the output.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import decode_fn, input_specs, param_specs, prefill_fn
-from repro_torch.models.transformer import decode_rows_independent
-from repro_torch.tree import tree_leaves, tree_map
-from repro_torch.models.partition import use_model_axis
-from .sharding import (P, axes_of, gather_data, gather_data_tree,
-                       gather_over, input_pspecs, local_shard,
-                       model_axis_of, param_pspecs, without_model)
+from repro_torch.tree import tree_map
+from repro_torch.models.partition import use_data_gather, use_model_axis
+from .sharding import (P, axes_of, data_gather_of, gather_over,
+                       input_pspecs, local_shard, local_tree, model_axis_of,
+                       param_pspecs)
 
 __all__ = ["build_prefill_step", "build_decode_step", "serve_state_specs"]
 
@@ -62,12 +63,13 @@ def build_prefill_step(cfg: ArchConfig, cell: ShapeCell, mesh):
     in_specs = input_specs(cfg, cell)
     bspecs = input_pspecs(cfg, cell, in_specs, mesh)
     axes = _batch_axes(bspecs)
+    gather = data_gather_of(pspecs, mesh, axes)
 
     def step(params, batch):
-        local = gather_data_tree(params, pspecs, mesh)
+        local = local_tree(params)
         mine = {k: local_shard(v, bspecs[k], mesh)
                 for k, v in batch.items()}
-        with use_model_axis(model_axis_of(mesh)):
+        with use_model_axis(model_axis_of(mesh)), use_data_gather(gather):
             logits = prefill_fn(cfg, local,
                                 tokens=mine.get("tokens"),
                                 embeds=mine.get("embeds"),
@@ -77,14 +79,6 @@ def build_prefill_step(cfg: ArchConfig, cell: ShapeCell, mesh):
     return step, (aval, pspecs), (in_specs, bspecs)
 
 
-def _keep_shard(t: torch.Tensor, spec: P, keep, mesh) -> torch.Tensor:
-    """This rank's shard of ``t`` over the data axes, along every
-    dimension but ``keep`` (its 'model' shards are this rank's already)."""
-    return local_shard(t, P(*(None if d == keep else e
-                              for d, e in enumerate(without_model(spec)))),
-                       mesh)
-
-
 def build_decode_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
                       donate: bool = True):
     """serve_step for decode cells: one new token, seq_len-deep cache.
@@ -92,37 +86,27 @@ def build_decode_step(cfg: ArchConfig, cell: ShapeCell, mesh, *,
     ``step(params, cache, tokens, pos)``, ``params`` and ``cache`` placed
     by the param and cache pspecs -> (global logits (B, 1, V), the cache
     as DTensors).  With ``donate`` the new entries are written into the
-    placed cache's own shards; without, into a copy of it.  Where the
-    rows are not independent (``decode_rows_independent``: an MoE decode
-    routes the whole batch as one expert-choice group) they are not
-    split: every rank decodes the whole batch."""
+    placed cache's own shards; without, into a copy of it.  Each rank
+    decodes its rows of the batch, the rows ``cache_pspecs`` gives it,
+    for every family."""
     aval, pspecs = serve_state_specs(cfg, mesh, mode="decode")
     in_specs = input_specs(cfg, cell)
     bspecs = input_pspecs(cfg, cell, in_specs, mesh)
-    cspecs = bspecs["cache"]
-    split = decode_rows_independent(cfg)
-    axes = _batch_axes(bspecs) if split else ()
-    rows_dim = 1 if split else None      # the caches' batch dimension
+    axes = _batch_axes(bspecs)
+    gather = data_gather_of(pspecs, mesh, axes)
 
     def step(params, cache, tokens, pos):
-        mine = gather_data_tree(params, pspecs, mesh)
+        mine = local_tree(params)
         if not donate:
             cache = tree_map(lambda d: d.clone(), cache)
-        local = tree_map(DTensor.to_local, cache)
-        # this rank's batch rows of every cache leaf (gathered over the
-        # data axes where the rows are not split), its own 'model'
+        # this rank's batch rows of every cache leaf, its own 'model'
         # shards; decode_fn writes them in place
-        rows = tree_map(lambda t, s: gather_data(t, s, mesh, rows_dim),
-                        local, cspecs)
+        rows = local_tree(cache)
         tok = local_shard(tokens, P(axes or None), mesh)
         if torch.is_tensor(pos) and pos.dim() == 1:    # per-slot positions
             pos = local_shard(pos, P(axes or None), mesh)
-        with use_model_axis(model_axis_of(mesh)):
+        with use_model_axis(model_axis_of(mesh)), use_data_gather(gather):
             logits, _ = decode_fn(cfg, mine, rows, tok, pos)
-        for t, r, s in zip(tree_leaves(local), tree_leaves(rows),
-                           tree_leaves(cspecs)):
-            if r is not t:
-                t.copy_(_keep_shard(r, s, rows_dim, mesh))
         return gather_over(logits, axes, mesh), cache
 
     return step, (aval, pspecs), (in_specs, bspecs)

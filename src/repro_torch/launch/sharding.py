@@ -34,7 +34,7 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
-from repro_torch.models.partition import ModelAxis, all_gather_dim
+from repro_torch.models.partition import DataGather, ModelAxis, all_gather_dim
 from repro_torch.tree import tree_map
 from .mesh import MODEL_AXIS, dp_axes
 
@@ -42,7 +42,8 @@ __all__ = ["PartitionSpec", "param_pspecs", "input_pspecs", "opt_pspecs",
            "state_pspecs", "to_placements", "cache_pspecs", "place_tree",
            "gather_tree", "local_shard", "axes_of", "mean_over",
            "gather_over", "model_axis_of", "without_model",
-           "gather_data", "gather_data_tree", "LeafSplit", "leaf_split"]
+           "gather_data", "gather_data_tree", "LeafSplit", "leaf_split",
+           "data_gather_of", "local_tree"]
 
 
 class PartitionSpec(tuple):
@@ -313,14 +314,17 @@ def local_shard(t: torch.Tensor, spec: P, mesh) -> torch.Tensor:
 # collectives over named axes
 # ---------------------------------------------------------------------------
 
-def mean_over(t: torch.Tensor, axes: tuple, mesh) -> torch.Tensor:
+def mean_over(t: torch.Tensor, axes: tuple, mesh,
+              summed: tuple = ()) -> torch.Tensor:
     """``t``, in place, made the mean of ``t`` over the ranks of ``axes``:
     an all-reduce SUM over each axis's group (gloo has no AVG), then one
-    division by their product.  An axis of one rank sums nothing."""
+    division by their product.  An axis of one rank sums nothing, and
+    neither does an axis of ``summed`` (one of ``axes`` that ``t`` was
+    summed over already: a reduce-scatter's result), which is counted."""
     count = 1
     for a in axes:
         size = _axis_size(mesh, a)
-        if size > 1:
+        if size > 1 and a not in summed:
             dist.all_reduce(t, op=dist.ReduceOp.SUM,
                             group=mesh.get_group(a))
         count *= size
@@ -369,16 +373,54 @@ def gather_data(t: torch.Tensor, spec: P, mesh,
     return t
 
 
+def local_tree(tree):
+    """This rank's shards of a tree of DTensors (``to_local``).  A plain
+    tensor is refused: the tree was not placed."""
+    def mine(t):
+        if not isinstance(t, DTensor):
+            raise TypeError("a mesh step takes a tree placed by place_tree, "
+                            f"given a plain {type(t).__name__}")
+        return t.to_local()
+    return tree_map(mine, tree)
+
+
 def gather_data_tree(tree, spec_tree, mesh):
     """:func:`gather_data` of every leaf of a tree of DTensors placed by
-    ``spec_tree``: FSDP's gather for use, the 'model' shards kept.  A
-    plain tensor is refused: the tree was not placed."""
-    def mine(t, spec):
-        if not isinstance(t, DTensor):
-            raise TypeError("gather_data_tree takes a tree placed by "
-                            f"place_tree, given a plain {type(t).__name__}")
-        return gather_data(t.to_local(), spec, mesh)
-    return tree_map(mine, tree, spec_tree)
+    ``spec_tree``: the whole tree gathered over the data axes at once,
+    the 'model' shards kept.  The steps gather layer by layer instead
+    (:func:`data_gather_of`); this is the computation they are held to.
+    A plain tensor is refused: the tree was not placed."""
+    return tree_map(lambda t, spec: gather_data(t, spec, mesh),
+                    local_tree(tree), spec_tree)
+
+
+def data_gather_of(pspecs, mesh, rows: tuple = ()) -> DataGather:
+    """The data axes of a mesh step, for
+    :func:`~repro_torch.models.partition.use_data_gather`: each parameter
+    leaf that a data axis of more than one rank splits under ``pspecs``,
+    with its dimensions and axes in :func:`gather_data`'s order (the
+    minor axis first), and the axes ``rows`` that split the batch rows."""
+    leaves = {}
+
+    def note(path: str, spec: P) -> None:
+        lead = 1 if path.startswith(("blocks/", "encoder/")) else 0
+        splits = []
+        for dim, entry in enumerate(without_model(spec)):
+            axes = tuple((_axis_size(mesh, a), mesh.get_group(a))
+                         for a in reversed(axes_of(entry))
+                         if _axis_size(mesh, a) > 1)
+            if axes:
+                if dim < lead:
+                    raise ValueError(f"{path}: {spec} splits the layer "
+                                     f"dimension over a data axis")
+                splits.append((dim - lead, axes))
+        if splits:
+            leaves[path] = tuple(splits)
+
+    _map_with_path(note, pspecs)
+    return DataGather(leaves, tuple(
+        (_axis_size(mesh, a), mesh.get_group(a), mesh.get_local_rank(a))
+        for a in reversed(rows) if _axis_size(mesh, a) > 1))
 
 
 @dataclasses.dataclass(frozen=True)

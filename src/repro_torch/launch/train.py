@@ -18,24 +18,26 @@ called with global arrays.  The state is a tree of DTensors placed by
 ``state_pspecs``: the caller places it once with ``place_tree``, as
 ``train_loop`` does, and the step returns it placed.  The step computes
 partitioned over 'model', as XLA's partitioner splits ``repro``'s jitted
-step: each rank gathers every parameter leaf over the data-parallel axes
-only (``gather_data_tree``, FSDP's gather for use) and keeps its 'model'
-shards, takes the loss and its gradient on its data-parallel slice of
-the batch (``input_pspecs``) inside ``use_model_axis``, where the blocks
-compute their parts and autograd differentiates the collectives that
-join them (:mod:`repro_torch.models.partition`; the loss is
-vocabulary-parallel where the head is split), and averages loss and
-gradients over the data-parallel axes, which gives the global-batch mean
-on every rank ('model' ranks took the same slice and are not averaged).
-Each gradient comes out as the rank's 'model' shard; the rank keeps its
-data shard of it and updates only its shards of the parameters and of
-the optimizer state: AdamW clipped by the global norm of the whole
+step: each rank passes its own shards of the parameters and takes the
+loss and its gradient on its data-parallel slice of the batch
+(``input_pspecs``) inside ``use_model_axis`` and ``use_data_gather``,
+where the blocks compute their parts and autograd differentiates the
+collectives that join them (:mod:`repro_torch.models.partition`; the loss
+is vocabulary-parallel where the head is split).  A leaf that a data axis
+splits (FSDP) is gathered layer by layer just before its use and its
+gradient reduce-scattered in the backward, so it comes back as the rank's
+shard summed over those axes; every other gradient is all-reduced over
+the data-parallel axes, and each is divided by their ranks, which gives
+the global-batch mean on every rank ('model' ranks took the same slice
+and are not averaged).  Each rank updates only its shards of the
+parameters and of the optimizer state: AdamW clipped by the global norm of the whole
 gradient (the squares of each shard summed over the axes that split its
 leaf, a replicated leaf once), Adafactor with its factored statistics in
 their ``opt_pspecs`` shards and every mean (of ``g²`` over rows and
 columns, of ``vr``, the update's RMS) summed over the axes that split
 the dimensions it runs over (:class:`.sharding.LeafSplit`).
-No leaf split over 'model' is gathered whole, forwards or backwards.  At
+No leaf split over 'model' is gathered whole, forwards or backwards, and
+the parameter tree is never gathered whole over the data axes.  At
 a 'model' size of 1 the step is the single-process step's arithmetic, bit
 for bit.  ``mesh=None`` is the single-device step.
 """
@@ -48,18 +50,17 @@ from typing import Callable
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.models import init_model, input_specs, loss_fn
-from repro_torch.models.partition import use_model_axis
+from repro_torch.models.partition import use_data_gather, use_model_axis
 from repro_torch.optim import (AdafactorConfig, AdamWConfig, adafactor_init,
                                adafactor_update, adamw_init, adamw_update)
 from repro_torch.optim.adamw import global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
-from .sharding import (axes_of, gather_data_tree, gather_tree, input_pspecs,
-                       leaf_split, local_shard, mean_over, model_axis_of,
-                       place_tree, state_pspecs, without_model)
+from .sharding import (axes_of, data_gather_of, gather_tree, input_pspecs,
+                       leaf_split, local_shard, local_tree, mean_over,
+                       model_axis_of, place_tree, state_pspecs, without_model)
 
 __all__ = ["make_train_state", "build_train_step", "train_loop",
            "train_state_specs", "default_opt_cfg", "loss_and_grads"]
@@ -122,18 +123,29 @@ def default_opt_cfg(cfg: ArchConfig):
 
 
 def _mesh_loss_and_grads(cfg: ArchConfig, mesh, bspecs: dict, params: dict,
-                        batch: dict) -> tuple[torch.Tensor, dict]:
-    """:func:`loss_and_grads` of ``params`` (this rank's 'model' shards,
-    whole over the data axes) on this rank's slice of the global
-    ``batch`` (split by ``bspecs``), computed partitioned over 'model'
-    and averaged over the data-parallel axes: the global batch's loss,
-    and this rank's 'model' shards of its gradient, on every rank."""
+                        batch: dict, pspecs=None) -> tuple[torch.Tensor, dict]:
+    """:func:`loss_and_grads` of ``params`` on this rank's slice of the
+    global ``batch`` (split by ``bspecs``), computed partitioned over
+    'model' and averaged over the data-parallel axes: the global batch's
+    loss, and this rank's shards of its gradient, on every rank.
+    Without ``pspecs`` the leaves are this rank's 'model' shards whole
+    over the data axes; with them, this rank's shards under ``pspecs``,
+    each gathered over the data axes for its use and its gradient
+    reduce-scattered back."""
     mine = {k: local_shard(v, bspecs[k], mesh) for k, v in batch.items()}
-    with use_model_axis(model_axis_of(mesh)):
-        loss, grads = loss_and_grads(cfg, params, mine)
     axes = axes_of(bspecs["labels"][0])
+    gather = None if pspecs is None else data_gather_of(pspecs, mesh)
+    with use_model_axis(model_axis_of(mesh)), use_data_gather(gather):
+        loss, grads = loss_and_grads(cfg, params, mine)
+    # a gradient reduce-scattered over a leaf's data axes is summed over
+    # them already; each is counted in the mean, a batch axis or not
+    summed = (tree_map(lambda g: (), grads) if pspecs is None
+              else tree_map(lambda s: tuple(a for e in without_model(s)
+                                            for a in axes_of(e)), pspecs))
     return (mean_over(loss, axes, mesh),
-            tree_map(lambda g: mean_over(g, axes, mesh), grads))
+            tree_map(lambda g, s: mean_over(
+                g, axes + tuple(a for a in s if a not in axes), mesh,
+                summed=s), grads, summed))
 
 
 def _mesh_train_step(cfg: ArchConfig, opt_cfg, mesh, sspecs: dict,
@@ -142,22 +154,18 @@ def _mesh_train_step(cfg: ArchConfig, opt_cfg, mesh, sspecs: dict,
     if not donate:
         state = tree_map(lambda d: d.clone(), state)
     pspecs = sspecs["params"]
-    params = gather_data_tree(state["params"], pspecs, mesh)
-    loss, grads = _mesh_loss_and_grads(cfg, mesh, bspecs, params, batch)
-    del params
-    # this rank's data shard of each 'model' shard of the gradient
-    shards = tree_map(lambda g, s: local_shard(g, without_model(s), mesh),
-                      grads, pspecs)
+    params = local_tree(state["params"])
+    loss, shards = _mesh_loss_and_grads(cfg, mesh, bspecs, params, batch,
+                                        pspecs)
     split = tree_map(lambda g, s: leaf_split(s, mesh, g.dim()), shards,
                      pspecs)
-    local = lambda tree: tree_map(DTensor.to_local, tree)
     if cfg.optimizer == "adafactor":
         _, _, metrics = adafactor_update(
-            opt_cfg, shards, local(state["opt"]), local(state["params"]),
+            opt_cfg, shards, local_tree(state["opt"]), params,
             inplace=True, split=split)
     else:
         _, _, metrics = adamw_update(
-            opt_cfg, shards, local(state["opt"]), local(state["params"]),
+            opt_cfg, shards, local_tree(state["opt"]), params,
             inplace=True, grad_norm=global_norm(shards, split))
     state["step"].to_local().add_(1)
     return state, {"loss": loss, **metrics}

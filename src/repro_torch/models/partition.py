@@ -34,6 +34,19 @@ does not record (serving, ``torch.inference_mode``) each is the plain
 collective it was.  (``torch.distributed.nn.functional.all_reduce``
 all-reduces in its backward too: used as g it multiplies the gradients by
 the number of ranks.)
+
+The data-parallel axes: a mesh step also runs the model functions inside
+:func:`use_data_gather`.  A parameter leaf that ``param_pspecs`` splits
+over a data axis (FSDP: ``cfg.fsdp``) reaches them as this rank's shard,
+and the model code gathers each layer's leaves just before the layer uses
+them (:func:`gather_for_use`: an all-gather forward, a reduce-scatter of
+the gradient backward), as XLA's partitioner gathers the slice of a
+``lax.scan``'s layer inside its loop body.  A decode step's batch rows
+are split over the data axes; the MoE decode, which routes the whole
+batch as one group, gathers the rows of its input and keeps its own
+(:func:`gather_rows`, :func:`own_rows`).  Gloo takes CUDA tensors for
+``reduce_scatter_tensor`` as for the collectives above (torch 2.11,
+``chip_smoke.py``'s ``mesh_fsdp`` phase).
 """
 
 from __future__ import annotations
@@ -47,7 +60,9 @@ import torch.distributed as dist
 
 __all__ = ["ModelAxis", "model_axis", "use_model_axis", "all_reduce_sum",
            "all_gather_dim", "all_to_all_rows", "glu_regroup",
-           "copy_to_model", "reduce_from_model", "all_reduce_max"]
+           "copy_to_model", "reduce_from_model", "all_reduce_max",
+           "DataGather", "data_gather", "use_data_gather", "gather_for_use",
+           "split_over_data", "gather_rows", "own_rows"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,3 +240,133 @@ def glu_regroup(blocks: torch.Tensor, axis: ModelAxis) -> torch.Tensor:
                           [n * srcs.count(s) for s in range(size)],
                           axis.group)
     return out.reshape(blocks.shape)
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel axes: FSDP's gather for use, and the decode's rows
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DataGather:
+    """The data-parallel axes of a mesh step, as the model code sees them.
+
+    ``leaves`` maps the path of each parameter leaf that a data axis
+    splits (``"embed"``, ``"blocks/attn/wq"``, as ``param_pspecs`` names
+    them) to its splits: ``((dim, ((size, group), ...)), ...)``, the axes
+    of each dimension minor first, the order :func:`gather_for_use`
+    gathers them in.  The dimensions of a stacked leaf (``blocks/``,
+    ``encoder/``) are those of one layer's slice.  ``rows`` holds the
+    ``(size, group, rank)`` of each axis that splits the batch rows,
+    minor first."""
+
+    leaves: dict
+    rows: tuple = ()
+
+
+_DATA: contextvars.ContextVar = contextvars.ContextVar("data_gather",
+                                                       default=None)
+
+
+def data_gather() -> DataGather | None:
+    """The data axes of the mesh step this code runs in, or None."""
+    return _DATA.get()
+
+
+@contextlib.contextmanager
+def use_data_gather(gather: DataGather | None):
+    """Run the body with the data axes ``gather`` (None: nothing is
+    split over a data axis, the single-process path)."""
+    token = _DATA.set(gather)
+    try:
+        yield
+    finally:
+        _DATA.reset(token)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, size: int,
+                    group) -> torch.Tensor:
+    """``t`` summed over the ranks of ``group``, each keeping its slice
+    of ``dim`` (rank order): :func:`_gather`'s adjoint."""
+    x = t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM, group=group)
+    return out.movedim(0, dim).contiguous()
+
+
+def _split_over_data(t: torch.Tensor, splits: tuple) -> torch.Tensor:
+    for dim, axes in splits:
+        for size, group in axes:
+            t = _gather(t, dim, size, group)
+    return t
+
+
+class _GatherForUse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, splits):
+        ctx.splits = splits
+        return _split_over_data(t, splits)
+
+    @staticmethod
+    def backward(ctx, grad):
+        for dim, axes in reversed(ctx.splits):
+            for size, group in reversed(axes):
+                grad = _reduce_scatter(grad, dim, size, group)
+        return grad, None
+
+
+def split_over_data(tree, path: str) -> list:
+    """The paths under ``path`` in ``tree`` (a leaf or a nested dict)
+    whose leaves a data axis splits in the current step."""
+    gather = _DATA.get()
+    if gather is None:
+        return []
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items()
+                for p in split_over_data(v, f"{path}/{k}")]
+    return [path] if path in gather.leaves else []
+
+
+def gather_for_use(tree, path: str):
+    """``tree`` (a parameter leaf or a nested dict of them, found at
+    ``path`` of the parameter tree; one layer's slice for a stacked
+    leaf) with every leaf that a data axis splits gathered whole over
+    the data axes, its 'model' shard kept: FSDP's gather for use.  The
+    identity outside :func:`use_data_gather` and for a leaf no data axis
+    splits.  Under autograd the backward reduce-scatters the gradient
+    (SUM) over the same axes, so the leaf's gradient comes back as this
+    rank's shard, summed over them."""
+    gather = _DATA.get()
+    if gather is None:
+        return tree
+    if isinstance(tree, dict):
+        return {k: gather_for_use(v, f"{path}/{k}") for k, v in tree.items()}
+    splits = gather.leaves.get(path)
+    if not splits:
+        return tree
+    if _records(tree):
+        return _GatherForUse.apply(tree, splits)
+    return _split_over_data(tree, splits)
+
+
+def gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s batch rows (dimension 0) from every rank of the step's
+    data axes, in rank order (the major axis first); ``t`` itself where
+    no data axis splits the rows.  No gradient."""
+    gather = _DATA.get()
+    for size, group, _ in (gather.rows if gather is not None else ()):
+        t = _gather(t, 0, size, group)
+    return t
+
+
+def own_rows(t: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of ``t``, the whole batch's rows: what
+    :func:`gather_rows` gathered, undone."""
+    gather = _DATA.get()
+    index, count = 0, 1
+    for size, _, rank in reversed(gather.rows if gather is not None
+                                  else ()):
+        index, count = index * size + rank, count * size
+    if count == 1:
+        return t
+    n = t.shape[0] // count
+    return t.narrow(0, index * n, n)

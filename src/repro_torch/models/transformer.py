@@ -26,6 +26,18 @@ column- then row-parallel, MoE on experts, Mamba2 on P; ``decode_step``
 writes the rank's cache shards in place, and ``lm_loss`` takes the
 logits split on the vocabulary.  Under autograd (the train step) the
 collectives are differentiated (Megatron's f and g).
+
+A leaf that a data axis splits (FSDP) reaches the model functions as this
+rank's shard too, and is gathered over the data axes where it is used
+(:func:`~repro_torch.models.partition.gather_for_use`): each scanned
+layer's slice inside the block (so a rematerialized block gathers again
+when it recomputes, and autograd keeps only the shards), the embedding
+and the head at the lookup and the head, the hybrid's shared block once a
+step (it is applied every ``attn_every`` layers and not rematerialized:
+gathered at each use, autograd would keep one whole copy a use).  A
+layer's gradient is reduce-scattered over the data axes in the backward.
+At most two layers are whole at once: the current one and the one the
+backward recomputes.
 """
 
 from __future__ import annotations
@@ -46,8 +58,10 @@ from .attention import (attention, decode_attend, decode_project_kv,
 from .layers import (MetaKey, glu_mlp, init_glu_mlp, normal, rms_norm,
                      softmax_xent)
 from .moe import init_moe, moe_ffn
-from .partition import (all_gather_dim, copy_to_model, model_axis,
-                        reduce_from_model, use_model_axis)
+from .partition import (all_gather_dim, copy_to_model, data_gather,
+                        gather_for_use, gather_rows, model_axis, own_rows,
+                        reduce_from_model, split_over_data, use_data_gather,
+                        use_model_axis)
 from .ssm import (init_mamba2, init_mamba2_state, mamba2_block,
                   mamba2_decode_step)
 
@@ -215,25 +229,48 @@ def _records(x: torch.Tensor, stacked: dict) -> bool:
                                for t in tree_leaves(stacked)))
 
 
-def _scan_blocks(body, x, stacked, n: int, remat: bool = False):
-    """``body`` over the ``n`` stacked layers.  With ``remat``, a block that
-    autograd records keeps only its input and recomputes its activations
-    in the backward (``repro``'s ``jax.checkpoint`` per scanned block),
-    under the 'model' axis of the forward: autograd runs a CUDA backward
-    on a thread of its own, which does not see the caller's
-    :func:`use_model_axis`."""
-    remat = remat and _records(x, stacked)
+@contextlib.contextmanager
+def _under(axis, gather):
+    with use_model_axis(axis), use_data_gather(gather):
+        yield
+
+
+def _scan_blocks(body, x, stacked, n: int, remat: bool = False,
+                 path: str = "blocks"):
+    """``body`` over the ``n`` stacked layers (the leaves at ``path`` of
+    the parameter tree), each layer's slice gathered over the data axes
+    just before its block (:func:`gather_for_use`).  With ``remat``, a
+    block that autograd records keeps only its input and its shards and
+    recomputes its gather and activations in the backward (``repro``'s
+    ``jax.checkpoint`` per scanned block), under the 'model' and data
+    axes of the forward: autograd runs a CUDA backward on a thread of its
+    own, which does not see the caller's :func:`use_model_axis`.  Without
+    ``remat`` a recorded block would keep its whole layer until the
+    backward, so a layout that splits a layer over a data axis is
+    refused."""
+    records = _records(x, stacked)
+    if records and not remat and split_over_data(stacked, path):
+        raise ValueError(
+            f"remat=False under autograd with {path} split over a data "
+            f"axis ({', '.join(split_over_data(stacked, path))}): every "
+            f"layer would stay gathered until the backward")
+    remat = remat and records
     if remat:
-        axis = model_axis()
-        recompute = lambda: (contextlib.nullcontext(), use_model_axis(axis))
+        axes = (model_axis(), data_gather())
+        recompute = lambda: (contextlib.nullcontext(), _under(*axes))
+
+    def block(p, h):
+        return body(gather_for_use(p, path), h)
+
     # one unbind per leaf: its backward stacks the n layers' gradients
-    # once, where a slice per layer would add n zero-padded stacks
+    # (this rank's shards) once, where a slice per layer would add n
+    # zero-padded stacks
     layers = tree_map(torch.unbind, stacked)
     for l in range(n):
         p = tree_map(lambda t: t[l], layers)
-        x = (checkpoint(body, p, x, use_reentrant=False,
+        x = (checkpoint(block, p, x, use_reentrant=False,
                         context_fn=recompute) if remat
-             else body(p, x))
+             else block(p, x))
     return x
 
 
@@ -251,11 +288,12 @@ def _backbone(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
         per_group = tree_map(torch.unbind,
                               _grouped(params["blocks"], groups))
         inner = lambda p, h: _mamba_block_fwd(cfg, p, h, impl=impl)
+        shared = gather_for_use(params["shared"], "shared")
         for grp in range(groups):
             x = _scan_blocks(inner, x, tree_map(lambda t: t[grp], per_group),
                              cfg.attn_every, cfg.remat)
             # the shared block is applied outside the scan: not remat'd
-            x = _attn_block_fwd(cfg, params["shared"], x, impl=impl)
+            x = _attn_block_fwd(cfg, shared, x, impl=impl)
     elif cfg.family == "audio":
         body = lambda p, h: _attn_block_fwd(cfg, p, h, enc=enc, impl=impl)
         x = _scan_blocks(body, x, params["blocks"], cfg.n_layers, cfg.remat)
@@ -266,7 +304,8 @@ def _encode(cfg: ArchConfig, params: dict, enc_embeds: torch.Tensor,
             impl: str = "auto") -> torch.Tensor:
     body = lambda p, h: _attn_block_fwd(cfg, p, h, causal=False, impl=impl)
     enc = _scan_blocks(body, enc_embeds.to(cfg.compute_torch_dtype),
-                       params["encoder"], cfg.encoder_layers, cfg.remat)
+                       params["encoder"], cfg.encoder_layers, cfg.remat,
+                       path="encoder")
     return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
 
@@ -277,7 +316,8 @@ def _head(cfg: ArchConfig, params: dict, x: torch.Tensor, *,
     columns (x enters partitioned compute: f), which are gathered unless
     ``gather`` is False (the loss takes them split)."""
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"])
+    w = (gather_for_use(params["embed"], "embed").T if cfg.tie_embeddings
+         else gather_for_use(params["lm_head"], "lm_head"))
     axis = model_axis()
     split = axis is not None and w.shape[-1] != cfg.padded_vocab
     if split:
@@ -307,7 +347,8 @@ def _lookup(cfg: ArchConfig, embed: torch.Tensor,
 
 def _embed(cfg: ArchConfig, params: dict, tokens, embeds) -> torch.Tensor:
     if embeds is None:
-        embeds = _lookup(cfg, params["embed"], tokens)
+        embeds = _lookup(cfg, gather_for_use(params["embed"], "embed"),
+                         tokens)
     return embeds.to(cfg.compute_torch_dtype)
 
 
@@ -387,7 +428,8 @@ def prepare_cross_cache(cfg: ArchConfig, params: dict,
     """Whisper: run the encoder and project per-decoder-layer cross K/V,
     stacked (L, B, Hkv, encoder_len, hd)."""
     enc = _encode(cfg, params, enc_embeds, impl)
-    kvs = [project_kv(_layer_slice(params["blocks"], l)["cross"], enc,
+    kvs = [project_kv(gather_for_use(_layer_slice(params["blocks"], l)
+                                     ["cross"], "blocks/cross"), enc,
                       n_kv_heads=cfg.n_kv_heads,
                       head_dim=cfg.resolved_head_dim, use_rope=False)
            for l in range(cfg.n_layers)]
@@ -440,10 +482,13 @@ def _decode_attn_block_inplace(cfg, p, x, K, V, l, pos, xk=None, xv=None):
                               use_rope=False, **kw)
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.family == "moe":
+        # one expert-choice group of the whole batch: in a mesh step whose
+        # rows are split over the data axes, every rank's rows
+        h = gather_rows(h)
         b = h.shape[0]
         y = moe_ffn(p["moe"], h.reshape(1, b, cfg.d_model), top_k=cfg.top_k,
                     capacity_factor=cfg.capacity_factor, act=cfg.act)
-        x = x + y.reshape(b, 1, cfg.d_model)
+        x = x + own_rows(y.reshape(b, 1, cfg.d_model))
     else:
         x = x + glu_mlp(p["mlp"], h, act=cfg.act, d_ff=cfg.d_ff)
     return x
@@ -452,7 +497,9 @@ def _decode_attn_block_inplace(cfg, p, x, K, V, l, pos, xk=None, xv=None):
 def decode_rows_independent(cfg: ArchConfig) -> bool:
     """Whether a decode step's batch rows are independent of one another.
     An expert-choice MoE FFN routes the whole decode batch as one group
-    (``_decode_block``), so its rows choose their experts together."""
+    (``_decode_attn_block_inplace``), so its rows choose their experts
+    together: a mesh step that splits the rows over the data axes gathers
+    the MoE's input rows there, and nothing else (``gather_rows``)."""
     return cfg.family != "moe"
 
 
@@ -492,32 +539,34 @@ def decode_step(cfg: ArchConfig, params: dict, cache: dict,
     if cfg.takes_embeddings and tokens.dim() == 3:
         x = tokens.to(cfg.compute_torch_dtype)
     else:
-        x = _lookup(cfg, params["embed"], tokens).to(cfg.compute_torch_dtype)
+        x = _lookup(cfg, gather_for_use(params["embed"], "embed"),
+                    tokens).to(cfg.compute_torch_dtype)
+
+    def layer(l: int) -> dict:
+        return gather_for_use(_layer_slice(params["blocks"], l), "blocks")
 
     if cfg.family in ("dense", "moe", "vlm"):
         for l in range(cfg.n_layers):
-            x = _decode_attn_block_inplace(
-                cfg, _layer_slice(params["blocks"], l), x, cache["k"],
-                cache["v"], l, pos)
+            x = _decode_attn_block_inplace(cfg, layer(l), x, cache["k"],
+                                           cache["v"], l, pos)
     elif cfg.family == "ssm":
         for l in range(cfg.n_layers):
-            x = _decode_mamba_inplace(
-                cfg, _layer_slice(params["blocks"], l), x, cache, l, pos)
+            x = _decode_mamba_inplace(cfg, layer(l), x, cache, l, pos)
     elif cfg.family == "hybrid":
         per = cfg.attn_every
+        shared = gather_for_use(params["shared"], "shared")
         for grp in range(cfg.n_layers // per):
             for i in range(per):
                 l = grp * per + i
-                x = _decode_mamba_inplace(
-                    cfg, _layer_slice(params["blocks"], l), x,
-                    cache["mamba"], l, pos)
-            x = _decode_attn_block_inplace(cfg, params["shared"], x,
-                                           cache["k"], cache["v"], grp, pos)
+                x = _decode_mamba_inplace(cfg, layer(l), x, cache["mamba"],
+                                          l, pos)
+            x = _decode_attn_block_inplace(cfg, shared, x, cache["k"],
+                                           cache["v"], grp, pos)
     elif cfg.family == "audio":
         for l in range(cfg.n_layers):
             x = _decode_attn_block_inplace(
-                cfg, _layer_slice(params["blocks"], l), x, cache["k"],
-                cache["v"], l, pos, cache["xk"][l], cache["xv"][l])
+                cfg, layer(l), x, cache["k"], cache["v"], l, pos,
+                cache["xk"][l], cache["xv"][l])
     else:
         raise ValueError(cfg.family)
 

@@ -11,15 +11,23 @@
   rank 0: the all-gathers, all-reduces, all-to-alls and sends of every
   step, count and bytes, equal those derived here from the pspec trees
   alone (``param_pspecs``, ``input_pspecs``, ``cache_pspecs``,
-  ``opt_pspecs``) and the launchers' schemes: every step gathers over
-  the data axes only and computes partitioned over 'model'
-  (``_partitioned_blocks``; the train step's forward, recomputation and
-  backward, ``_partitioned_train``, then its gradients' mean over the
-  data axes and the optimizer's sums, ``_optimizer``);
-  ``argument_size_in_bytes`` equals the bytes of the rank's placed shards
-  and input slices.
+  ``opt_pspecs``) and the launchers' schemes: every step gathers each
+  leaf that a data axis splits just before each use, layer by layer,
+  and reduce-scatters its gradient (``_gathers_for_use``), decodes the
+  rank's own cache rows (an MoE gathers its input's rows) and computes
+  partitioned over 'model' (``_partitioned_blocks``; the train step's
+  forward, recomputation and backward, ``_partitioned_train``, then its
+  gradients' mean over the data axes and the optimizer's sums,
+  ``_optimizer``); ``argument_size_in_bytes`` equals the bytes of the
+  rank's placed shards and input slices.  The same for reduced internlm2,
+  dbrx and zamba2 with ``fsdp=True``, whose leaves 'data' splits.
+* FSDP's memory: a reduced internlm2 train step with ``fsdp=True`` and 8
+  layers on the fake (2, 2) mesh peaks below the step that gathers the
+  whole parameter tree over 'data' first (the parent's scheme, rebuilt
+  here) by at least the gathered tree's bytes less two layers.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -34,8 +42,9 @@ import torch
 from repro_torch.configs import ARCHS, SHAPES, reduced
 from repro_torch.configs.base import ShapeCell
 from repro_torch.launch.dryrun import run_cell
-from repro_torch.launch.sharding import (axes_of, input_pspecs,
-                                         param_pspecs, state_pspecs)
+from repro_torch.launch.sharding import (_map_with_path, axes_of,
+                                         input_pspecs, param_pspecs,
+                                         state_pspecs)
 from repro_torch.launch.train import train_state_specs
 from repro_torch.models import input_specs, param_specs
 from repro_torch.models.transformer import decode_rows_independent
@@ -44,6 +53,10 @@ from repro_torch.tree import tree_leaves
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 ARCH_NAMES = ("granite-3-2b", "dbrx-132b", "mamba2-130m", "zamba2-2.7b")
+#: the archs traced again with ``fsdp=True`` (the reduced configs turn it
+#: off), by the names of their cells
+FSDP_NAMES = ("internlm2-20b", "dbrx-132b", "zamba2-2.7b")
+PEAK_LAYERS = 8
 KINDS = ("train", "prefill", "decode")
 SEQ, BATCH = 64, 8
 MESHES = {"2x2": ((2, 2), ("data", "model")),
@@ -121,7 +134,7 @@ def test_long_500k_skips_full_attention_archs():
 # ---------------------------------------------------------------------------
 
 _TRACE_SCRIPT = """
-import json, math, sys, torch
+import dataclasses, json, math, sys, torch
 import torch.distributed as dist
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.base import ShapeCell
@@ -130,12 +143,19 @@ from repro_torch.launch.hlo_analysis import analyze_step
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch.pipeline_mode import build_pp_forward, split_stages
 from repro_torch.launch.serve import build_decode_step, build_prefill_step
-from repro_torch.launch.sharding import local_shard, place_tree
-from repro_torch.launch.train import build_train_step
+from repro_torch.launch.sharding import (gather_data_tree, leaf_split,
+                                         local_shard, local_tree, place_tree,
+                                         without_model)
+from repro_torch.launch.train import (_mesh_loss_and_grads, build_train_step,
+                                      default_opt_cfg)
+from repro_torch.optim import adamw_update
+from repro_torch.optim.adamw import global_norm
+from repro_torch.tree import tree_map
 from repro_torch.models import init_model
 from repro_torch.tree import tree_leaves
 
-NAMES, KINDS, SEQ, BATCH, MESHES, PP = json.loads(sys.argv[1])
+NAMES, FSDP, KINDS, SEQ, BATCH, MESHES, PP, PEAK = json.loads(sys.argv[1])
+CELLS = [(n, False) for n in NAMES] + [(n, True) for n in FSDP]
 
 
 def nbytes(t):
@@ -161,17 +181,51 @@ def placed_bytes(cfg, cell, mesh):
     return total
 
 
+def whole_gather_step(cfg, mesh, sspecs, bspecs, state, batch):
+    # the train step that gathers the whole parameter tree over the data
+    # axes first, then slices the gradient (the parent's scheme)
+    state = tree_map(lambda d: d.clone(), state)
+    pspecs = sspecs["params"]
+    params = gather_data_tree(state["params"], pspecs, mesh)
+    loss, grads = _mesh_loss_and_grads(cfg, mesh, bspecs, params, batch)
+    del params
+    shards = tree_map(lambda g, s: local_shard(g, without_model(s), mesh),
+                      grads, pspecs)
+    split = tree_map(lambda g, s: leaf_split(s, mesh, g.dim()), shards,
+                     pspecs)
+    adamw_update(default_opt_cfg(cfg), shards, local_tree(state["opt"]),
+                 local_tree(state["params"]), inplace=True,
+                 grad_norm=global_norm(shards, split))
+    return state, loss
+
+
+def peaks(mesh):
+    # the traced peaks of one fsdp train step and of the whole-gather one
+    cfg = dataclasses.replace(reduced(ARCHS[PEAK[0]], n_layers=PEAK[1]),
+                              fsdp=True)
+    cell = ShapeCell("c", SEQ, BATCH, "train")
+    fn, (aval, sspecs), (ins, bspecs) = build_train_step(cfg, cell, mesh,
+                                                         donate=False)
+    state = place_tree(aval, sspecs, mesh)
+    _, fsdp = analyze_step(fn, state, ins)
+    _, whole = analyze_step(
+        lambda s, b: whole_gather_step(cfg, mesh, sspecs, bspecs, s, b),
+        state, ins)
+    return {"fsdp": fsdp.peak_bytes, "whole": whole.peak_bytes}
+
+
 out = {}
 for key, (shape, names) in MESHES.items():
     start_fake_group(math.prod(shape))
     pod = shape[0] if len(shape) == 3 else 0
     mesh = make_test_mesh(*shape[-2:], pod, device_type="cpu")
-    for name in NAMES:
-        cfg = reduced(ARCHS[name])
+    for name, fsdp in CELLS:
+        cfg = dataclasses.replace(reduced(ARCHS[name]), fsdp=fsdp)
         for kind in KINDS:
             cell = ShapeCell("c", SEQ, BATCH, kind)
             rec = trace_cell(cfg, cell, mesh)
-            out[f"{key}/{name}/{kind}"] = {
+            tag = "fsdp/" if fsdp else ""
+            out[f"{key}/{tag}{name}/{kind}"] = {
                 "count": rec["hlo_accounting"]["count_by_type"],
                 "bytes": rec["hlo_accounting"]["bytes_by_type"],
                 "argument": rec["memory"]["argument_size_in_bytes"],
@@ -195,6 +249,8 @@ for key, (shape, names) in MESHES.items():
         _, acct = analyze_step(fn, staged, mbs)
         out[f"{key}/pipeline"] = {"count": acct.coll_count_by_type,
                                   "bytes": acct.coll_bytes_by_type}
+    else:
+        out[f"{key}/peak"] = peaks(mesh)
     dist.destroy_process_group()
 print(json.dumps(out))
 """
@@ -202,8 +258,9 @@ print(json.dumps(out))
 
 @pytest.fixture(scope="module")
 def traced():
-    arg = json.dumps([ARCH_NAMES, KINDS, SEQ, BATCH, MESHES,
-                      ["granite-3-2b", PP_SHAPE]])
+    arg = json.dumps([ARCH_NAMES, FSDP_NAMES, KINDS, SEQ, BATCH, MESHES,
+                      ["granite-3-2b", PP_SHAPE],
+                      ["internlm2-20b", PEAK_LAYERS]])
     out = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_TRACE_SCRIPT), arg],
         capture_output=True, text=True, timeout=600,
@@ -255,10 +312,10 @@ class _Expect:
             self.gather(shard, [a for e in spec for a in axes_of(e)])
 
 
-def _expected(name, kind, key):
+def _expected(name, kind, key, fsdp=False):
     mesh = _mesh(key)
     sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-    cfg = reduced(ARCHS[name])
+    cfg = dataclasses.replace(reduced(ARCHS[name]), fsdp=fsdp)
     cell = ShapeCell("c", SEQ, BATCH, kind)
     ins = input_specs(cfg, cell)
     bspecs = input_pspecs(cfg, cell, ins, mesh)
@@ -269,25 +326,20 @@ def _expected(name, kind, key):
         aval, _ = train_state_specs(cfg)
         sspecs = state_pspecs(cfg, aval, mesh)
         pspecs = sspecs["params"]
-        # each leaf gathered over the data axes only (none splits a
-        # reduced config's leaves: fsdp is off)
-        for t, spec in zip(tree_leaves(aval["params"]),
-                           tree_leaves(pspecs)):
-            shard = t.numel() * t.element_size() // _split(spec, sizes)
-            for entry in spec:
-                ex.gather_data(shard, entry)
+        _gathers_for_use(ex, cfg, aval["params"], pspecs, sizes, train=True)
         axes = axes_of(bspecs["labels"][0])
         rows = BATCH // math.prod(sizes[a] for a in axes)
         _partitioned_train(ex, cfg, sizes["model"], rows)
         # per data-parallel axis: the loss, then every leaf's gradient
-        # (this rank's 'model' shard)
-        shards = [t.numel() * t.element_size() // _split(spec, sizes)
-                  for t, spec in zip(tree_leaves(aval["params"]),
-                                     tree_leaves(pspecs))]
-        for _ in axes:
+        # (this rank's shard) that the axis does not split: the
+        # reduce-scatter summed the others over it
+        for a in axes:
             ex.add("all-reduce", 4)
-            for n in shards:
-                ex.add("all-reduce", n)
+            for t, spec in zip(tree_leaves(aval["params"]),
+                               tree_leaves(pspecs)):
+                if a not in _data_axes(spec, sizes):
+                    ex.add("all-reduce", t.numel() * t.element_size()
+                           // _split(spec, sizes))
         _optimizer(ex, cfg, aval, pspecs, sizes)
         argument += sum(t.numel() * t.element_size() // _split(s, sizes)
                         for t, s in zip(tree_leaves(aval),
@@ -296,11 +348,7 @@ def _expected(name, kind, key):
     mode = "decode" if kind == "decode" else "train"
     params = param_specs(cfg)
     pspecs = param_pspecs(cfg, params, mesh, mode=mode)
-    # each leaf gathered over the data axes only; its 'model' shard kept
-    for t, spec in zip(tree_leaves(params), tree_leaves(pspecs)):
-        shard = t.numel() * t.element_size() // _split(spec, sizes)
-        for entry in spec:
-            ex.gather_data(shard, entry)
+    _gathers_for_use(ex, cfg, params, pspecs, sizes, train=False)
     argument += sum(t.numel() * t.element_size() // _split(s, sizes)
                     for t, s in zip(tree_leaves(params),
                                     tree_leaves(pspecs)))
@@ -308,19 +356,57 @@ def _expected(name, kind, key):
     axes = axes_of(bspecs[name_in][0])
     rows = BATCH // math.prod(sizes[a] for a in axes)
     if kind == "decode":
-        split = decode_rows_independent(cfg)
+        # the rank's own cache rows, never gathered
         cache, cspecs = ins["cache"], bspecs["cache"]
         for t, spec in zip(tree_leaves(cache), tree_leaves(cspecs)):
-            shard = t.numel() * t.element_size() // _split(spec, sizes)
-            argument += shard
-            for dim, entry in enumerate(spec):
-                if not (split and dim == 1):
-                    shard = ex.gather_data(shard, entry)
-        if not split:
-            axes, rows = (), BATCH
+            argument += t.numel() * t.element_size() // _split(spec, sizes)
+        if not decode_rows_independent(cfg):
+            # the MoE's input rows, gathered over the batch axes
+            for _ in range(cfg.n_layers):
+                ex.gather(rows * cfg.d_model * 4, list(axes)[::-1])
     _partitioned_blocks(ex, cfg, kind, sizes["model"], rows)
     ex.gather(rows * cfg.padded_vocab * 4, list(axes)[::-1])  # the logits
     return ex, argument
+
+
+def _data_axes(spec, sizes) -> set:
+    """The data axes of more than one rank that split a leaf."""
+    return {a for e in spec for a in axes_of(e)
+            if a != "model" and sizes[a] > 1}
+
+
+def _gathers_for_use(ex, cfg, aval, pspecs, sizes, train):
+    """FSDP's gathers for use: each leaf that data axes split, gathered
+    over them (the minor axis first, dimension by dimension) at each
+    use: a scanned layer's slice once a layer, and again where the train
+    step recomputes the rematerialized block; the hybrid's shared block
+    once a step; the embedding at the lookup and, tied, at the head; the
+    head's weight at the head.  In the train step each gathered use's
+    gradient is reduce-scattered over the same axes (the major first),
+    once: the recomputation's gather is not differentiated.  A
+    reduce-scatter's bytes are its result's."""
+    paths = tree_leaves(_map_with_path(lambda path, _: path, aval))
+    for path, t, spec in zip(paths, tree_leaves(aval), tree_leaves(pspecs)):
+        dims = [[a for a in axes_of(e) if a in _data_axes(spec, sizes)]
+                for e in spec]
+        if not any(dims):
+            continue
+        nbytes = t.numel() * t.element_size() // _split(spec, sizes)
+        if path.startswith(("blocks/", "encoder/")):
+            uses = t.shape[0]
+            nbytes //= uses
+            gathers = uses * (2 if train and cfg.remat else 1)
+        else:
+            uses = gathers = 1 + (path == "embed" and cfg.tie_embeddings)
+        for axes in dims:
+            for a in reversed(axes):
+                nbytes *= sizes[a]
+                ex.add("all-gather", nbytes, gathers)
+        if train:
+            for axes in reversed(dims):
+                for a in axes:
+                    nbytes //= sizes[a]
+                    ex.add("reduce-scatter", nbytes, uses)
 
 
 def _partitioned_blocks(ex, cfg, kind, r, rows):
@@ -361,7 +447,8 @@ def _partitioned_blocks(ex, cfg, kind, r, rows):
     def mlp():
         if cfg.family == "moe":
             if cfg.n_experts % r == 0:
-                ex.add("all-reduce", tokens * d * f32)
+                ex.add("all-reduce", (BATCH if kind == "decode" else tokens)
+                       * d * f32)
             return
         if (2 * cfg.d_ff) % r == 0 and cfg.d_ff % r == 0:
             # the activations where they are fewer bytes, else wi
@@ -517,6 +604,51 @@ def test_collectives_and_arguments_follow_the_specs(traced, key, name, kind):
     assert got["count"] == ex.count
     assert got["bytes"] == ex.bytes
     assert got["argument"] == got["placed"] == argument
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("name", FSDP_NAMES)
+@pytest.mark.parametrize("key", list(MESHES))
+def test_fsdp_collectives_follow_the_specs(traced, key, name, kind):
+    """With ``fsdp=True``: the gathers at each use and, in training, the
+    reduce-scatters, beside the same steps' other collectives; the
+    arguments, the rank's shards."""
+    got = traced[f"{key}/fsdp/{name}/{kind}"]
+    ex, argument = _expected(name, kind, key, fsdp=True)
+    assert ex.count.get("all-gather", 0) > 0
+    assert (ex.count.get("reduce-scatter", 0) > 0) == (kind == "train")
+    assert got["count"] == ex.count
+    assert got["bytes"] == ex.bytes
+    assert got["argument"] == got["placed"] == argument
+
+
+def test_fsdp_peak_stays_below_the_whole_gather_peak(traced):
+    """The traced peak of live storages of a reduced internlm2 train step
+    with ``fsdp=True`` and PEAK_LAYERS layers on the fake (2, 2) mesh
+    stays below the whole-gather step's by at least the bytes that
+    gathering the tree whole adds, less two layers' whole leaves."""
+    mesh = _mesh("2x2")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    cfg = dataclasses.replace(reduced(ARCHS["internlm2-20b"],
+                                      n_layers=PEAK_LAYERS), fsdp=True)
+    aval, _ = train_state_specs(cfg)
+    pspecs = state_pspecs(cfg, aval, mesh)["params"]
+    gathered = layer = 0
+    paths = tree_leaves(_map_with_path(lambda path, _: path,
+                                       aval["params"]))
+    for path, t, spec in zip(paths, tree_leaves(aval["params"]),
+                             tree_leaves(pspecs)):
+        data = math.prod(sizes[a] for a in _data_axes(spec, sizes))
+        if data == 1:
+            continue
+        whole = t.numel() * t.element_size() // _split(spec, sizes) * data
+        gathered += whole
+        if path.startswith("blocks/"):
+            layer += whole // PEAK_LAYERS
+    peak = traced["2x2/peak"]
+    assert gathered > 2 * layer > 0
+    assert peak["whole"] - peak["fsdp"] >= gathered - 2 * layer, (
+        peak, gathered, layer)
 
 
 @pytest.mark.parametrize("key", list(MESHES))
