@@ -217,6 +217,18 @@ Phases, in order; each raises on failure and nothing is caught:
    at FSDP_SERVE_LAYERS (12) layers (prefill and 8 decode steps), and
    dbrx-132b's decode at 2 of its 40 layers (FSDP_MOE_DECODE steps, the
    MoE gathering its input's rows), each held to rank 0's unsharded run.
+   Slice 17, ``adafactor`` (after the one-rank mesh's train steps):
+   kimi-k2 at d_model 1,024 cut to 3 layers of 8 experts (fp32), 2
+   Adafactor train steps of 2 x 256 tokens from one state made on the
+   CPU, every stacked leaf updated one layer's slice at a time: losses
+   and factored parameters within 1e-4 of the CPU's, the statistics
+   within 1e-3, unfactored parameters within Adafactor's own per-entry
+   bound (``adafactor_step_bound``), the launches a step
+   equal to the step's calls traced on ``meta``, and the traced peak
+   within 10 % of ``max_memory_allocated``; the ``dryrun`` phase also
+   prints each record's peak phase and largest origins, and the traced
+   ranks now save each rematerialized block's input as their 'model'
+   slice.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
    that their plain times are of a float64-summed GEMM.  A kernel's
@@ -235,8 +247,9 @@ Phases, in order; each raises on failure and nothing is caught:
    their backward's time per call and per step), ``mesh``: in slice
    12's runs over the one-rank mesh, ``mesh_tp``: per rank in slice
    14's partitioned steps, ``mesh_tp_train`` and ``mesh_fsdp``: per rank
-   in slices 15's and 16's, and ``dryrun``: its calls in slice 13's
-   traced prefill and train step; K5's ``widths``: a row per (P, N)
+   in slices 15's and 16's, ``dryrun``: its calls in slice 13's
+   traced prefill and train step, and ``adafactor``: per step in slice
+   17's; K5's ``widths``: a row per (P, N)
    with its time, plain time and bound.
 
 Exits non-zero, with no result line, when no card is present or when run
@@ -323,8 +336,8 @@ from repro_torch.launch import (build_train_step,  # noqa: E402
                                 loss_and_grads, make_train_state, train_loop)
 from repro_torch.models import model_flops  # noqa: E402
 from repro_torch.models.attention import flash_attention_torch  # noqa: E402
-from repro_torch.optim import (AdamWConfig, adamw_init,  # noqa: E402
-                               cosine_lr)
+from repro_torch.optim import (AdafactorConfig, AdamWConfig,  # noqa: E402
+                               adamw_init, cosine_lr)
 from repro_torch.runtime import run_with_recovery  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
@@ -595,6 +608,14 @@ FSDP_MOE_ARCH, FSDP_MOE_LAYERS, FSDP_MOE_DECODE = "dbrx-132b", 2, 3
 FSDP_MOE_BATCH, FSDP_MOE_POS, FSDP_MOE_MAX_LEN = 4, 32, 64
 FSDP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
               "chip_smoke.mesh_fsdp_rank(int(sys.argv[2]), sys.argv[3])")
+
+#: slice 17, ``adafactor``: ADA_ARCH (MoE, Adafactor) at ADA_WIDTHS cut to
+#: ADA_LAYERS layers of ADA_EXPERTS experts, fp32, ADA_STEPS train steps of
+#: ADA_CELL from one state made on the CPU, on the card and on the CPU:
+#: every stacked leaf (ADA_LAYERS slices) updated slice by slice
+ADA_ARCH, ADA_LAYERS, ADA_EXPERTS, ADA_STEPS = "kimi-k2-1t-a32b", 3, 8, 2
+ADA_WIDTHS = {"d_model": 1024, "n_heads": 16, "d_ff": 1024, "vocab": 8192}
+ADA_CELL = ShapeCell("train", 256, 2, "train")
 
 #: slice 13, ``dryrun``: the production cell traced in subprocesses, and
 #: the tolerance of the traced train-step peak against the card's
@@ -5314,6 +5335,158 @@ def phase_mesh_training(card: str) -> dict:
             "unsharded_peak_bytes": ref["peak_memory_bytes"]}
 
 
+def phase_adafactor(card: str) -> dict:
+    """Slice 17, ``adafactor``: ADA_ARCH cut to ADA_LAYERS layers of
+    ADA_EXPERTS experts at ADA_WIDTHS (fp32), ADA_STEPS train steps
+    (``build_train_step``, donate) from one state made on the CPU, on the
+    CPU and on the card: Adafactor takes each stacked leaf one layer's
+    slice at a time.  Held to the CPU's with the train tolerances of
+    ``mesh_tp_train``'s kind: each step's loss within TRAIN_REDUCED_TOL
+    (relative), the statistics within TPT_STATE_TOL of each leaf's
+    largest entry, a factored parameter within TRAIN_REDUCED_TOL of its
+    largest entry, an unfactored one within Adafactor's own bound
+    (:func:`adafactor_step_bound`: its update is g/√v elementwise, which
+    gives an entry whose gradient is at rounding level a move of either
+    sign up to lr), the step counter equal.  The step traced on ``meta``
+    by ``analyze_step`` calls each kernel as often as the card launched
+    it in each step, and its peak (the state and a batch plus the
+    trace's peak) is within DRYRUN_PEAK_TOL of the card's
+    ``max_memory_allocated`` over the last step, less what else was
+    allocated (the BLAS workspaces, the earlier phases' leftovers, which
+    the trace does not see)."""
+    t_phase = time.perf_counter()
+    cfg = reduced(ARCHS[ADA_ARCH], n_layers=ADA_LAYERS,
+                  n_experts=ADA_EXPERTS, **ADA_WIDTHS)
+    if cfg.optimizer != "adafactor" or cfg.family != "moe":
+        raise AssertionError(f"adafactor: {ADA_ARCH} is {cfg.family} with "
+                             f"{cfg.optimizer}")
+    step_fn, (aval, _), (ins, _) = build_train_step(cfg, ADA_CELL)
+    argument = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(aval) + tree_leaves(ins))
+    _, traced = analyze_step(step_fn, aval, ins)
+    per_step = {k: traced.kernels.get(k, 0) for k in launch_counts()}
+    if not per_step["flash_attention"]:
+        raise AssertionError(f"adafactor: the traced step calls no "
+                             f"flash_attention: {traced.kernels}")
+    state0 = make_train_state(cfg, 31, device="cpu")
+    runs = {}
+    for dev in ("cpu", DEVICE):
+        step_fn, _, _ = build_train_step(cfg, ADA_CELL)
+        batches = list(itertools.islice(
+            synthetic_batches(cfg, ADA_CELL, seed=4, device=dev), ADA_STEPS))
+        state = copy_state(state0, dev)
+        losses, secs = [], []
+        for i, batch in enumerate(batches):
+            # the card's bytes of the last step: its state and batch, and
+            # what it allocates above everything else live (the BLAS
+            # workspaces, the earlier phases' leftovers, the other batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated() - sum(
+                t.numel() * t.element_size()
+                for t in tree_leaves(state) + tree_leaves(batch))
+            reset_launches()
+            (state, metrics), s = timed(lambda: step_fn(state, batch))
+            if dev != "cpu":
+                expect_counts(f"adafactor train step {i + 1}", per_step)
+            losses.append(float(metrics["loss"]))
+            secs.append(s)
+        runs[dev] = {"state": state, "losses": losses,
+                     "step_ms": [1e3 * s for s in secs],
+                     "peak": torch.cuda.max_memory_allocated() - base}
+        del batches
+    cpu, got = runs["cpu"], runs[DEVICE]
+    errs = {"loss": (max(abs(a - b) / abs(b) for a, b in zip(
+        got["losses"], cpu["losses"])), "losses", TRAIN_REDUCED_TOL)}
+    bound = adafactor_step_bound(AdafactorConfig(), ADA_STEPS)
+    names = leaf_names(cpu["state"])
+    for name, a, b in zip(names, tree_leaves(got["state"]),
+                          tree_leaves(cpu["state"])):
+        if not b.dim():
+            if int(a) != int(b):
+                raise AssertionError(f"adafactor: {name} {int(a)} on the "
+                                     f"card, {int(b)} on the CPU")
+            continue
+        diff = float((a.cpu().float() - b.float()).abs().max())
+        scale = max(float(b.float().abs().max()), 1e-30)
+        if name.startswith("/opt/"):
+            kind, err, tol = "statistics", diff / scale, TPT_STATE_TOL
+        elif b.dim() >= 2 and min(b.shape[-2:]) >= 32:
+            kind, err, tol = "factored", diff / scale, TRAIN_REDUCED_TOL
+        else:       # an entry's own bound, whatever its gradient's size
+            kind, err = "unfactored", diff / (
+                bound + 2 * scale * torch.finfo(b.dtype).eps)
+            tol = 1.0
+        if not err <= tol:
+            raise AssertionError(f"adafactor, card vs CPU: {name} ({kind}) "
+                                 f"error {err:.3g} > {tol}")
+        if err > errs.get(kind, (-1.0,))[0]:
+            errs[kind] = (err, name, tol)
+    traced_peak = argument + traced.peak_bytes
+    ratio = traced_peak / got["peak"]
+    if not abs(ratio - 1.0) <= DRYRUN_PEAK_TOL:
+        raise AssertionError(f"adafactor: traced train-step peak "
+                             f"{traced_peak / 1e9:.4f} GB vs the card's "
+                             f"{got['peak'] / 1e9:.4f} GB (ratio "
+                             f"{ratio:.4f}, tolerance {DRYRUN_PEAK_TOL})")
+    stacked = sum(1 for t in tree_leaves(aval["params"]) if t.dim() > 2)
+    top = [{k: g[k] for k in ("phase", "origin", "shape", "bytes")}
+           for g in traced.peak_by_origin[:3]]
+    result = {"adafactor": ADA_ARCH, "n_layers": ADA_LAYERS,
+              "n_experts": ADA_EXPERTS, "widths": ADA_WIDTHS,
+              "cell": dataclasses.asdict(ADA_CELL), "steps": ADA_STEPS,
+              "stacked_leaves": stacked, "losses_card": got["losses"],
+              "losses_cpu": cpu["losses"],
+              "worst": {k: {"err": e, "leaf": n, "tol": t}
+                        for k, (e, n, t) in errs.items()},
+              "unfactored_bound": bound, "launches_per_step": per_step,
+              "step_ms": {"card": got["step_ms"], "cpu": cpu["step_ms"]},
+              "peak_bytes": {"card": got["peak"], "traced": traced_peak,
+                             "ratio": ratio, "tol": DRYRUN_PEAK_TOL},
+              "traced_peak_phase": traced.peak_phase,
+              "traced_phase_peaks": {p: argument + n for p, n in
+                                     traced.phase_peaks.items()},
+              "traced_top_origins": top,
+              "timer": "host clock around synchronize, each step",
+              "phase_s": time.perf_counter() - t_phase, "card": card}
+    emit(result)
+    print(f"adafactor: {ADA_ARCH} at {ADA_LAYERS} layers of {ADA_EXPERTS} "
+          f"experts, {ADA_STEPS} Adafactor steps ({stacked} stacked leaves "
+          f"taken slice by slice) on the card against the CPU over "
+          f"{len(names)} state leaves, worst (error, leaf, tolerance): "
+          f"{errs}; launches a step {per_step} = "
+          f"traced; peak {got['peak'] / 1e9:.4f} GB max_memory_allocated vs "
+          f"{traced_peak / 1e9:.4f} GB traced (ratio {ratio:.4f}), traced "
+          f"peak in the {traced.peak_phase} phase: {top}; ms a step "
+          f"{got['step_ms']}; card {card}", flush=True)
+    return {"launches_per_step": per_step}
+
+
+def adafactor_step_bound(opt_cfg, steps: int) -> float:
+    """The most an entry of an unfactored leaf (its second moment ``v``
+    elementwise) of two Adafactor runs from one state can differ after
+    ``steps`` steps when their gradients differ (by rounding, or in sign
+    where an entry's gradient is at rounding level): step t moves an
+    entry by lr·(u_t/c_t + wd·p) with c_t >= 1 and |u_t| = |g_t|/√v_t
+    <= 1/√(1 - β_t) = t^(decay/2), since v_t >= (1 - β_t)·g_t², so two
+    moves differ by at most 2·lr·t^(decay/2), and a difference of the
+    parameters by a factor 1 + lr·wd more (AdamW's counterpart:
+    :func:`adamw_step_bound`)."""
+    bound = 0.0
+    for t in range(1, steps + 1):
+        bound = (bound * (1 + opt_cfg.lr * opt_cfg.weight_decay)
+                 + 2 * opt_cfg.lr * t ** (opt_cfg.decay / 2))
+    return bound
+
+
+def adafactor_launches(ada: dict, name: str) -> dict:
+    """A kernel's launches in slice 17's Adafactor train steps."""
+    return {"launches_per_step": ada["launches_per_step"].get(name, 0),
+            "per": f"one {ADA_ARCH} train step at {ADA_LAYERS} layers of "
+                   f"{ADA_EXPERTS} experts ({ADA_WIDTHS}), "
+                   f"{ADA_CELL.global_batch} x {ADA_CELL.seq_len} tokens"}
+
+
 def dryrun_cells(out_dir: str) -> list:
     """``python -m repro_torch.launch.dryrun`` of LM_ARCH at DRYRUN_SHAPE
     on both production meshes (256 and 512 fake ranks), each started in
@@ -5446,10 +5619,14 @@ def phase_dryrun(card: str, lm: dict, training: dict,
     emit(result)
     for rec in cells:
         mem = rec["memory"]
+        top = "; ".join(f"{g['origin']} {g['shape'] or ''} "
+                        f"({g['phase'] or 'given'}) {g['bytes'] / 1e9:.3f}"
+                        for g in mem["peak_by_origin"][:4])
         print(f"dryrun: {rec['arch']} {rec['shape']} on {rec['mesh']}: "
               f"argument {mem['argument_size_in_bytes'] / 1e9:.3f} GB, peak "
               f"{mem['peak_memory_in_bytes'] / 1e9:.3f} GB of 80 per rank, "
-              f"accounting {rec['hlo_accounting']}, kernels "
+              f"in the {mem['peak_phase']} phase; largest origins (GB): "
+              f"{top}; accounting {rec['hlo_accounting']}, kernels "
               f"{rec['kernels']}, trace {rec['trace_s']} s", flush=True)
     print(f"dryrun: traced vs card: prefill calls {pre.kernels} = "
           f"{want}; train step {train.kernels} = {want_train}; train peak "
@@ -5613,6 +5790,8 @@ def main() -> int:
     # slice 10: the training path, last user of the LM phase's parameters
     training = phase_training(card, lm)
     mesh_train = phase_mesh_training(card)
+    # slice 17: Adafactor slice by slice on an MoE at reduced depth
+    ada = phase_adafactor(card)
     # slice 15: the train step partitioned over two ranks on the card
     mesh_tp_train = phase_mesh_tp_train(card)
     # slice 16: FSDP layer by layer, and the MoE decode on its own rows
@@ -5659,7 +5838,8 @@ def main() -> int:
                    "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
                                                            name),
                    "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, name),
-                   "dryrun": dryrun_calls(dry, name)}
+                   "dryrun": dryrun_calls(dry, name),
+                   "adafactor": adafactor_launches(ada, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -5720,7 +5900,8 @@ def main() -> int:
                     "mesh_tp_train": mesh_tp_train_launches(mesh_tp_train,
                                                             "qmm"),
                     "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, "qmm"),
-                    "dryrun": dryrun_calls(dry, "qmm")}})
+                    "dryrun": dryrun_calls(dry, "qmm"),
+                    "adafactor": adafactor_launches(ada, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -5752,6 +5933,7 @@ def main() -> int:
                                                         name),
                 "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, name),
                 "dryrun": dryrun_calls(dry, name),
+                "adafactor": adafactor_launches(ada, name),
                 "training": {**training_launches(training, name),
                              "profiled": {
                                  **training["kernel_device_ms_per_step"].get(

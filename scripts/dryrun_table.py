@@ -8,9 +8,12 @@ its own (a process has one default group), ``--jobs`` at a time; the
 records land in ``--out``, one JSON per cell.  Then PERF.md's table: one
 markdown row per (arch, shape) whose cells are ``ok``, each value once
 per mesh: the rank's argument and peak GB (a peak above a card's 80 GB
-in bold), TFLOP, collective GB and counts by type, and the trace
-seconds; the skipped cells and any other status listed below it; and a
-last line of JSON with every record.  Needs no card.
+in bold), TFLOP, collective GB and counts by type, the trace seconds,
+and the peak itemized: its phase and the two largest groups of what the
+step had made and kept live there (``peak_by_origin``: the op or
+collective that made them, the shape, how many, GB); the skipped cells
+and any other status listed below it; and a last line of JSON with
+every record.  Needs no card.
 
     PYTHONPATH=src python scripts/dryrun_table.py [--jobs 8] \\
         [--out results/dryrun_torch] [--arch A ...] [--shape S ...] \\
@@ -82,8 +85,20 @@ def row(arch: str, shape: str, recs: list) -> str:
                       + (n[0] if len(set(n)) == 1 else "/".join(n)))
     cells = [" / ".join(col(r) for r in recs) for col in columns]
     trace = " / ".join(str(r["trace_s"]) for r in recs)
+    peaks = " / ".join(itemized(r["memory"]) for r in recs)
     return f"| {arch} | {shape} | {' | '.join(cells)} | " \
-        f"{', '.join(counts)} | {trace} |"
+        f"{', '.join(counts)} | {trace} | {peaks} |"
+
+
+def itemized(mem: dict) -> str:
+    """The peak's phase and its two largest groups of the step's own
+    storages (the arguments have their own column)."""
+    made = [g for g in mem["peak_by_origin"]
+            if g["origin"] not in ("arguments", "other")][:2]
+    return f"{mem['peak_phase']}: " + "; ".join(
+        f"{g['origin'].removeprefix('aten.')} "
+        f"{'x'.join(map(str, g['shape']))} ×{g['count']} {_gb(g['bytes'])}"
+        for g in made)
 
 
 def main() -> int:
@@ -112,8 +127,8 @@ def main() -> int:
     print(f"meshes {' / '.join(args.mesh)}; peaks above {CARD_GB} GB "
           f"in bold")
     print("| arch | shape | argument GB | peak GB | TFLOP | collective GB "
-          "| collectives | trace s |")
-    print("|---|---|---|---|---|---|---|---|")
+          "| collectives | trace s | peak: phase, largest origins (GB) |")
+    print("|---|---|---|---|---|---|---|---|---|")
     for a in args.arch:
         for s in args.shape:
             recs = []

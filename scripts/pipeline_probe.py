@@ -16,6 +16,18 @@ median of 5 after 1 warm-up):
    the dispatcher forward's bits.
 2. ``profile``: one pipeline run under ``torch.profiler``, with the
    card's busy share.
+3. ``path`` ``pipeline`` and ``graph``: K1's and K3's GEMMs on those
+   paths, each timed (CUDA events, median of ``chip_smoke.REPS``) in the
+   kernel, in its plain version (``tiled_mm_ref`` / ``vpu_mm_ref``,
+   float64 sums) and in ``torch.addmm`` + ReLU on the same operands,
+   beside the bound (``chip_smoke.bound``: each input read once and the
+   output written once at the HBM rate, or the products at the fp32
+   peak, whichever is longer).  The pipeline: each stage's GEMMs at a
+   micro-batch of 32 frames (K1: conv0, conv4, fc6, fc7; K3: conv2),
+   times the 8 micro-batches.  The graph: the conv front-end's 32-row
+   panels (conv0, conv2, conv4), times the panels of all 8 waves
+   (10,752), for each kernel as if it ran them all (which kernel takes a
+   panel is the runtime's choice at run time).
 
 Needs a card; exits non-zero without one.  Imports nothing of JAX.
 """
@@ -37,6 +49,52 @@ from chip_smoke import (MICRO, ThreadedPipeline, emit,  # noqa: E402
 
 FRAMES = 256
 REPS = 5
+
+
+def gemm_paths(card: str) -> None:
+    """3. K1's and K3's GEMMs of the pipeline's stages and of the graph's
+    panels: kernel, plain version, ``torch.addmm`` + ReLU and the bound."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    micro = FRAMES // MICRO
+    kernels = {"cuda-tiled": ("tiled_mm", chip_smoke.tiled_matmul,
+                              chip_smoke.tiled_mm_ref),
+               "neon-vpu": ("vpu_mm", chip_smoke.vpu_matmul,
+                            chip_smoke.vpu_mm_ref)}
+    stage_of = {layer: engine for _, lo, hi, engine in
+                chip_smoke.PIPE_STAGES for layer in range(lo, hi)}
+    pipe = {name: chip_smoke.new_totals() for name, _, _ in
+            kernels.values()}
+    graph = {name: chip_smoke.new_totals() for name, _, _ in
+             kernels.values()}
+    launches = {name: 0 for name in pipe}
+    rows, panels = chip_smoke.PANELS[0][0], 0     # the runtime's panels
+    for gemm, m, n, k, relu in chip_smoke.ALEX_GEMMS:
+        name, kernel, plain = kernels[stage_of[int(gemm[-1])]]
+        t = chip_smoke.gemm_times(kernel, plain, m // micro, n, k, relu, g)
+        chip_smoke.add_times(pipe[name], t, micro)
+        launches[name] += micro
+        emit({"path": "pipeline", "gemm": f"CIFAR_Alex+/{gemm}", **t,
+              "kernel": name, "calls": micro, "card": card})
+        if not gemm.startswith("conv"):
+            continue
+        count = m // rows
+        panels += count
+        for name, kernel, plain in kernels.values():
+            t = chip_smoke.gemm_times(kernel, plain, rows, n, k,
+                                      relu, g)
+            chip_smoke.add_times(graph[name], t, count)
+            emit({"path": "graph", "panel": f"CIFAR_Alex+/{gemm}", **t,
+                  "kernel": name, "panels": count, "card": card})
+    for name in pipe:
+        emit({"path": "pipeline", "kernel": name, "launches": launches[name],
+              **chip_smoke.summary(pipe[name]),
+              "per": f"one run of {FRAMES} frames as {micro} micro-batches",
+              "library": "torch.addmm + relu_", "card": card})
+        emit({"path": "graph", "kernel": name, "panels": panels,
+              **chip_smoke.summary(graph[name]),
+              "per": f"all {panels} panels of {micro} waves, as if this "
+                     f"kernel ran every one",
+              "library": "torch.addmm + relu_", "card": card})
 
 
 def main() -> int:
@@ -85,6 +143,7 @@ def main() -> int:
     for mode, fn in (("pipeline", pipeline), ("serial", serial),
                      ("dispatcher", dispatcher), ("pipeline", pipeline)):
         report(mode, fn)
+    gemm_paths(card)
     pipeline()
     kernels, busy_ms, wall = profiled_run(pipeline)
     emit({"profile": "one pipeline run", "kernels": kernels,

@@ -32,6 +32,17 @@ the state, params or cache plus its inputs; ``output``, ``temp``,
 ``alias`` and ``peak_memory_in_bytes`` from the trace), the step's
 ``hlo_accounting`` and ``analyzer_version``; ``trace_s`` in place of
 ``lower_s``/``compile_s``, and ``kernels``, the calls per kernel.
+
+``memory`` also itemizes the peak, beside ``repro``'s keys:
+``peak_phase``, the phase of the step that reached it (``forward``,
+``backward``: an autograd node running, the rematerialized blocks'
+recomputation among them, or ``optimizer``); ``peak_by_origin``, the
+arguments, then what the step had made and kept live at the peak, grouped
+by (phase, origin, shape, dtype) — origin the op that made it, or the
+collective that filled it (an all-gather's concatenation is an
+all-gather) — the largest groups first and the rest as ``other``: their
+``bytes`` sum to ``peak_memory_in_bytes`` exactly; and ``phase_peaks``,
+the arguments plus the most bytes live in each phase.
 """
 
 from __future__ import annotations
@@ -129,7 +140,14 @@ def trace_cell(cfg: ArchConfig, cell: ShapeCell, mesh) -> dict:
               "temp_size_in_bytes": max(0, acct.peak_bytes
                                         - acct.output_bytes),
               "alias_size_in_bytes": acct.alias_bytes,
-              "peak_memory_in_bytes": argument + acct.peak_bytes}
+              "peak_memory_in_bytes": argument + acct.peak_bytes,
+              # the peak itemized: the arguments, then what the step made
+              "peak_phase": acct.peak_phase,
+              "peak_by_origin": [{"phase": None, "origin": "arguments",
+                                  "shape": None, "dtype": None, "count": None,
+                                  "bytes": argument}] + acct.peak_by_origin,
+              "phase_peaks": {p: argument + n
+                              for p, n in acct.phase_peaks.items()}}
     return {"memory": memory, "hlo_accounting": acct.to_dict(),
             "analyzer_version": ANALYZER_VERSION,
             "trace_s": round(time.perf_counter() - t0, 2),
@@ -156,7 +174,10 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     rec.update(trace_cell(cfg, cell, mesh))
     mem = rec["memory"]
     # proves it fits (or doesn't): one card holds 80 GB
-    print({k: _gb(v) for k, v in mem.items()})
+    print({k: _gb(v) for k, v in mem.items() if isinstance(v, int)})
+    print("peak in the", mem["peak_phase"], "phase:", "; ".join(
+        f"{g['origin']} {g['shape'] or ''} {g['phase'] or ''} "
+        f"{_gb(g['bytes'])}" for g in mem["peak_by_origin"][:4]))
     print({k: rec["hlo_accounting"][k] for k in ("flops", "hbm_bytes")})
     rec["status"] = "ok"
     return rec

@@ -25,6 +25,7 @@ Accounting model:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from collections import defaultdict
@@ -441,10 +442,11 @@ from collections import Counter  # noqa: E402
 import torch  # noqa: E402
 from torch.distributed.tensor import DTensor  # noqa: E402
 from torch.utils import _pytree  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+from torch.utils._python_dispatch import (  # noqa: E402
+    TorchDispatchMode, _get_current_dispatch_mode_stack)
 from torch.utils.flop_counter import flop_registry  # noqa: E402
 
-__all__ += ["StepAccounting", "analyze_step"]
+__all__ += ["StepAccounting", "analyze_step", "step_phase", "PHASES"]
 
 #: collectives by ``repro``'s HLO type names.  A point-to-point send is a
 #: ``collective-permute`` at the bytes it sends; a receive is the sending
@@ -491,8 +493,38 @@ _STEP_NO_TRAFFIC = {
     "c10d.recv_", "c10d.barrier"}
 
 
+#: the phases of a train step a storage is made in: the forward (and
+#: whatever runs outside the other two), the backward (an autograd node is
+#: running: the VJPs, and the recomputation of rematerialized blocks) and
+#: the optimizer (the span :func:`step_phase` marks)
+PHASES = ("forward", "backward", "optimizer")
+#: the largest groups of live storages that ``peak_by_origin`` names
+TOP_ORIGINS = 10
+#: collectives whose results are new storages (written into buffers made
+#: for them): they become those storages' origin
+_RESULT_COLLECTIVES = ("all-gather", "reduce-scatter", "all-to-all")
+
+
 def _storage_key(t: torch.Tensor) -> int:
     return t.untyped_storage()._cdata
+
+
+@contextlib.contextmanager
+def step_phase(name: str):
+    """Mark the body as the step's ``name`` phase (one of
+    :data:`PHASES`) for a step traced by :func:`analyze_step`: the
+    storages made in it are booked to that phase.  Outside a trace it
+    does nothing; inside an autograd node the phase is the backward."""
+    modes = [m for m in _get_current_dispatch_mode_stack()
+             if isinstance(m, _StepTracer)]
+    before = [m.phase for m in modes]
+    for m in modes:
+        m.phase = name
+    try:
+        yield
+    finally:
+        for m, phase in zip(modes, before):
+            m.phase = phase
 
 
 @dataclasses.dataclass
@@ -512,6 +544,9 @@ class StepAccounting(HloAccounting):
     kernels: dict = dataclasses.field(default_factory=dict)
     kernel_paths: dict = dataclasses.field(default_factory=dict)
     kernel_flops: dict = dataclasses.field(default_factory=dict)
+    peak_phase: str | None = None
+    peak_by_origin: list = dataclasses.field(default_factory=list)
+    phase_peaks: dict = dataclasses.field(default_factory=dict)
 
 
 class _StepTracer(TorchDispatchMode):
@@ -539,6 +574,14 @@ class _StepTracer(TorchDispatchMode):
         self.peak = 0
         self.made: dict[int, int] = {}        # storage -> bytes, made here
         self.cast_from: dict[int, int] = {}   # storage -> source itemsize
+        self.phase = "forward"                # outside an autograd node
+        self.group_of: dict[int, tuple] = {}  # storage -> its group
+        self.groups: Counter = Counter()      # live bytes a group
+        self.members: Counter = Counter()     # live storages a group
+        self.phase_peaks: dict = {}
+        self.peak_phase = None
+        self.peak_groups: dict = {}           # group -> (storages, bytes)
+        self.at_peak = False                  # no storage died since
 
     def kernel_call(self, name: str, flops: float, nbytes: float,
                     path: str | None = None) -> None:
@@ -556,15 +599,68 @@ class _StepTracer(TorchDispatchMode):
         size = self.cast_from.get(_storage_key(t), t.element_size())
         return t.numel() * size
 
-    def _made(self, key: int, nbytes: int, storage) -> None:
+    def _phase(self) -> str:
+        return ("backward" if torch._C._current_autograd_node() is not None
+                else self.phase)
+
+    def _made(self, key: int, nbytes: int, storage, group: tuple) -> None:
         self.made[key] = nbytes
+        self.group_of[key] = group
+        self.groups[group] += nbytes
+        self.members[group] += 1
         self.live += nbytes
-        self.peak = max(self.peak, self.live)
+        phase = group[0]
+        self.phase_peaks[phase] = max(self.phase_peaks.get(phase, 0),
+                                      self.live)
+        if self.live > self.peak:
+            self.peak, self.peak_phase, self.at_peak = self.live, phase, True
         weakref.finalize(storage, self._freed, key)
 
+    def _snapshot(self) -> None:
+        """Keep what is live at the peak just reached (taken when the
+        first storage dies after it, or at the end)."""
+        if self.at_peak:
+            self.peak_groups = {g: (self.members[g], b)
+                                for g, b in self.groups.items() if b}
+            self.at_peak = False
+
+    def _regroup(self, key: int, group: tuple) -> None:
+        old = self.group_of[key]
+        nbytes = self.made[key]
+        self.groups[old] -= nbytes
+        self.members[old] -= 1
+        self.groups[group] += nbytes
+        self.members[group] += 1
+        self.group_of[key] = group
+
     def _freed(self, key: int) -> None:
-        self.live -= self.made.pop(key, 0)
+        if key not in self.made:
+            return
+        self._snapshot()
+        nbytes = self.made.pop(key)
+        group = self.group_of.pop(key)
+        self.groups[group] -= nbytes
+        self.members[group] -= 1
+        if not self.members[group]:
+            del self.groups[group], self.members[group]
+        self.live -= nbytes
         self.cast_from.pop(key, None)
+
+    def peak_by_origin(self) -> list:
+        """``peak_groups`` as records, the largest first, the rest as
+        one ``"other"`` group; their bytes sum to the peak."""
+        self._snapshot()
+        rows = sorted(((b, n, g) for g, (n, b) in self.peak_groups.items()),
+                      key=lambda r: (-r[0], r[2][:2]))
+        out = [{"phase": g[0], "origin": g[1], "shape": list(g[2]),
+                "dtype": str(g[3]).removeprefix("torch."), "count": n,
+                "bytes": b} for b, n, g in rows[:TOP_ORIGINS]]
+        rest = rows[TOP_ORIGINS:]
+        if rest:
+            out.append({"phase": None, "origin": "other", "shape": None,
+                        "dtype": None, "count": sum(r[1] for r in rest),
+                        "bytes": sum(r[0] for r in rest)})
+        return out
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -597,6 +693,7 @@ class _StepTracer(TorchDispatchMode):
             self.flops += flop_registry[func._overloadpacket](
                 *args, **kwargs, out_val=out)
         kind = _STEP_COLLECTIVES.get(name)
+        phase = self._phase()
         if kind is not None:
             result = (_pytree.tree_leaves(args[0]) if name in _STEP_OUT_ARG
                       else outs)
@@ -604,18 +701,32 @@ class _StepTracer(TorchDispatchMode):
                                      for t in result
                                      if isinstance(t, torch.Tensor))
             self.coll_n[kind] += 1
+            if name in _STEP_OUT_ARG and kind in _RESULT_COLLECTIVES:
+                for t in result:      # buffers made for the result
+                    if (isinstance(t, torch.Tensor)
+                            and _storage_key(t) in self.made):
+                        self._regroup(_storage_key(t), (
+                            phase, kind, tuple(t.shape), t.dtype))
         if not (func.is_view or name in _STEP_NO_TRAFFIC):
             self.hbm += (sum(self._bytes(t) for t in ins)
                          + sum(t.numel() * t.element_size() for t in outs))
         if func.is_view:
             return out
         given = {_storage_key(t) for t in ins}
+        origin = kind or name
+        if name == "aten.cat" and ins:
+            # a concatenation of one collective's results is its result
+            made_by = {self.group_of.get(_storage_key(t), (0, None))[1]
+                       for t in ins}
+            if len(made_by) == 1 and made_by <= set(_RESULT_COLLECTIVES):
+                origin = made_by.pop()
         for t in outs:
             storage = t.untyped_storage()
             key = storage._cdata
             if key in given or key in self.made:
                 continue
-            self._made(key, storage.nbytes(), storage)
+            self._made(key, storage.nbytes(), storage,
+                       (phase, origin, tuple(t.shape), t.dtype))
             if name == "aten._to_copy" and ins:
                 self.cast_from[key] = self.cast_from.get(
                     _storage_key(ins[0]), ins[0].element_size())
@@ -644,7 +755,9 @@ def analyze_step(fn, *args, **kwargs):
       type names (``_STEP_COLLECTIVES``), from ``c10d`` and
       ``c10d_functional`` ops alike (DTensor issues the latter).
     * memory: every storage an op makes, live until it dies (views share
-      their base's storage; an in-place write makes none).
+      their base's storage; an in-place write makes none), booked to the
+      phase and the op that made it: what is live at the peak, by origin
+      (``StepAccounting``).
 
     A Python layer loop replaces the trip-count multiplier: each layer's
     ops are simply seen each time.  The traced GEMMs rank their engines
@@ -671,5 +784,8 @@ def analyze_step(fn, *args, **kwargs):
         tracer.flops, tracer.hbm, dict(tracer.coll_b), dict(tracer.coll_n),
         peak_bytes=tracer.peak, output_bytes=output, alias_bytes=alias,
         kernels=dict(tracer.kernels), kernel_flops=dict(tracer.kernel_flops),
-        kernel_paths={k: dict(v) for k, v in tracer.kernel_paths.items()})
+        kernel_paths={k: dict(v) for k, v in tracer.kernel_paths.items()},
+        peak_phase=tracer.peak_phase,
+        peak_by_origin=tracer.peak_by_origin(),
+        phase_peaks=dict(tracer.phase_peaks))
     return result, acct

@@ -58,6 +58,7 @@ from repro_torch.optim import (AdafactorConfig, AdamWConfig, adafactor_init,
                                adafactor_update, adamw_init, adamw_update)
 from repro_torch.optim.adamw import global_norm
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from .hlo_analysis import step_phase
 from .sharding import (axes_of, data_gather_of, gather_tree, input_pspecs,
                        leaf_split, local_shard, local_tree, mean_over,
                        model_axis_of, place_tree, state_pspecs, without_model)
@@ -107,8 +108,9 @@ def _train_step(cfg: ArchConfig, opt_cfg, state: dict, batch: dict, *,
     loss, grads = loss_and_grads(cfg, state["params"], batch)
     update = (adafactor_update if cfg.optimizer == "adafactor"
               else adamw_update)
-    new_params, new_opt, metrics = update(
-        opt_cfg, grads, state["opt"], state["params"], inplace=donate)
+    with step_phase("optimizer"):
+        new_params, new_opt, metrics = update(
+            opt_cfg, grads, state["opt"], state["params"], inplace=donate)
     if donate:
         state["step"].add_(1)
         return state, {"loss": loss, **metrics}
@@ -159,14 +161,15 @@ def _mesh_train_step(cfg: ArchConfig, opt_cfg, mesh, sspecs: dict,
                                         pspecs)
     split = tree_map(lambda g, s: leaf_split(s, mesh, g.dim()), shards,
                      pspecs)
-    if cfg.optimizer == "adafactor":
-        _, _, metrics = adafactor_update(
-            opt_cfg, shards, local_tree(state["opt"]), params,
-            inplace=True, split=split)
-    else:
-        _, _, metrics = adamw_update(
-            opt_cfg, shards, local_tree(state["opt"]), params,
-            inplace=True, grad_norm=global_norm(shards, split))
+    with step_phase("optimizer"):
+        if cfg.optimizer == "adafactor":
+            _, _, metrics = adafactor_update(
+                opt_cfg, shards, local_tree(state["opt"]), params,
+                inplace=True, split=split)
+        else:
+            _, _, metrics = adamw_update(
+                opt_cfg, shards, local_tree(state["opt"]), params,
+                inplace=True, grad_norm=global_norm(shards, split))
     state["step"].to_local().add_(1)
     return state, {"loss": loss, **metrics}
 

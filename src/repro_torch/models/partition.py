@@ -62,7 +62,8 @@ __all__ = ["ModelAxis", "model_axis", "use_model_axis", "all_reduce_sum",
            "all_gather_dim", "all_to_all_rows", "glu_regroup",
            "copy_to_model", "reduce_from_model", "all_reduce_max",
            "DataGather", "data_gather", "use_data_gather", "gather_for_use",
-           "split_over_data", "gather_rows", "own_rows"]
+           "split_over_data", "gather_rows", "own_rows",
+           "saved_as_model_slice"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,6 +139,50 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None
+
+
+def _storage_of(t: torch.Tensor) -> tuple:
+    return (t.untyped_storage()._cdata, t.storage_offset(), tuple(t.shape),
+            tuple(t.stride()), t.dtype)
+
+
+def saved_as_model_slice(x: torch.Tensor, axis: ModelAxis):
+    """A ``saved_tensors_hooks`` context under which autograd saves
+    ``x`` as this rank's 1/|model| slice and unpacks it by an all-gather
+    over ``axis`` (no gradient: the unpacked tensor takes the saved one's
+    place).  ``x`` must be the same, bit for bit, on every rank of
+    ``axis`` (the residual stream between blocks: g's all-reduce leaves
+    every rank the same sum), and then the gather gives back its bits.
+    The slice runs along dimension 1 (the sequence), along the flattened
+    tensor where ``axis.size`` does not divide it; ``x`` is saved whole
+    where neither divides.  Every other tensor saved in the context is
+    saved as it is.  A rematerialized block's checkpoint saves its input
+    under it, so only the slice stays alive until the backward, which
+    gathers the input again where it recomputes the block."""
+    key, size, group = _storage_of(x), axis.size, axis.group
+    if x.dim() >= 2 and x.shape[1] % size == 0:
+        dim, n = 1, x.shape[1] // size
+    elif x.numel() % size == 0:
+        dim, n = None, x.numel() // size
+    else:
+        return contextlib.nullcontext()
+    rank = axis.rank
+
+    def pack(t):
+        if _storage_of(t) != key:
+            return t
+        part = (t.narrow(1, rank * n, n) if dim == 1
+                else t.reshape(-1).narrow(0, rank * n, n))
+        return part.clone(memory_format=torch.contiguous_format), t.shape
+
+    def unpack(packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        part, shape = packed
+        return _gather(part, 0 if dim is None else dim, size,
+                       group).reshape(shape)
+
+    return torch.autograd.graph.saved_tensors_hooks(pack, unpack)
 
 
 def copy_to_model(t: torch.Tensor, axis: ModelAxis) -> torch.Tensor:

@@ -60,8 +60,8 @@ from .layers import (MetaKey, glu_mlp, init_glu_mlp, normal, rms_norm,
 from .moe import init_moe, moe_ffn
 from .partition import (all_gather_dim, copy_to_model, data_gather,
                         gather_for_use, gather_rows, model_axis, own_rows,
-                        reduce_from_model, split_over_data, use_data_gather,
-                        use_model_axis)
+                        reduce_from_model, saved_as_model_slice,
+                        split_over_data, use_data_gather, use_model_axis)
 from .ssm import (init_mamba2, init_mamba2_state, mamba2_block,
                   mamba2_decode_step)
 
@@ -244,7 +244,10 @@ def _scan_blocks(body, x, stacked, n: int, remat: bool = False,
     recomputes its gather and activations in the backward (``repro``'s
     ``jax.checkpoint`` per scanned block), under the 'model' and data
     axes of the forward: autograd runs a CUDA backward on a thread of its
-    own, which does not see the caller's :func:`use_model_axis`.  Without
+    own, which does not see the caller's :func:`use_model_axis`.  On a
+    'model' axis of more than one rank the kept input is this rank's
+    slice of it, gathered again where the backward recomputes the block
+    (:func:`_saved_input`): the same bits, 1/|model| of the bytes.  Without
     ``remat`` a recorded block would keep its whole layer until the
     backward, so a layout that splits a layer over a data axis is
     refused."""
@@ -268,10 +271,23 @@ def _scan_blocks(body, x, stacked, n: int, remat: bool = False,
     layers = tree_map(torch.unbind, stacked)
     for l in range(n):
         p = tree_map(lambda t: t[l], layers)
-        x = (checkpoint(block, p, x, use_reentrant=False,
-                        context_fn=recompute) if remat
-             else block(p, x))
+        if remat:
+            with _saved_input(x, axes[0]):
+                x = checkpoint(block, p, x, use_reentrant=False,
+                               context_fn=recompute)
+        else:
+            x = block(p, x)
     return x
+
+
+def _saved_input(x: torch.Tensor, axis):
+    """Where a rematerialized block's checkpoint keeps its input ``x``:
+    on a 'model' axis, as this rank's slice of it (every rank holds the
+    same stream), gathered again by the recomputation
+    (:func:`saved_as_model_slice`); whole otherwise."""
+    if axis is None:
+        return contextlib.nullcontext()
+    return saved_as_model_slice(x, axis)
 
 
 def _backbone(cfg: ArchConfig, params: dict, x: torch.Tensor, *,

@@ -26,7 +26,8 @@ Checkpointer bitwise, and the reduced granite server crashed and restored
 on the card giving the CPU's uninterrupted tokens.  Training: K4's and
 K5's backward (their autograd Functions) against autograd of the plain
 versions, and two train steps of the reduced zamba2 on the card against
-the CPU.
+the CPU; Adafactor taken slice by slice on the card, and two steps of a
+reduced kimi-k2 (MoE, Adafactor) against the CPU.
 
 Every test here needs a card (marker ``requires_cuda``) and skips without
 one.  On a machine with a card, and without JAX, run them as
@@ -1146,3 +1147,99 @@ def test_traced_kernel_calls_are_the_card_launches(cuda):
     _, acct = analyze_step(step_fn, aval,
                            {k: v.to("meta") for k, v in batch.items()})
     assert acct.kernels == card and card["ssd"] > 0
+
+
+@pytest.mark.parametrize("slice_bytes", [None, 32 * 36 * 4])
+def test_sliced_adafactor_on_the_card_matches_the_cpu(cuda, monkeypatch,
+                                                      slice_bytes):
+    """Adafactor taken slice by slice on the card: stacked leaves
+    (factored (2, 3, 32, 36) and (4, 48, 40), unfactored (3, 5, 8)) and
+    whole ones, three steps against the same steps on the CPU within 1e-5
+    of each leaf's largest entry, and the in-place update bit for bit the
+    functional one on the card; with ``SLICE_BYTES`` lowered, slices
+    finer than the first dimension."""
+    from repro_torch.optim import (AdafactorConfig, adafactor as af,
+                                   adafactor_init, adafactor_update)
+    from repro_torch.tree import tree_leaves, tree_map
+    if slice_bytes is not None:
+        monkeypatch.setattr(af, "SLICE_BYTES", slice_bytes)
+    shapes = {"s4": (2, 3, 32, 36), "s": (4, 48, 40), "u": (3, 5, 8),
+              "w": (48, 64), "b": (7,)}
+    g = torch.Generator().manual_seed(17)
+    params = {k: torch.randn(s, generator=g) for k, s in shapes.items()}
+    cfg = AdafactorConfig(weight_decay=0.01)
+    runs = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda t: t.to(dev, copy=True), params)
+        state = adafactor_init(p)
+        gen = torch.Generator().manual_seed(18)
+        for step in range(3):
+            grads = {k: (0.3 * (step + 1) * torch.randn(
+                s, generator=gen)).to(dev) for k, s in shapes.items()}
+            want_p, want_s, _ = adafactor_update(cfg, grads, state, p)
+            p, state, _ = adafactor_update(cfg, grads, state, p,
+                                           inplace=True)
+            for a, b in zip(tree_leaves({"p": want_p, "s": want_s}),
+                            tree_leaves({"p": p, "s": state})):
+                assert torch.equal(a, b)
+        runs[str(dev)] = {"p": p, "s": state}
+    for a, b in zip(tree_leaves(runs[str(cuda)]), tree_leaves(runs["cpu"])):
+        assert a.device.type == "cuda"
+        if b.dim():
+            assert rel_err(a.cpu(), b) <= 1e-5
+        else:
+            assert int(a) == int(b)
+
+
+def test_moe_adafactor_steps_on_the_card_match_the_cpu(cuda):
+    """The reduced kimi-k2 (MoE, Adafactor; 3 layers of 8 experts, fp32,
+    remat) two train steps from one CPU state on the card and on the
+    CPU: losses and factored parameters within 1e-4 of the CPU's
+    (relative, of the leaf's largest entry), the statistics within 1e-3,
+    an unfactored parameter within Adafactor's own bound on an entry's
+    two moves (2·lr·t^0.4 a step: its update g/√v is ±1 where g is at
+    rounding level); K4's launches a step equal to the calls of the step
+    traced on ``meta``, K1 never."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.launch import build_train_step, make_train_state
+    from repro_torch.launch.hlo_analysis import analyze_step
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = reduced(ARCHS["kimi-k2-1t-a32b"], n_layers=3, n_experts=8)
+    assert cfg.optimizer == "adafactor"
+    cell = ShapeCell("t", 64, 2, "train")
+    state0 = make_train_state(cfg, 6, device="cpu")
+    step_fn, (aval, _), (ins, _) = build_train_step(cfg, cell)
+    _, acct = analyze_step(step_fn, aval, ins)
+    runs = {}
+    for dev in ("cpu", cuda):
+        state = tree_map(lambda t: t.to(dev, copy=True), state0)
+        losses, counts = [], []
+        for i in range(2):
+            before = (flash_attention_cuda.launches, tiled_matmul.launches)
+            state, m = step_fn(state, make_batch(cfg, cell, 1, i,
+                                                 device=dev))
+            losses.append(float(m["loss"]))
+            counts.append((flash_attention_cuda.launches - before[0],
+                           tiled_matmul.launches - before[1]))
+        runs[str(dev)] = (state, losses, counts)
+    (cpu, cpu_losses, _), (card, card_losses, counts) = runs["cpu"], \
+        runs[str(cuda)]
+    assert acct.kernels["flash_attention"] > 0
+    assert counts == [(acct.kernels["flash_attention"], 0)] * 2
+    for a, b in zip(card_losses, cpu_losses):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    lr = 1e-2                           # AdafactorConfig's
+    bound = sum(2 * lr * t ** 0.4 for t in (1, 2))
+    for key in ("params", "opt"):
+        for a, b in zip(tree_leaves(card[key]), tree_leaves(cpu[key])):
+            assert a.device.type == "cuda"
+            if not b.dim():
+                assert int(a) == int(b)
+            elif key == "opt":
+                assert rel_err(a.cpu(), b) <= 1e-3
+            elif b.dim() >= 2 and min(b.shape[-2:]) >= 32:
+                assert rel_err(a.cpu(), b) <= 1e-4
+            else:
+                assert float((a.cpu() - b).abs().max()) <= bound
+    assert int(card["step"]) == int(cpu["step"]) == 2

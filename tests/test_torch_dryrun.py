@@ -25,6 +25,10 @@
   layers on the fake (2, 2) mesh peaks below the step that gathers the
   whole parameter tree over 'data' first (the parent's scheme, rebuilt
   here) by at least the gathered tree's bytes less two layers.
+* The saved block inputs: a reduced granite train step of 8 layers on a
+  fake (1, 4) mesh peaks lower with each rematerialized block's input
+  saved as the rank's 'model' slice than with it saved whole (rebuilt
+  here), by the inputs' three quarters less one gathered input.
 """
 
 import dataclasses
@@ -57,6 +61,9 @@ ARCH_NAMES = ("granite-3-2b", "dbrx-132b", "mamba2-130m", "zamba2-2.7b")
 #: off), by the names of their cells
 FSDP_NAMES = ("internlm2-20b", "dbrx-132b", "zamba2-2.7b")
 PEAK_LAYERS = 8
+#: the saved block inputs' peak: a reduced arch's layers and sequence
+#: on a fake (1, 4) mesh
+SLICE_ARCH, SLICE_LAYERS, SLICE_SEQ = "granite-3-2b", 8, 256
 KINDS = ("train", "prefill", "decode")
 SEQ, BATCH = 64, 8
 MESHES = {"2x2": ((2, 2), ("data", "model")),
@@ -68,7 +75,8 @@ RECORD_KEYS = {"arch", "shape", "mesh", "kind", "memory", "hlo_accounting",
                "analyzer_version", "trace_s", "kernels", "status"}
 MEMORY_KEYS = {"argument_size_in_bytes", "output_size_in_bytes",
                "temp_size_in_bytes", "alias_size_in_bytes",
-               "peak_memory_in_bytes"}
+               "peak_memory_in_bytes", "peak_phase", "peak_by_origin",
+               "phase_peaks"}
 
 
 def _cli(*args) -> subprocess.CompletedProcess:
@@ -101,6 +109,15 @@ def test_a_production_cell_writes_an_ok_record(tmp_path):
         "mamba2-130m", "train_4k", "16x16", "train")
     mem = rec["memory"]
     assert mem["peak_memory_in_bytes"] >= mem["argument_size_in_bytes"] > 0
+    # the peak itemized: the arguments first, the groups summing to it;
+    # the phases of a train step, the highest the peak's
+    groups = mem["peak_by_origin"]
+    assert groups[0]["origin"] == "arguments"
+    assert groups[0]["bytes"] == mem["argument_size_in_bytes"]
+    assert sum(g["bytes"] for g in groups) == mem["peak_memory_in_bytes"]
+    assert set(mem["phase_peaks"]) == {"forward", "backward", "optimizer"}
+    assert mem["phase_peaks"][mem["peak_phase"]] == max(
+        mem["phase_peaks"].values()) == mem["peak_memory_in_bytes"]
     # one rank's shard of the fp32 AdamW state (params, m, v) and its 16
     # of the 256 rows, 4,096 tokens and labels each
     cfg = ARCHS["mamba2-130m"]
@@ -134,7 +151,7 @@ def test_long_500k_skips_full_attention_archs():
 # ---------------------------------------------------------------------------
 
 _TRACE_SCRIPT = """
-import dataclasses, json, math, sys, torch
+import contextlib, dataclasses, json, math, sys, torch
 import torch.distributed as dist
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.base import ShapeCell
@@ -151,10 +168,11 @@ from repro_torch.launch.train import (_mesh_loss_and_grads, build_train_step,
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import global_norm
 from repro_torch.tree import tree_map
-from repro_torch.models import init_model
+from repro_torch.models import init_model, transformer
 from repro_torch.tree import tree_leaves
 
-NAMES, FSDP, KINDS, SEQ, BATCH, MESHES, PP, PEAK = json.loads(sys.argv[1])
+NAMES, FSDP, KINDS, SEQ, BATCH, MESHES, PP, PEAK, SLICE = json.loads(
+    sys.argv[1])
 CELLS = [(n, False) for n in NAMES] + [(n, True) for n in FSDP]
 
 
@@ -252,6 +270,25 @@ for key, (shape, names) in MESHES.items():
     else:
         out[f"{key}/peak"] = peaks(mesh)
     dist.destroy_process_group()
+
+# the saved block inputs: a train step on a (1, 4) mesh, each block's
+# input saved as the rank's 'model' slice and saved whole
+start_fake_group(4)
+mesh = make_test_mesh(1, 4, device_type="cpu")
+cfg = reduced(ARCHS[SLICE[0]], n_layers=SLICE[1])
+fn, (aval, sspecs), (ins, _) = build_train_step(
+    cfg, ShapeCell("c", SLICE[2], BATCH, "train"), mesh, donate=False)
+got = {}
+for whole in (False, True):
+    if whole:
+        transformer._saved_input = lambda x, axis: contextlib.nullcontext()
+    _, acct = analyze_step(fn, place_tree(aval, sspecs, mesh), ins)
+    got["whole" if whole else "slices"] = {
+        "peak": acct.peak_bytes, "phase": acct.peak_phase,
+        "groups": acct.peak_by_origin,
+        "gathers": acct.coll_count_by_type.get("all-gather", 0)}
+out["1x4/saved_inputs"] = got
+dist.destroy_process_group()
 print(json.dumps(out))
 """
 
@@ -260,7 +297,8 @@ print(json.dumps(out))
 def traced():
     arg = json.dumps([ARCH_NAMES, FSDP_NAMES, KINDS, SEQ, BATCH, MESHES,
                       ["granite-3-2b", PP_SHAPE],
-                      ["internlm2-20b", PEAK_LAYERS]])
+                      ["internlm2-20b", PEAK_LAYERS],
+                      [SLICE_ARCH, SLICE_LAYERS, SLICE_SEQ]])
     out = subprocess.run(
         [sys.executable, "-c", textwrap.dedent(_TRACE_SCRIPT), arg],
         capture_output=True, text=True, timeout=600,
@@ -482,7 +520,9 @@ def _partitioned_train(ex, cfg, r, rows):
     and the vocabulary-parallel loss sums the row maximum, the sum of
     exponentials and the label's logit (an all-reduce of a value a token
     each).  The recomputation of each rematerialized block (every scanned
-    layer; not the hybrid's shared block) runs its forward only as far as
+    layer; not the hybrid's shared block) first gathers the block's input
+    over 'model' (its checkpoint saved the rank's slice of it: one
+    all-gather of the whole input), then runs its forward only as far as
     its last saved tensor, so it issues again every forward collective
     but the block's last all-reduce (the MLP's, or the MoE's, the
     out-projection's).  The backward: f's all-reduce of each replicated
@@ -530,6 +570,8 @@ def _partitioned_train(ex, cfg, r, rows):
     if v % r == 0:
         ex.add("all-reduce", tokens * d * f32, 2)   # lookup; head's f
         ex.add("all-reduce", tokens * f32, 3)       # the loss
+    if r > 1:                           # each recomputed block's input
+        ex.add("all-gather", tokens * d * f32, cfg.n_layers)
     if cfg.family in ("dense", "moe", "vlm"):
         for _ in range(cfg.n_layers):
             attn(True)
@@ -649,6 +691,26 @@ def test_fsdp_peak_stays_below_the_whole_gather_peak(traced):
     assert gathered > 2 * layer > 0
     assert peak["whole"] - peak["fsdp"] >= gathered - 2 * layer, (
         peak, gathered, layer)
+
+
+def test_saved_block_inputs_lower_the_train_peak(traced):
+    """A reduced train step of SLICE_LAYERS layers on a fake (1, 4) mesh,
+    its peak in the backward: with each rematerialized block's input
+    saved as the rank's 'model' slice, the traced peak is lower than with
+    the inputs saved whole by at least n(1 - 1/4) - 1 block inputs: the
+    n inputs a rank kept whole are now quarters, less the one input that
+    the recomputing block has gathered whole beside its own quarter; and
+    the step issues one more all-gather a layer (the recomputation's)."""
+    cfg = reduced(ARCHS[SLICE_ARCH], n_layers=SLICE_LAYERS)
+    got = traced["1x4/saved_inputs"]
+    block = BATCH * SLICE_SEQ * cfg.d_model * 4
+    n = SLICE_LAYERS
+    assert got["whole"]["phase"] == got["slices"]["phase"] == "backward"
+    assert (got["whole"]["peak"] - got["slices"]["peak"]
+            >= (n * (1 - 1 / 4) - 1) * block)
+    assert got["slices"]["gathers"] == got["whole"]["gathers"] + n
+    for rec in got.values():
+        assert sum(g["bytes"] for g in rec["groups"]) == rec["peak"]
 
 
 @pytest.mark.parametrize("key", list(MESHES))

@@ -19,6 +19,7 @@
   only inside a traced step.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -45,7 +46,8 @@ from repro_torch.kernels.qmm import ops as qmm_ops
 from repro_torch.kernels.ssd import ops as ssd_ops
 from repro_torch.kernels.tiled_mm import ops as tiled_ops
 from repro_torch.kernels.vpu_mm import ops as vpu_ops
-from repro_torch.launch.hlo_analysis import analyze_hlo, analyze_step
+from repro_torch.launch.hlo_analysis import (TOP_ORIGINS, analyze_hlo,
+                                             analyze_step, step_phase)
 from repro_torch.launch.train import build_train_step
 from repro_torch.models import (decode_fn, init_model, input_specs, loss_fn,
                                 prefill_fn)
@@ -281,6 +283,74 @@ def test_memory_of_a_chain_is_exact():
     # floats) and writes 2 bytes; the cast, the view and the allocations
     # move nothing
     assert acct.hbm_bytes == 4 * (2 * n + 2 * n + 4 * n + 4 * n + n) + 2
+
+
+def test_peak_is_itemized_by_phase_and_origin():
+    """The chain's kind of step with a backward and an optimizer span:
+    every storage is booked to the phase that made it (an autograd node
+    running: the backward; inside ``step_phase("optimizer")``: the
+    optimizer) and to the op that made it; ``peak_by_origin`` is what is
+    live at the peak, the largest groups first and the rest as
+    ``other``, summing exactly to ``peak_bytes``; ``phase_peaks`` are the
+    most bytes live while each phase made storages."""
+    n = 1000
+
+    def step(x, w):
+        y = x * w                           # forward: n floats
+        loss = (y * y).sum()                # forward: n, then 4 bytes
+        del y
+        g, = torch.autograd.grad(loss, w)   # backward: w's gradient
+        with step_phase("optimizer"):
+            small = [g[:k] + 1 for k in range(1, TOP_ORIGINS + 3)]
+            big = torch.cat([g, g, g, g])   # 4n: the peak
+            del big, small
+        return g
+
+    x, w = _meta(n), _meta(n).requires_grad_()
+    g, acct = analyze_step(step, x, w)
+    assert g.shape == (n,)
+    assert acct.peak_phase == "optimizer"
+    groups = acct.peak_by_origin
+    assert sum(r["bytes"] for r in groups) == acct.peak_bytes
+    assert groups[0] == {"phase": "optimizer", "origin": "aten.cat",
+                         "shape": [4 * n], "dtype": "float32", "count": 1,
+                         "bytes": 16 * n}
+    named = {(r["phase"], r["origin"]): r for r in groups}
+    grad = [r for r in groups if r["phase"] == "backward"]
+    assert len(grad) == 1 and grad[0]["shape"] == [n]
+    assert grad[0]["bytes"] == 4 * n and grad[0]["count"] == 1
+    # twelve small sums, ten groups named: the rest is one "other"
+    assert len(groups) == TOP_ORIGINS + 1
+    assert groups[-1]["origin"] == "other" and groups[-1]["count"] >= 2
+    assert ("forward", "aten.mul") not in named       # y and y*y died
+    assert set(acct.phase_peaks) == {"forward", "backward", "optimizer"}
+    assert acct.phase_peaks["optimizer"] == acct.peak_bytes
+    assert 4 * n <= acct.phase_peaks["backward"] < acct.peak_bytes
+    assert acct.phase_peaks["forward"] >= 8 * n       # y and y*y
+
+
+def test_gathered_storages_are_booked_to_the_gather():
+    """A collective's result buffers, and the concatenation of an
+    all-gather's parts, are booked to the collective: on one rank of a
+    fake group (a subprocess: the group is process-global)."""
+    out = _run("""
+        import json, torch
+        from repro_torch.launch.dryrun import start_fake_group
+        from repro_torch.launch.hlo_analysis import analyze_step
+        from repro_torch.models.partition import _gather
+        start_fake_group(4)
+        x = torch.empty(8, 16, device="meta")
+        _, acct = analyze_step(lambda t: _gather(t, 0, 4, None) * 2, x)
+        print(json.dumps([acct.peak_by_origin, acct.peak_bytes]))
+    """)
+    groups, peak = json.loads(out.strip().splitlines()[-1])
+    # the peak: the four parts and their concatenation (the product
+    # comes once the parts have died, no higher)
+    assert peak == 2 * 32 * 16 * 4
+    assert sum(r["bytes"] for r in groups) == peak
+    assert {(r["origin"], tuple(r["shape"]), r["count"])
+            for r in groups} == {("all-gather", (8, 16), 4),
+                                 ("all-gather", (32, 16), 1)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The port's optimizers and gradient compression on the CPU: the six tests
 of tests/test_optim.py on the port, and the port against repro on the
-same numpy inputs — AdamW and Adafactor (factored and unfactored leaves)
-over 5 steps within 1e-6 relative, ``cosine_lr`` at step 0, the end of
+same numpy inputs — AdamW and Adafactor (factored and unfactored leaves,
+stacked ones taken slice by slice) over 5 steps within 1e-6 relative, ``cosine_lr`` at step 0, the end of
 warm-up, mid-decay and the end, ``global_norm`` and
 ``clip_by_global_norm``, and ``compress_tree`` / ``decompress_tree`` /
 ``init_error_feedback`` / ``quantize_int8`` bitwise (the int8 codes, the
@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from repro import optim as jopt
+from repro_torch.launch.hlo_analysis import analyze_step
+from repro_torch.optim import adafactor as adafactor_mod
 from repro_torch.optim import (AdafactorConfig, AdamWConfig,
                                adafactor_init, adafactor_update, adamw_init,
                                adamw_update, clip_by_global_norm,
@@ -99,8 +101,10 @@ def _tree(seed, shapes, scale=1.0):
             for k, s in shapes.items()}
 
 
-#: "b": a matrix too narrow to factor, "w": factored, "s": stacked (3-D)
-SHAPES = {"b": (7,), "n": (16, 40), "w": (48, 64), "s": (3, 32, 36)}
+#: "b": a matrix too narrow to factor, "w": factored, "s": stacked (3-D,
+#: three slices), "u": stacked and too narrow to factor (four slices)
+SHAPES = {"b": (7,), "n": (16, 40), "w": (48, 64), "s": (3, 32, 36),
+          "u": (4, 5, 8)}
 
 
 def _t(tree):
@@ -165,6 +169,98 @@ def test_inplace_update_is_bitwise_the_functional_one(which):
     for a, b in zip(tree_leaves({"p": new_p, "s": new_state}),
                     tree_leaves({"p": got_p, "s": got_state})):
         assert torch.equal(a, b)
+
+
+def test_adafactor_sliced_finer_matches_repro_and_is_inplace_bitwise(
+        monkeypatch):
+    """Slices finer than a stacked leaf's first dimension (one slice of a
+    (2, 3, 32, 36) leaf is (32, 36) once ``SLICE_BYTES`` is below
+    3·32·36 floats): five steps within REL of repro, and the in-place
+    update bit for bit the functional one."""
+    monkeypatch.setattr(adafactor_mod, "SLICE_BYTES", 32 * 36 * 4)
+    shapes = {"s4": (2, 3, 32, 36), "u4": (2, 3, 5, 8), "w": (48, 64)}
+    assert len(adafactor_mod._slices(shapes["s4"])) == 6
+    cfg = AdafactorConfig(weight_decay=0.01)
+    jcfg = jopt.AdafactorConfig(weight_decay=0.01)
+    params = _tree(7, shapes)
+    p, jp = _t(params), {k: jnp.asarray(v) for k, v in params.items()}
+    state, jstate = adafactor_init(p), jopt.adafactor_init(jp)
+    for step in range(5):
+        grads = _tree(20 + step, shapes, scale=0.3 * (step + 1))
+        want_p, want_s, _ = adafactor_update(cfg, _t(grads), state, p)
+        p, state, _ = adafactor_update(cfg, _t(grads), state, p,
+                                       inplace=True)
+        for a, b in zip(tree_leaves({"p": want_p, "s": want_s}),
+                        tree_leaves({"p": p, "s": state})):
+            assert torch.equal(a, b)
+        jp, jstate, _ = jopt.adafactor_update(
+            jcfg, {k: jnp.asarray(v) for k, v in grads.items()}, jstate, jp)
+        for a, b in zip(tree_leaves(p), jax.tree.leaves(jp)):
+            _rel_close(a, b)
+        stats = {k: v for k, v in state.items() if k != "step"}
+        jstats = {k: v for k, v in jstate.items() if k != "step"}
+        for a, b in zip(tree_leaves(stats), jax.tree.leaves(jstats)):
+            _rel_close(a, b)
+
+
+def test_adafactor_temporaries_are_one_slices():
+    """A traced in-place update of a stacked (L, r, c) fp32 leaf on
+    ``meta``: the storages it makes peak within three slices' fp32 bytes
+    plus its (L, r) and (L, c) statistics, where the whole leaf's fp32
+    temporaries alone would be L slices."""
+    L, r, c = 16, 64, 96
+    meta = lambda *s: torch.empty(s, device="meta")
+    params, grads = {"w": meta(L, r, c)}, {"w": meta(L, r, c)}
+    state = {"stats": {"w": {"vr": meta(L, r), "vc": meta(L, c)}},
+             "step": torch.zeros((), dtype=torch.int32, device="meta")}
+    _, acct = analyze_step(adafactor_update, AdafactorConfig(), grads,
+                           state, params, inplace=True)
+    one = r * c * 4
+    stats = 4 * L * (r + c)
+    assert one * L > 8 * one
+    assert acct.peak_bytes <= 3 * one + 2 * stats, (acct.peak_bytes, one)
+
+
+class _CountingSplit:
+    """A stand-in for ``launch/sharding.py::LeafSplit`` with one axis of
+    two ranks on each dimension named: its sums record the shapes they
+    would all-reduce (one collective an axis) and sum nothing."""
+
+    def __init__(self, dims):
+        self.dims = dims
+        self.sums = []
+
+    def _axes(self, of=None):
+        if of is None:
+            return [a for d in self.dims for a in d]
+        return [a for d in ((of,) if isinstance(of, int) else of)
+                for a in self.dims[d]]
+
+    def ranks(self, of=None):
+        return 2 ** len(self._axes(of))
+
+    def sum(self, t, of=None):
+        self.sums += [tuple(t.shape)] * len(self._axes(of))
+        return t
+
+
+@pytest.mark.parametrize("split_dim", [0, 1, 2])
+def test_adafactor_sliced_collectives_per_leaf(split_dim):
+    """With ``split``, a stacked (L, r, c) leaf split over one axis on one
+    dimension: the collectives of a leaf taken whole, one a mean, with
+    the whole leaf's shapes: ``g²``'s row means (L, r) where c is split,
+    its column means (L, c) and ``vr``'s mean (L, 1) where r is split,
+    the update's square (a scalar) always."""
+    L, r, c = 4, 32, 40
+    dims = tuple(("model",) if d == split_dim else () for d in range(3))
+    sp = _CountingSplit(dims)
+    g = torch.ones(L, r, c)
+    p = torch.ones(L, r, c)
+    state = adafactor_init({"w": p})
+    adafactor_update(AdafactorConfig(), {"w": g}, state, {"w": p},
+                     split={"w": sp})
+    want = {0: [()], 1: [(L, c), (L, 1), ()], 2: [(L, r), ()]}[split_dim]
+    assert sp.sums == want
 
 
 def test_cosine_lr_matches_repro():

@@ -29,7 +29,11 @@ here:
   under the forward's 'model' axis;
 * no step gathers a 'model'-split leaf whole: the bytes of every
   all-gather a rank issues in the step (``c10d`` and functional, counted
-  by a dispatch mode) stay below the whole bytes of those leaves.
+  by a dispatch mode) stay below the whole bytes of those leaves;
+* each rematerialized block's input is saved as the rank's 'model'
+  slice: the stream is the same bit for bit on every 'model' rank, and
+  the loss, gradients, metrics and stepped state are ``torch.equal`` to
+  the step that saves the inputs whole (rebuilt in the rank script).
 
 The collectives' own backward passes (f, g, ``all_gather_dim``,
 ``all_to_all_rows`` and ``glu_regroup``) and the vocabulary-parallel loss
@@ -73,6 +77,7 @@ def _kw(name):
 
 
 _RANKS = '''
+import contextlib
 from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.configs import ARCHS, reduced
 from repro_torch.configs.base import ShapeCell
@@ -84,7 +89,7 @@ from repro_torch.launch.train import (_mesh_loss_and_grads, default_opt_cfg,
                                       loss_and_grads)
 import threading
 from repro_torch.launch.sharding import model_axis_of
-from repro_torch.models import loss_fn
+from repro_torch.models import loss_fn, transformer
 from repro_torch.models.layers import softmax_xent
 from repro_torch.models.partition import (ModelAxis, all_gather_dim,
                                           all_to_all_rows, copy_to_model,
@@ -122,18 +127,74 @@ def split_bytes(tree, specs):
                if any("model" in axes_of(e) for e in s))
 
 
+@contextlib.contextmanager
+def saved_inputs(record=None):
+    """Each rematerialized block's input recorded (``record``, a list),
+    or, with None, saved whole: the step before its saved inputs were
+    'model' slices (``_saved_input`` then keeps the whole input, as the
+    parent's ``_scan_blocks`` did)."""
+    saved = transformer._saved_input
+
+    def recording(x, axis):
+        if axis is not None:
+            record.append(x.detach().clone())
+        return saved(x, axis)
+
+    transformer._saved_input = (
+        recording if record is not None
+        else lambda x, axis: contextlib.nullcontext())
+    try:
+        yield
+    finally:
+        transformer._saved_input = saved
+
+
+def same_on_model_ranks(mesh, tensors):
+    # every recorded stream bit for bit the same on every 'model' rank
+    group, size = mesh.get_group("model"), mesh.size(1)
+    for t in tensors:
+        parts = [torch.empty_like(t) for _ in range(size)]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        if not all(torch.equal(p, t) for p in parts):
+            return False
+    return True
+
+
+def equal(a, b):
+    return len(tree_leaves(a)) == len(tree_leaves(b)) and all(
+        torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
 def run(mesh, cfg, state):
     batch = make_batch(cfg, cell, seed=0, step=0, device="cpu")
     fn, (_, sspecs), (_, bspecs) = build_train_step(cfg, cell, mesh)
     placed = place_tree(tree_map(torch.clone, state), sspecs, mesh)
     params = gather_data_tree(placed["params"], sspecs["params"], mesh)
     loss, grads = _mesh_loss_and_grads(cfg, mesh, bspecs, params, batch)
-    with Gathered() as seen:
+    # the same with every block input saved whole (before the step
+    # below writes the parameters that ``params`` may share)
+    with saved_inputs():
+        w_loss, w_grads = _mesh_loss_and_grads(cfg, mesh, bspecs, params,
+                                               batch)
+    streams = []
+    with Gathered() as seen, saved_inputs(streams):
         new, metrics = fn(placed, batch)
+    local = tree_map(lambda d: d.to_local().clone(), new)
+    with saved_inputs():
+        w_new, w_metrics = fn(place_tree(tree_map(torch.clone, state),
+                                         sspecs, mesh), batch)
     return {"loss": loss, "grads": grads, "metrics": metrics,
-            "local": tree_map(lambda d: d.to_local().clone(), new),
-            "gathered": seen.bytes,
-            "split": split_bytes(state["params"], sspecs["params"])}
+            "local": local, "gathered": seen.bytes,
+            "split": split_bytes(state["params"], sspecs["params"]),
+            "slices": {"saved": len(streams),
+                       "stream": same_on_model_ranks(mesh, streams),
+                       "loss": torch.equal(loss, w_loss),
+                       "grads": equal(grads, w_grads),
+                       "metrics": sorted(metrics) == sorted(w_metrics) and all(
+                           torch.equal(v, w_metrics[k])
+                           for k, v in metrics.items()),
+                       "state": equal(local, tree_map(
+                           lambda d: d.to_local(), w_new))}}
 
 
 def other_thread(mesh, cfg, state):
@@ -464,6 +525,31 @@ def test_no_train_step_gathers_a_model_shard_whole(tp_train_run, key, name):
         got = rank_result(d, "tp_train", r)[key][name]
         assert got["split"] > 0
         assert got["gathered"] < got["split"]
+
+
+def _remat_layers(cfg):
+    """The blocks a train step rematerializes: every scanned layer (and
+    encoder layer), not the hybrid's shared block."""
+    return cfg.n_layers + cfg.encoder_layers
+
+
+@pytest.mark.parametrize("name", NAMES)
+@pytest.mark.parametrize("key", list(MESHES))
+def test_saved_block_inputs_are_model_slices_bitwise(tp_train_run, key,
+                                                     name):
+    """Each rematerialized block's input, saved as the rank's 'model'
+    slice and gathered again where the backward recomputes the block: the
+    stream is the same bit for bit on every 'model' rank (what makes the
+    gather exact), and the loss, every gradient shard, the metrics and
+    the stepped state are ``torch.equal`` to the same step with the block
+    inputs saved whole, on every rank."""
+    d, _ = tp_train_run
+    cfg = _cfgs(name)[1]
+    for r in range(WORLD):
+        got = rank_result(d, "tp_train", r)[key][name]["slices"]
+        assert got == {"saved": _remat_layers(cfg), "stream": True,
+                       "loss": True, "grads": True, "metrics": True,
+                       "state": True}
 
 
 def _unit_reference(size):
