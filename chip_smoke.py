@@ -168,8 +168,23 @@ Phases, in order; each raises on failure and nothing is caught:
    before, read just after) and as a chain with a reap after every layer,
    every wave BITWISE the dispatcher's conv4 output, a ``cancel()`` that
    drains queued panels, frames/s of both and the card's busy share of a
-   profiled graph run.  Slice 12, ``mesh`` (after phase 5's LM profile,
-   on the LM parameters; the train step after ``training``): a process
+   profiled graph run.  Slice 18, ``faults`` (after ``graph``): the
+   runtime's fault paths on the card. The CIFAR_Alex+ x256 forward through
+   ``wrap_pool(POOL, plan)`` under ``RetryPolicy(check_outputs=True)``
+   with two ``raise`` on ``cuda-tiled``, a ``corrupt`` and a ``drop`` on
+   ``neon-vpu`` and its ``die`` half-way through the panels seeded onto it:
+   logits BITWISE phase 4's, every panel merged once, one worker death,
+   orphans re-seeded, K1 + K3 launches equal to the panels plus the
+   attempts thrown away; the fault-free forward with the NaN/Inf screen off
+   and on in turns (host µs a panel); the int8 decode forward over
+   ``QPOOL`` from phase 4's calibrator state with two ``raise`` on the int8
+   worker, BITWISE phase 4's int8 runtime forward; the reduced granite
+   server over a faulted pool, tokens equal to the fault-free card run and
+   ``runtime_retries`` >= 1; ``PanelRetryExhausted`` with a
+   ``retry_exhausted`` flight dump; a x50 ``slowdown`` that quarantines
+   ``neon-vpu`` under a ``HealthPolicy``.  Slice 12, ``mesh`` (after
+   phase 5's LM profile, on the LM parameters; the train step after
+   ``training``): a process
    group of one NCCL rank, ``make_test_mesh(data=1, model=1)``.
    ``build_prefill_step`` on the LM prefill's 4 x 1,024 tokens,
    ``build_decode_step`` (donate) 8 steps from a fresh cache, and 2 bf16
@@ -241,8 +256,9 @@ Phases, in order; each raises on failure and nothing is caught:
    also gives ``lm_prefill`` and ``lm_decode`` (per step): launches by
    path, times, bound and library time over the LM GEMMs; K1's and K3's
    give ``pipeline``, ``runtime_steal`` and ``graph``: their launches in
-   slice 7's runs; every kernel's gives ``serving``: its launches in each
-   of slice 8's serving runs, ``durability``: in each of slice 9's
+   slice 7's runs; K1's, K2's and K3's ``faults``: in each run of slice
+   18's faults phase; every kernel's gives ``serving``: its launches in
+   each of slice 8's serving runs, ``durability``: in each of slice 9's
    restored runs, ``training``: per train step (K4's and K5's also
    their backward's time per call and per step), ``mesh``: in slice
    12's runs over the one-rank mesh, ``mesh_tp``: per rank in slice
@@ -326,8 +342,13 @@ from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
                                quantize_weights, register_quantized, rel_err)
 from repro_torch.core.serving import Request, SynergyServer  # noqa: E402
 from repro_torch.soc import (CrashPlan, Durability,  # noqa: E402
-                             GraphCancelled, RequestJournal, SimulatedCrash,
-                             SynergyRuntime)
+                             FaultPlan, FaultSpec, GraphCancelled,
+                             HealthPolicy, PanelRetryExhausted,
+                             RequestJournal, RetryPolicy, SimulatedCrash,
+                             SynergyRuntime, wrap_pool)
+from repro_torch.core.job import JobSet  # noqa: E402
+from repro_torch.obs.flightrec import FlightRecorder  # noqa: E402
+from repro_torch.obs.trace import Tracer  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.configs.base import ShapeCell  # noqa: E402
 from repro_torch.data import prefetch, synthetic_batches  # noqa: E402
@@ -401,6 +422,16 @@ MICRO = 32
 PIPE_STAGES = [("conv0+pool1", 0, 2, "cuda-tiled"),
                ("conv2+pool3", 2, 4, "neon-vpu"),
                ("conv4+pool5+fc6+fc7", 4, 8, "cuda-tiled")]
+#: slice 18: the faults phase's recovery knobs (a heartbeat of 1 s; the
+#: stall timeout well above it, so the stall sweep never takes a dead
+#: worker's panel before the monitor does), its wait for one future, and
+#: the slowdown that must quarantine neon-vpu
+FAULT_RETRY = {"max_attempts": 4, "heartbeat_timeout_s": 1.0,
+               "monitor_interval_s": 0.05, "stall_timeout_s": 3.0}
+FAULT_TIMEOUT = 120
+SLOW_FACTOR = 50.0
+SLOW_GEMM = (65536, 64, 1600)   # conv2's (m, n, k) at 256 frames
+SLOW_GEMMS = 16                 # at most, until neon-vpu is quarantined
 #: seconds a graph, a wave or a chained GEMM may take before the phase fails
 GRAPH_TIMEOUT = 300
 BF16_TOL = 3e-2
@@ -1444,7 +1475,8 @@ def phase_decode_paths(main: tuple) -> dict:
             "rt_err": rt_err, "steals": stats["total_steals"],
             "engines": {n: {k: per[n][k] for k in ("jobs", "steals",
                                                    "wall_busy_s", "idle_s")}
-                        for n in QPOOL}}
+                        for n in QPOOL},
+            "state0": state0, "runtime_logits": got}
 
 
 def phase_times(card: str, main: tuple) -> tuple[dict, float]:
@@ -2162,6 +2194,334 @@ def phase_graph(card: str, main: tuple) -> dict:
           f"graph and chain bitwise the dispatcher's conv front-end",
           flush=True)
     return counts
+
+
+def fault_pool(names: list, plan) -> list:
+    """The registered engines of ``names``, ``plan``'s targets wrapped in
+    ``FaultyEngine``s (``wrap_pool``)."""
+    return wrap_pool([get_engine(n) for n in names], plan)
+
+
+def recorded_futures(rt) -> list:
+    """Wrap ``rt.submit_gemm`` so that every future it returns is kept."""
+    futs, submit = [], rt.submit_gemm
+
+    def recorded(*args, **kw):
+        fut = submit(*args, **kw)
+        futs.append(fut)
+        return fut
+
+    rt.submit_gemm = recorded
+    return futs
+
+
+def panels_merged(futs: list) -> dict:
+    """Panels each engine completed into a merge, over ``futs``."""
+    ran = collections.Counter()
+    for f in futs:
+        for eng, acct in f.accounting.items():
+            ran[eng] += acct["jobs"] // f.jobset.grid[1]
+    return dict(ran)
+
+
+def fault_forward(cfg, params, x, pool: list, retry,
+                  job_class: str | None = None) -> dict:
+    """One CNN forward through ``SynergyRuntime(pool, retry=retry)``, launch
+    counts set to 0 just before and read just after the final
+    synchronize; every future of the forward kept."""
+    with SynergyRuntime(pool, name="faults", device=DEVICE,
+                        retry=retry) as rt:
+        futs = recorded_futures(rt)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        logits = cnn_forward(cfg, params, x, runtime=rt, job_class=job_class,
+                             device=DEVICE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        stats = rt.stats()
+    bad = [f.jobset.name for f in futs
+           if f.execution_counts != [1] * len(f.execution_counts)]
+    if bad:
+        raise AssertionError(f"faults: panels of {bad} merged other than "
+                             f"exactly once")
+    return {"logits": logits, "futs": futs, "stats": stats,
+            "launches": counts, "wall_s": wall,
+            "panels": sum(len(f.execution_counts) for f in futs)}
+
+
+def injected_kinds(plan) -> dict:
+    return dict(collections.Counter(kind for _, kind, _ in plan.injected))
+
+
+def phase_faults(card: str, main: tuple, run: dict, decode: dict,
+                 serving: dict, runtime_fp32: dict) -> dict:
+    """Slice 18: the live runtime's fault paths on the card, each scenario
+    of ``tests/test_faults.py`` that a card changes.
+
+    (a) Chaos forward: CIFAR_Alex+ x256 through ``SynergyRuntime(
+    wrap_pool(POOL, plan), retry=RetryPolicy(check_outputs=True, ...))``:
+    two ``raise`` on ``cuda-tiled``, one ``corrupt`` and one ``drop`` on
+    ``neon-vpu``, then ``die`` on ``neon-vpu`` half-way through the panels
+    seeded onto it.  Logits BITWISE phase 4's; every future's
+    execution counts all 1; one worker death and at least one orphan
+    re-seed; K1 + K3 launches = the panels + the attempts that launched
+    and were thrown away (the corrupt and the dropped panel, and any late
+    stall-sweep duplicate: retries beyond the raises, the corruption and
+    the drop), counts set to 0 just before, read just after.  (b) The
+    same forward fault-free, with the screen off and on in turns (off,
+    on, on, off): host µs a panel of each.  (c) Int8: the decode forward
+    over ``QPOOL`` from phase 4's calibrator state, two ``raise`` on the
+    int8 worker: BITWISE phase 4's int8 runtime forward, K2 once a panel.
+    (d) The reduced granite server of ``phase_serving_dense`` over a
+    faulted POOL (a ``die`` on ``neon-vpu``, two ``raise`` on
+    ``cuda-tiled``): its tokens, and ``runtime_retries`` >= 1.  (e) Retry
+    exhaustion: ``PanelRetryExhausted`` and a ``retry_exhausted`` flight
+    dump in a temporary directory.  (f) A ``slowdown`` (x SLOW_FACTOR) on
+    ``neon-vpu`` under a ``HealthPolicy`` quarantines it within
+    SLOW_GEMMS conv2-shaped GEMMs seeded on it, each bitwise K1's."""
+    cfg, params, x, _, logits = main
+    t_phase = time.perf_counter()
+    seconds, counts, out = {}, {}, {}
+
+    def check_forward(r: dict, want: torch.Tensor, label: str) -> None:
+        if not torch.equal(r["logits"], want):
+            raise AssertionError(
+                f"faults ({label}): logits differ from the fault-free "
+                f"forward by {(r['logits'] - want).abs().max().item():.3g}")
+
+    # (b) fault-free, screen off and on in turns
+    t0 = time.perf_counter()
+    screen = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        r = fault_forward(cfg, params, x, POOL, RetryPolicy(
+            check_outputs=label == "on", **FAULT_RETRY))
+        check_forward(r, logits, f"screen {label}")
+        if r["launches"]["tiled_mm"] + r["launches"]["vpu_mm"] != r["panels"]:
+            raise AssertionError(f"faults (screen {label}): launches "
+                                 f"{r['launches']}, {r['panels']} panels")
+        screen[label].append(r)
+    us = {label: [1e6 * r["wall_s"] / r["panels"] for r in rs]
+          for label, rs in screen.items()}
+    clean_fps = FRAMES / statistics.median(r["wall_s"]
+                                           for r in screen["on"])
+    counts["screen_on"] = screen["on"][0]["launches"]
+    seconds["screen"] = time.perf_counter() - t0
+    print(f"faults: fault-free forward, host us a panel with the screen "
+          f"off {us['off']}, on {us['on']}; {clean_fps:.2f} frames/s "
+          f"(screen on)", flush=True)
+
+    # (a) the chaos forward
+    t0 = time.perf_counter()
+    # neon-vpu dies half-way through the panels LPT seeds onto it (its
+    # cost model gives it 1/17 of each GEMM), which it runs whatever the
+    # steals: after the corruption its retry sits at cuda-tiled's queue
+    # tail, and avoid_failed_engine keeps neon-vpu from stealing there
+    die_at = max(8, run["panels"] // 34)
+    plan = FaultPlan((FaultSpec("cuda-tiled", "raise", at_call=0, count=2),
+                      FaultSpec("neon-vpu", "corrupt", at_call=2),
+                      FaultSpec("neon-vpu", "drop", at_call=4),
+                      FaultSpec("neon-vpu", "die", at_call=die_at)), seed=18)
+    chaos = fault_forward(cfg, params, x, fault_pool(POOL, plan),
+                          RetryPolicy(check_outputs=True, **FAULT_RETRY))
+    check_forward(chaos, logits, "chaos")
+    kinds = injected_kinds(plan)
+    if kinds != {"raise": 2, "corrupt": 1, "drop": 1, "die": 1}:
+        raise AssertionError(f"faults (chaos): injected {plan.injected}")
+    st = chaos["stats"]
+    if st["worker_deaths"] != 1 or st["orphan_reseeds"] < 1:
+        raise AssertionError(f"faults (chaos): worker deaths "
+                             f"{st['worker_deaths']}, orphan re-seeds "
+                             f"{st['orphan_reseeds']}")
+    # every retry is a raise, the corruption or a stall-sweep duplicate:
+    # of the drop (unless the death re-seeded it first, as an orphan), or
+    # a late one, whose original ran too
+    stall = st["retries"] - kinds["raise"] - kinds["corrupt"]
+    late = max(0, stall - kinds["drop"])
+    if stall < 0:
+        raise AssertionError(f"faults (chaos): {st['retries']} retries for "
+                             f"{kinds}")
+    merged = panels_merged(chaos["futs"])
+    k1, k3 = chaos["launches"]["tiled_mm"], chaos["launches"]["vpu_mm"]
+    wasted_k3 = kinds["corrupt"] + kinds["drop"]
+    if k1 + k3 != chaos["panels"] + wasted_k3 + late or (
+            late == 0 and (k1, k3) != (merged.get("cuda-tiled", 0),
+                                       merged.get("neon-vpu", 0)
+                                       + wasted_k3)):
+        raise AssertionError(
+            f"faults (chaos): launches K1 {k1}, K3 {k3} for "
+            f"{chaos['panels']} panels (merged {merged}), {wasted_k3} "
+            f"thrown away by plan, {late} late duplicates")
+    counts["chaos"] = chaos["launches"]
+    chaos_fps = FRAMES / chaos["wall_s"]
+    seconds["chaos"] = time.perf_counter() - t0
+    print(f"faults: chaos forward bitwise, injected {plan.injected}, "
+          f"{st_line(st)}, launches K1 {k1} + K3 {k3} for "
+          f"{chaos['panels']} panels (merged {merged}, {late} late "
+          f"duplicates), {chaos_fps:.2f} frames/s", flush=True)
+    out["chaos"] = {"plan": [dataclasses.asdict(s) for s in plan.specs],
+                    "injected": plan.injected, "panels": chaos["panels"],
+                    "merged": merged, "late_duplicates": late,
+                    **{k: st[k] for k in ("retries", "worker_deaths",
+                                          "orphan_reseeds")},
+                    "frames_per_s": chaos_fps,
+                    "fault_free_frames_per_s": clean_fps,
+                    "phase5_runtime_frames_per_s":
+                        runtime_fp32["frames_per_s"]}
+
+    # (c) int8 from phase 4's calibrator state
+    t0 = time.perf_counter()
+    qeng = get_engine("cuda-tiled-int8")
+    qplan = FaultPlan((FaultSpec("cuda-tiled-int8", "raise", at_call=1,
+                                 count=2),), seed=18)
+    qeng.calibrator.import_state(decode["state0"])
+    try:
+        q = fault_forward(cfg, params, x, fault_pool(QPOOL, qplan),
+                          RetryPolicy(**FAULT_RETRY), job_class="decode")
+    finally:
+        qeng.calibrator.import_state(decode["state0"])
+    check_forward(q, decode["runtime_logits"], "int8")
+    if (injected_kinds(qplan) != {"raise": 2} or q["stats"]["retries"] != 2
+            or q["launches"] != {**NO_LM_KERNELS, "tiled_mm": 0,
+                                 "vpu_mm": 0, "qmm": q["panels"]}):
+        raise AssertionError(f"faults (int8): injected {qplan.injected}, "
+                             f"retries {q['stats']['retries']}, launches "
+                             f"{q['launches']} for {q['panels']} panels")
+    counts["int8"] = q["launches"]
+    seconds["int8"] = time.perf_counter() - t0
+    print(f"faults: int8 forward bitwise, injected {qplan.injected}, "
+          f"{st_line(q['stats'])}, qmm {q['launches']['qmm']} launches "
+          f"for {q['panels']} panels", flush=True)
+
+    # (d) serving over a faulted pool
+    t0 = time.perf_counter()
+    dcfg, dparams, dcnn = dense_model()
+    splan = FaultPlan((FaultSpec("neon-vpu", "die", at_call=3),
+                       FaultSpec("cuda-tiled", "raise", at_call=0, count=2)),
+                      seed=18)
+    served = serve_run(dcfg, to_device(dparams), fault_pool(POOL, splan),
+                       cnn_params=to_device(dcnn), n=SERVE_SLOTS,
+                       retry=RetryPolicy(**FAULT_RETRY))
+    if served["tokens"] != serving["dense"]["tokens"]:
+        raise AssertionError("faults (serving): tokens differ from the "
+                             "fault-free card run")
+    if served["stats"].runtime_retries < 1:
+        raise AssertionError(f"faults (serving): runtime_retries "
+                             f"{served['stats'].runtime_retries}, injected "
+                             f"{splan.injected}")
+    counts["serving"] = served["launches"]
+    out["serving"] = {"injected": splan.injected,
+                      "runtime_retries": served["stats"].runtime_retries,
+                      "decode_gemms_vs_plain": served["checked"]}
+    seconds["serving"] = time.perf_counter() - t0
+    print(f"faults: serving tokens equal, injected {splan.injected}, "
+          f"runtime_retries {served['stats'].runtime_retries}",
+          flush=True)
+
+    # (e) retry exhaustion and its flight dump
+    t0 = time.perf_counter()
+    eplan = FaultPlan(tuple(FaultSpec(n, "raise", at_call=0, count=10 ** 6)
+                            for n in POOL), seed=18)
+    g = torch.Generator(device=DEVICE).manual_seed(18)
+    a = torch.randn(64, 75, device=DEVICE, generator=g)
+    b = torch.randn(75, 64, device=DEVICE, generator=g)
+    workdir = tempfile.mkdtemp(prefix="faults-")
+    try:
+        tracer = Tracer()
+        with SynergyRuntime(fault_pool(POOL, eplan), name="exhaust",
+                            device=DEVICE, tracer=tracer,
+                            flight_recorder=FlightRecorder(tracer,
+                                                           dir=workdir),
+                            retry=RetryPolicy(**{**FAULT_RETRY,
+                                                 "max_attempts": 2})) as rt:
+            reset_launches()
+            fut = rt.submit_gemm(a, b, jobset=JobSet.for_gemm(
+                0, 64, 64, 75, 32, name="doom"), tile=(32, 32, 32))
+            try:
+                fut.result(FAULT_TIMEOUT)
+            except PanelRetryExhausted as e:
+                exhausted = e
+            else:
+                raise AssertionError("faults (exhaustion): the GEMM "
+                                     "completed")
+        dumps = sorted(Path(workdir).glob("flightrec-*retry_exhausted*.json"))
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    if not dumps or exhausted.attempts != 2:
+        raise AssertionError(f"faults (exhaustion): {len(dumps)} dumps, "
+                             f"{exhausted}")
+    counts["exhaustion"] = launch_counts()
+    seconds["exhaustion"] = time.perf_counter() - t0
+
+    # (f) a slowdown quarantines neon-vpu
+    t0 = time.perf_counter()
+    m, n, k = SLOW_GEMM
+    a = torch.randn(m, k, device=DEVICE, generator=g)
+    b = torch.randn(k, n, device=DEVICE, generator=g)
+    want = tiled_matmul(a, b)
+    hplan = FaultPlan((FaultSpec("neon-vpu", "slowdown", at_call=4,
+                                 count=10 ** 6, factor=SLOW_FACTOR),), seed=18)
+    with SynergyRuntime(fault_pool(POOL, hplan), name="health", device=DEVICE,
+                        health=HealthPolicy(alpha=0.5, quarantine_below=0.05,
+                                            min_samples=3,
+                                            probe_interval_s=1e9)) as rt:
+        torch.cuda.synchronize()
+        reset_launches()
+        # the GEMM seeded on neon-vpu, which takes a panel from its own
+        # queue's head between slowed ones while cuda-tiled steals the
+        # tail; again until neon-vpu is quarantined (a few slowed panels)
+        gemms, bitwise = 0, True
+        while gemms < SLOW_GEMMS and not rt.stats()["quarantines"]:
+            y = rt.submit_gemm(a, b, jobset=JobSet.for_gemm(0, m, n, k, 32),
+                               tile=(32, 32, 32),
+                               affinity="neon-vpu").result(FAULT_TIMEOUT)
+            bitwise = bitwise and torch.equal(y, want)
+            gemms += 1
+        torch.cuda.synchronize()
+        counts["slowdown"] = launch_counts()
+        st = rt.stats()
+    health = st["engines"]["neon-vpu"]
+    if not bitwise or not health["quarantined"] or st[
+            "engines"]["cuda-tiled"]["quarantined"]:
+        raise AssertionError(f"faults (slowdown): bitwise {bitwise} over "
+                             f"{gemms} GEMMs, engines "
+                             f"{ {e: st['engines'][e] for e in POOL} }")
+    out["slowdown"] = {"factor": SLOW_FACTOR, "gemms": gemms,
+                       "slowed_panels": len(hplan.injected),
+                       "quarantines": st["quarantines"],
+        "neon_vpu": {key: health[key] for key in ("health", "jobs")}}
+    seconds["slowdown"] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+
+    figures = {"screen_host_us_per_panel": us,
+               "chaos_frames_per_s": chaos_fps,
+               "fault_free_frames_per_s": clean_fps}
+    emit({"faults": cfg.name, "frames": FRAMES, "pool": POOL,
+          "retry": FAULT_RETRY, **out, **figures,
+          "launches": counts, "seconds": seconds,
+          "timer": "host clock around synchronize, one forward each "
+                   "(screen: two each, off, on, on, off)",
+          "card": card})
+    print(f"faults: exhaustion dumped; slowdown quarantined neon-vpu "
+          f"after {len(hplan.injected)} slowed panels in {gemms} GEMMs; "
+          f"seconds {seconds}; card {card}", flush=True)
+    return {"launches": counts, "seconds": seconds, **figures}
+
+
+def st_line(st: dict) -> str:
+    return ", ".join(f"{k} {st[k]}" for k in ("retries", "worker_deaths",
+                                              "orphan_reseeds"))
+
+
+def faults_launches(faults: dict, name: str) -> dict:
+    """A kernel's launches in each of phase_faults's runs."""
+    return {"launches": {run: c[name] for run, c in
+                         faults["launches"].items()},
+            "per": "each run of the faults phase (chaos forward, the "
+                   "fault-free forward with the screen on, int8 decode, "
+                   "serving, retry exhaustion, slowdown), counts set to 0 "
+                   "just before and read just after"}
 
 
 def fa_tol(sk: int, dtype: torch.dtype) -> float:
@@ -2947,7 +3307,8 @@ def check_decode_gemms(log: list, qeng) -> dict:
 
 
 def serve_run(cfg, params: dict, pool: list, device: str | None = None,
-              n: int = SERVE_REQUESTS, new: int = SERVE_NEW, **kw) -> dict:
+              n: int = SERVE_REQUESTS, new: int = SERVE_NEW,
+              retry: RetryPolicy | None = None, **kw) -> dict:
     """One server over a fresh ``SynergyRuntime(pool)``: ``n`` requests
     submitted and run to the end (``run()`` drains the in-flight
     window), launch counts set to 0 just before the submits and read just
@@ -2955,12 +3316,14 @@ def serve_run(cfg, params: dict, pool: list, device: str | None = None,
     against its plain version (check_decode_gemms).  Returns the tokens,
     the decode-GEMM outputs and that check, the counts, the stats and the
     times: wall and the serving thread's own CPU time
-    (``time.thread_time``).  ``device`` defaults to DEVICE."""
+    (``time.thread_time``).  ``device`` defaults to DEVICE; ``retry`` is
+    the runtime's RetryPolicy."""
     device = device or DEVICE
     reqs = serve_requests(cfg, n=n, new=new)
     qeng = (get_engine("cuda-tiled-int8") if "cuda-tiled-int8" in pool
             else None)
-    with SynergyRuntime(pool, name="serving", device=device) as rt:
+    with SynergyRuntime(pool, name="serving", device=device,
+                        retry=retry) as rt:
         log = record_decode_gemms(rt, qeng)
         srv = SynergyServer(cfg, params, slots=SERVE_SLOTS,
                             max_len=SERVE_MAX_LEN, prefill_len=SERVE_PROMPT,
@@ -3133,7 +3496,7 @@ def phase_serving(card: str, lm: dict) -> dict:
             "tokens": {name: runs[name]["tokens"] for name, _, _ in SERVE_RUNS},
             "tokens_out": {name: runs[name]["stats"].tokens_out
                            for name, _, _ in SERVE_RUNS},
-            "q_state": q_state}
+            "q_state": q_state, "dense": dense}
 
 
 def dense_model() -> tuple:
@@ -3196,7 +3559,8 @@ def phase_serving_dense() -> dict:
             "tol": tol, "launches": card["launches"],
             "per_slot_launches": slot["launches"],
             "cpu_launches": cpu["launches"],
-            "decode_steps": card["stats"].decode_steps}
+            "decode_steps": card["stats"].decode_steps,
+            "tokens": card["tokens"]}
 
 
 def serving_launches(serving: dict, name: str) -> dict:
@@ -5776,6 +6140,8 @@ def main() -> int:
     pipe = phase_pipeline(card, main, dispatcher_s, runtime_fp32)
     steal = phase_runtime_steal(card, main)
     graph = phase_graph(card, main)
+    # slice 18: the runtime's fault paths on the card
+    faults = phase_faults(card, main, run, decode, serving, runtime_fp32)
     qmm_dispatcher, qmm_runtime = phase_qmm_times(card, decode)
     phase_decode_times(card, main, decode, dispatcher_s, runtime_fp32)
     q_profiled = phase_runtime_profile(card, main, QPOOL, "decode",
@@ -5830,6 +6196,7 @@ def main() -> int:
                    "graph": {"launches": graph[name], "per": (
                        f"the conv front-end of CIFAR_Alex+ x{FRAMES} as "
                        f"{FRAMES // MICRO} wave graphs")},
+                   "faults": faults_launches(faults, name),
                    "serving": serving_launches(serving, name),
                    "durability": durability_launches(durability, name),
                    "training": training_launches(training, name),
@@ -5893,6 +6260,7 @@ def main() -> int:
                     "runtime": {**q_runtime, "launches_by_path":
                                 decode["runtime_paths"]},
                     "serving": serving_launches(serving, "qmm"),
+                    "faults": faults_launches(faults, "qmm"),
                     "durability": durability_launches(durability, "qmm"),
                     "training": training_launches(training, "qmm"),
                     "mesh": mesh_launches(mesh, mesh_train, "qmm"),

@@ -29,7 +29,9 @@ Fault vocabulary (``FaultSpec.kind``):
   bitwise contract the guard exists to protect.
 * ``"slowdown"`` — the panel computes correctly but takes
   ``factor`` × longer (fixed), or ramps by ``ramp`` per affected call
-  (progressive thermal throttling).  Feeds the health EMA naturally.
+  (progressive thermal throttling).  Feeds the health EMA naturally.  On
+  a card the panel's time is read after its stream drained, so the delay
+  scales the device work and not the launch.
 * ``"stall"`` — the panel hangs for ``duration_s`` before completing
   (a wedged accelerator queue; recoverable via
   ``RetryPolicy.stall_timeout_s`` duplicate re-execution).
@@ -341,6 +343,7 @@ class FaultyEngine(Engine):
         if spec.kind == "slowdown":
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
+            _wait_for_device(out)
             dt = time.perf_counter() - t0
             extra = spec.factor + spec.ramp * (call - spec.at_call) - 1.0
             if extra > 0:
@@ -369,6 +372,15 @@ class FaultyEngine(Engine):
 
     def __repr__(self) -> str:
         return f"<FaultyEngine {self.name!r} plan={self.plan!r}>"
+
+
+def _wait_for_device(out) -> None:
+    """Block until the device work behind ``out`` is done.  On a card an
+    engine returns once its kernels are queued, so a slowdown that timed
+    the call alone would scale the launch and not the panel; the current
+    stream is the worker's (the runtime runs a panel under it)."""
+    if torch.is_tensor(out) and out.is_cuda:
+        torch.cuda.current_stream(out.device).synchronize()
 
 
 def wrap_pool(engines: Sequence[Engine], plan: FaultPlan, *,

@@ -39,10 +39,11 @@ event recorded on the submitter's stream (A was written there, e.g. by
 im2col, and on the int8 path quantized there too), and the worker
 synchronises its stream before the panel's time is read, so
 ``wall_busy_s``, recalibration and health time the panel and not its
-launch.  Panel outputs are marked as used on the submitter's
-stream, where the merge concatenates them.  Launches go through
-``ctypes``, which releases the GIL, so two workers' launches can overlap;
-the rest of the worker loop holds it.
+launch; ``RetryPolicy.check_outputs``'s NaN/Inf screen is queued on that
+stream too and read after the same synchronize.  Panel outputs are
+marked as used on the submitter's stream, where the merge concatenates
+them.  Launches go through ``ctypes``, which releases the GIL, so two
+workers' launches can overlap; the rest of the worker loop holds it.
 """
 
 from __future__ import annotations
@@ -260,6 +261,10 @@ class _Worker:
         #: this worker's CUDA stream (None off the card)
         self.stream = (torch.cuda.Stream(device=device)
                        if device.type == "cuda" else None)
+        #: pinned host flag the integrity screen reads a card panel into
+        #: (one panel at a time, read after the stream's synchronize)
+        self.finite = (torch.empty((), dtype=torch.bool, pin_memory=True)
+                       if self.stream is not None else None)
         self.queue: deque[_RuntimeJob] = deque()
         #: EngineHealth when the runtime runs a HealthPolicy, else None
         self.health: Optional[EngineHealth] = None
@@ -796,8 +801,9 @@ class SynergyRuntime:
 
     def _execute(self, w: _Worker, job: _RuntimeJob, stolen: bool) -> None:
         eng = w.engine
-        err, part = None, None
+        err, part, finite = None, None, None
         retry = self._retry
+        screen = retry is not None and retry.check_outputs
         if retry is not None:
             with self._lock:
                 self._live_panels[job] = (eng.name, time.monotonic())
@@ -810,9 +816,12 @@ class SynergyRuntime:
                     # the panel runs on the worker's stream, and the worker
                     # waits for it: a launch returns in ~µs and would make
                     # the measured (recalibration, health) rate orders of
-                    # magnitude too high
+                    # magnitude too high.  The integrity screen is queued
+                    # there too, so the one synchronize covers it
                     with torch.cuda.stream(w.stream):
                         part = job.fn(eng)
+                        if screen:
+                            finite = self._queue_screen(w, part)
                     w.stream.synchronize()
         except WorkerKilled:
             # mid-panel worker death: re-raise WITHOUT completing and
@@ -857,8 +866,9 @@ class SynergyRuntime:
         if retry is not None:
             with self._lock:
                 self._live_panels.pop(job, None)
-            if err is None and retry.check_outputs \
-                    and self._screen_output(part):
+            if err is None and screen and (
+                    self._screen_output(part) if finite is None
+                    else not bool(finite)):
                 err = CorruptOutput(
                     f"panel of {job.sub.future.jobset.name!r} returned "
                     f"non-finite values on {eng.name!r}")
@@ -1127,6 +1137,19 @@ class SynergyRuntime:
         if not torch.is_tensor(part) or not torch.is_floating_point(part):
             return False
         return not bool(torch.isfinite(part).all())
+
+    @staticmethod
+    def _queue_screen(w: _Worker, part) -> Optional[torch.Tensor]:
+        """The screen of a card panel's partial, queued on the current
+        stream (the worker's) into the worker's pinned flag: it is read
+        after the worker's one synchronize, with no second sync and
+        without waiting behind the submitter's stream.  None when the
+        screen skips ``part`` (:meth:`_screen_output` then says so on the
+        host)."""
+        if not torch.is_tensor(part) or not torch.is_floating_point(part):
+            return None
+        w.finite.copy_(torch.isfinite(part).all(), non_blocking=True)
+        return w.finite
 
     # -------------------------------------------------------- submissions
     def _on_submission_done(self, fut: RuntimeFuture) -> None:

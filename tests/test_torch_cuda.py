@@ -38,6 +38,7 @@ one.  On a machine with a card, and without JAX, run them as
 import dataclasses
 import importlib.util
 import math
+import threading
 import time
 from pathlib import Path
 
@@ -50,7 +51,7 @@ from repro_torch.configs import ARCHS, PAPER_CNNS, reduced
 from repro_torch.core import ThreadedPipeline
 from repro_torch.core.job import JobSet
 from repro_torch.core.synergy_mm import SynergyTrace, synergy_matmul
-from repro_torch.engines import get_engine
+from repro_torch.engines import Engine, get_engine
 from repro_torch.kernels.common.build import sass_opcodes
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention_cuda,
@@ -69,8 +70,9 @@ from repro_torch.models.cnn import cnn_forward, conv_jobsets, init_cnn
 from repro_torch.quant import (QuantizedEngine, quantize_weights, rel_err)
 from repro_torch.quant.act import one_shot_act_scale, quantize_activations
 from repro_torch.core.serving import SynergyServer
-from repro_torch.soc import (CrashPlan, Durability, GraphCancelled,
-                             SimulatedCrash, SynergyRuntime)
+from repro_torch.soc import (CrashPlan, Durability, FaultPlan, FaultSpec,
+                             FaultyEngine, GraphCancelled, RetryPolicy,
+                             SimulatedCrash, SynergyRuntime, wrap_pool)
 
 POOL = ["cuda-tiled", "neon-vpu"]
 
@@ -836,6 +838,137 @@ def test_graph_cancel_on_the_card_drains_queued_panels(cuda):
         fresh, = cs.graph_waves(rt, cfg, params, [x], name="after")
         got = fresh.result(60)[-1]
     assert torch.equal(got, cs.conv_front(cfg, params, x))
+
+
+# ------------------------------------------------- faults on the card
+
+class _FiringPlan(FaultPlan):
+    """A FaultPlan whose ``fired`` event sets at its first injection."""
+
+    def __init__(self, specs, seed=None):
+        super().__init__(specs, seed=seed)
+        self.fired = threading.Event()
+
+    def record(self, engine, kind, call):
+        super().record(engine, kind, call)
+        self.fired.set()
+
+
+class _AfterFault(Engine):
+    """``inner``'s panels start once ``plan`` has injected a fault, so the
+    faulty engine takes a panel whatever the host's thread timing."""
+
+    def __init__(self, inner, plan):
+        super().__init__(inner.name, set(inner.capabilities),
+                         cost=inner._cost)
+        self.inner, self.plan = inner, plan
+        self.telemetry = inner.telemetry
+
+    def cost_on(self, device):
+        return self.inner.cost_on(device)
+
+    def execute(self, a, b, **kw):
+        if not self.plan.fired.wait(60):
+            raise TimeoutError("the planned fault never fired")
+        return self.inner.execute(a, b, **kw)
+
+
+#: kind -> (the RetryPolicy that recovers it, launches it throws away)
+FAULT_CASES = {
+    "raise": (RetryPolicy(max_attempts=3), 0),
+    "corrupt": (RetryPolicy(max_attempts=3, check_outputs=True), 1),
+    "drop": (RetryPolicy(stall_timeout_s=1.0, heartbeat_timeout_s=1.0,
+                         monitor_interval_s=0.05), 1),
+    "die": (RetryPolicy(heartbeat_timeout_s=1.0, monitor_interval_s=0.05),
+            0)}
+
+
+@pytest.mark.parametrize("kind", sorted(FAULT_CASES))
+def test_fault_on_the_card_is_bitwise_the_fault_free_split(cuda, kind):
+    """neon-vpu's first panel faults (``cuda-tiled`` starts once it has):
+    the recovered split of CUDA tensors is bitwise the fault-free one,
+    every panel merged once, and K1 + K3 launched the panels plus the
+    attempts thrown away (a corrupt or dropped panel ran its kernel)."""
+    retry, wasted = FAULT_CASES[kind]
+    g = torch.Generator(device=cuda).manual_seed(31)
+    m, n, k = 16 * 32, 64, 300
+    a, b, bias = _rand(g, m, k), _rand(g, k, n), _rand(g, n)
+    js = JobSet.for_gemm(0, m, n, k, 32)
+    kw = dict(jobset=js, bias=bias, activation=torch.relu, tile=(32, 32, 32))
+    with SynergyRuntime(POOL, device=cuda) as rt:
+        want = rt.submit_gemm(a, b, **kw).result(60)
+    plan = _FiringPlan((FaultSpec("neon-vpu", kind, at_call=0),), seed=0)
+    pool = wrap_pool([_AfterFault(get_engine("cuda-tiled"), plan),
+                      get_engine("neon-vpu")], plan)
+    launches = (tiled_matmul.launches, vpu_matmul.launches)
+    with SynergyRuntime(pool, device=cuda, retry=retry) as rt:
+        fut = rt.submit_gemm(a, b, affinity="neon-vpu", **kw)
+        y = fut.result(60)
+        torch.cuda.synchronize()
+        stats = rt.stats()
+    assert plan.injected == [("neon-vpu", kind, 0)]
+    assert torch.equal(y, want)
+    assert fut.execution_counts == [1] * js.grid[0]
+    ran = (tiled_matmul.launches - launches[0]
+           + vpu_matmul.launches - launches[1])
+    assert ran == js.grid[0] + wasted
+    if kind == "die":
+        assert stats["worker_deaths"] == 1 and stats["orphan_reseeds"] >= 1
+    else:
+        assert stats["retries"] == 1
+
+
+def test_slowdown_on_the_card_scales_the_panels_device_time(cuda):
+    """A slowdown of factor f adds at least (f-1)x the panel's CUDA-event
+    time: the fault waits for the device work before it reads the
+    panel's time (a launch alone returns in microseconds)."""
+    factor = 10.0
+    g = torch.Generator(device=cuda).manual_seed(32)
+    a, b = _rand(g, 8192, 1600), _rand(g, 1600, 64)
+    eng = get_engine("neon-vpu")
+    eng.execute(a, b)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    eng.execute(a, b)
+    end.record()
+    torch.cuda.synchronize()
+    panel_s = start.elapsed_time(end) / 1e3
+    slow = FaultyEngine(eng, FaultPlan((FaultSpec(
+        "neon-vpu", "slowdown", at_call=0, count=1, factor=factor),)))
+    t0 = time.perf_counter()
+    y = slow.execute(a, b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    assert torch.equal(y, eng.execute(a, b))
+    assert wall - panel_s >= (factor - 1.0) * panel_s, (wall, panel_s)
+
+
+def test_integrity_screen_runs_on_the_worker_stream(cuda):
+    """With ``check_outputs`` every panel's NaN/Inf screen is queued on its
+    worker's stream: a second of work that the submitter queues on its own
+    stream after the submit does not hold the result back."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 8)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_s = 1e8 / (start.elapsed_time(end) / 1e3)
+    g = torch.Generator(device=cuda).manual_seed(33)
+    m, n, k = 16 * 32, 64, 300
+    a, b = _rand(g, m, k), _rand(g, k, n)
+    js = JobSet.for_gemm(0, m, n, k, 32)
+    with SynergyRuntime(POOL, device=cuda,
+                        retry=RetryPolicy(check_outputs=True)) as rt:
+        want = rt.submit_gemm(a, b, jobset=js, tile=(32, 32, 32)).result(60)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fut = rt.submit_gemm(a, b, jobset=js, tile=(32, 32, 32))
+        torch.cuda._sleep(int(cycles_per_s))      # ~1 s on this stream
+        y = fut.result(60)
+        waited = time.perf_counter() - t0
+        torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    assert waited < 0.5, waited
 
 
 # ------------------------------------------------------------- the server
