@@ -20,8 +20,9 @@ Phases, in order; each raises on failure and nothing is caught:
    serves four activation scales.  Slice 4: ``flash_attention`` (K4)
    against ``attention_ref`` at zamba2's prefill call (bf16 and fp32),
    GQA 32/8 D 64, 40/10 D 128, 64/8 D 112, 16/16 D 256, whisper's
-   non-causal encoder (S = Sk = 1500) and cross attention (16 / 1500), and
-   a ragged S = 200; ``ssd`` (K5) against the chunked torch path at
+   non-causal encoder (S = Sk = 1500) and cross attention (16 / 1500), a
+   ragged S = 200, and D 32 and 48 (the training example's presets, slice
+   19); ``ssd`` (K5) against the chunked torch path at
    zamba2's prefill call (fp32, the main path's type, and bf16),
    mamba2-130m's N = 128, L = 1000 (padded) and chunk 64, y and state.
    Tolerances relative to max|ref|: fp32 2e-5·sqrt(Sk or L), bf16 3e-2.
@@ -218,11 +219,11 @@ Phases, in order; each raises on failure and nothing is caught:
    ``ssd_bound``; after ``mesh``, ``mesh_tp``: the serving steps
    partitioned over 'model' by two gloo ranks sharing the card (each a
    process of its own with a time limit), zamba2-2.7b fp32 at full width
-   and TP_LAYERS (18) of its 54 layers, prefill and 8 greedy decode steps
+   and TP_LAYERS (12) of its 54 layers, prefill and 8 greedy decode steps
    (at the LM phase's depth: positions 1,024 on of a 1,057 cache holding
    a seeded random history) within 1e-4 of the unsharded steps (rank 0
-   runs them), equal tokens, every rank's cache shards; per rank K5 18
-   at P 32, K4 3 at 16 heads, K1 19 (ffma); one bf16 layer mixer by
+   runs them), equal tokens, every rank's cache shards; per rank K5 12
+   at P 32, K4 2 at 16 heads, K1 13 (ffma); one bf16 layer mixer by
    mixer; prefill, decode and collective ms and peak memory per rank.
    Slice 15, ``mesh_tp_train``: the same ranks train the same model
    (fp32, 2 AdamW steps), held to rank 0's unsharded steps.  Slice 16,
@@ -243,7 +244,19 @@ Phases, in order; each raises on failure and nothing is caught:
    within 10 % of ``max_memory_allocated``; the ``dryrun`` phase also
    prints each record's peak phase and largest origins, and the traced
    ranks now save each rematerialized block's input as their 'model'
-   slice.
+   slice.  Slice 19, ``examples`` (after ``dryrun``): every script of
+   ``examples_torch/`` (the README's entry points) at its defaults, as
+   ``python examples_torch/<name>.py`` in a process of its own,
+   EXAMPLE_LANES at a time (the LM scripts first), each with a time limit
+   of EXAMPLE_TIMEOUT s and its outputs
+   in a temporary directory: exit code, wall seconds and the script's own
+   check (its last line; the scripts that reach K1 or K4 run the same
+   inputs again on the CPU, where each kernel is its plain version, and
+   hold the card's logits, losses or tokens against them), and its
+   kernels' launches, each kernel that EXAMPLES names for it launched at
+   least once; FA_CASES holds K4 at quickstart's and serve_pipeline's
+   shapes.  The whole run's seconds
+   are printed before the kernels line.
 6. One ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.  K1's and K3's ``plain_note`` says
    that their plain times are of a float64-summed GEMM.  A kernel's
@@ -265,8 +278,8 @@ Phases, in order; each raises on failure and nothing is caught:
    14's partitioned steps, ``mesh_tp_train`` and ``mesh_fsdp``: per rank
    in slices 15's and 16's, ``dryrun``: its calls in slice 13's
    traced prefill and train step, and ``adafactor``: per step in slice
-   17's; K5's ``widths``: a row per (P, N)
-   with its time, plain time and bound.
+   17's, ``examples``: its launches in each example script (slice 19);
+   K5's ``widths``: a row per (P, N) with its time, plain time and bound.
 
 Exits non-zero, with no result line, when no card is present or when run
 outside a checkout of the repository.  Imports nothing of JAX or ``repro``.
@@ -301,16 +314,16 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import ARCHS, PAPER_CNNS, reduced  # noqa: E402
-from repro_torch.core.im2col import (conv_out_shape, im2col,  # noqa: E402
-                                     im2col_wave)
+from repro_torch.core.im2col import im2col, im2col_wave  # noqa: E402
 from repro_torch.core.pipeline import (EngineStage,  # noqa: E402
                                        ThreadedPipeline)
-from repro_torch.core.synergy_mm import (SynergyTrace,  # noqa: E402
-                                         synergy_matmul)
+from repro_torch.core.synergy_mm import SynergyTrace  # noqa: E402
 from repro_torch.engines import (CostModel, Engine,  # noqa: E402
                                  engine_scope, get_engine, list_engines)
 from repro_torch.kernels.common import build as kernel_build  # noqa: E402
 from repro_torch.kernels.common.build import sass_opcodes  # noqa: E402
+from repro_torch.kernels.launches import (launch_counts,  # noqa: E402
+                                         reset_launches)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_ref, flash_attention_cuda, flash_attention_library,
     load_flash_attention)
@@ -334,9 +347,11 @@ from repro_torch.kernels.vpu_mm import (load_vpu_mm,  # noqa: E402
                                         vpu_mm_ref)
 from repro_torch.models import (decode_fn, init_cache,  # noqa: E402
                                 init_model, lm_forward, prefill_fn)
-from repro_torch.models.cnn import (cnn_forward, conv_graph_steps,  # noqa: E402
-                                    conv_jobsets, conv_wave_graph, init_cnn,
-                                    maxpool2d)
+from repro_torch.models.cnn import (PIPE_STAGES, chain_waves,  # noqa: E402
+                                    cnn_forward, cnn_stage, conv_front,
+                                    conv_graph_steps, conv_jobsets,
+                                    graph_waves, init_cnn, pipeline_stages,
+                                    stage_gemms)
 from repro_torch.quant import (DEFAULT_TOL, one_shot_act_scale,  # noqa: E402
                                dequant_finish, quantize_activations,
                                quantize_weights, register_quantized, rel_err)
@@ -363,6 +378,7 @@ from repro_torch.runtime import run_with_recovery  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 from repro_torch.launch import (gather_tree, make_test_mesh,  # noqa: E402
                                 place_tree)
+from repro_torch.launch.mesh import one_rank_group  # noqa: E402
 from repro_torch.launch.hlo_analysis import analyze_step  # noqa: E402
 from repro_torch.launch.sharding import (axes_of,  # noqa: E402
                                          data_gather_of, gather_over,
@@ -417,11 +433,6 @@ LOGIT_TOL = 1e-4     # fp32 logits, five GEMMs summed in another order
 #: slice 7: frames per pipeline micro-batch and per graph wave; the 256
 #: frames make 8 of them
 MICRO = 32
-#: the pipeline phase's stages over CIFAR_Alex+'s layers [lo, hi), each
-#: pinned to one kernel's engine: (name, lo, hi, engine)
-PIPE_STAGES = [("conv0+pool1", 0, 2, "cuda-tiled"),
-               ("conv2+pool3", 2, 4, "neon-vpu"),
-               ("conv4+pool5+fc6+fc7", 4, 8, "cuda-tiled")]
 #: slice 18: the faults phase's recovery knobs (a heartbeat of 1 s; the
 #: stall timeout well above it, so the stall sweep never takes a dead
 #: worker's panel before the monitor does), its wait for one future, and
@@ -466,6 +477,13 @@ FA_CASES = [
     ("ragged S 200", 2, 32, 8, 200, 200, 64, True, torch.float32),
     ("reduced D 16", 2, 4, 4, 70, 70, 16, True, torch.bfloat16),
     ("reduced D 16", 2, 4, 4, 70, 70, 16, True, torch.float32),
+    ("quickstart D 16", 4, 4, 4, 32, 32, 16, True, torch.float32),
+    ("serve_pipeline prefill D 16", 1, 4, 4, 32, 32, 16, True,
+     torch.float32),
+    ("train_lm tiny D 32", 8, 4, 4, 128, 128, 32, True, torch.bfloat16),
+    ("train_lm tiny D 32", 8, 4, 4, 128, 128, 32, True, torch.float32),
+    ("train_lm small D 48", 8, 8, 8, 128, 128, 48, True, torch.bfloat16),
+    ("ragged D 48", 2, 4, 2, 70, 70, 48, False, torch.float32),
 ]
 #: K5 against its plain version: (label, B, L, H, P, N, chunk, dtype); the
 #: first is the main path's call (zamba2's prefill hands K5 fp32: the conv
@@ -594,13 +612,14 @@ SSD_WIDTH_SHAPES = [("zamba2 prefill", 4, 1024, 80, 64, 128),
 #: of TP_MODEL gloo ranks sharing the card (NCCL refuses two ranks on one
 #: device), each a process of its own with TP_TIMEOUT seconds; zamba2-2.7b
 #: at full width and TP_LAYERS of its 54 layers in fp32 (the depth cut to
-#: leave room for ``mesh_fsdp`` in the time limit), held to the unsharded
-#: steps within
+#: leave room for ``mesh_fsdp`` and the ``examples`` phase in the time
+#: limit: two shared-block groups, so the shared block's gradient sums two
+#: uses under the split), held to the unsharded steps within
 #: TP_TOL of the logits' scale, decoding at the LM phase's depth (a cache
 #: of LM_MAX_LEN, from position LM_PROMPT); the one-layer bf16 check at
 #: BF16_TOL
 TP_MODEL = 2
-TP_LAYERS = 18
+TP_LAYERS = 12
 TP_DECODE = 8
 TP_TOL = 1e-4
 TP_REPS = 2
@@ -635,7 +654,7 @@ TPT_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
 #: step gathers its parameters anew over gloo (~0.8 GB/s on one card),
 #: which sets the serving depths and the MoE's steps
 FSDP_SERVE_LAYERS = 12
-FSDP_MOE_ARCH, FSDP_MOE_LAYERS, FSDP_MOE_DECODE = "dbrx-132b", 2, 3
+FSDP_MOE_ARCH, FSDP_MOE_LAYERS, FSDP_MOE_DECODE = "dbrx-132b", 2, 1
 FSDP_MOE_BATCH, FSDP_MOE_POS, FSDP_MOE_MAX_LEN = 4, 32, 64
 FSDP_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
               "chip_smoke.mesh_fsdp_rank(int(sys.argv[2]), sys.argv[3])")
@@ -653,6 +672,24 @@ ADA_CELL = ShapeCell("train", 256, 2, "train")
 DRYRUN_SHAPE = "train_4k"
 DRYRUN_TIMEOUT = 600
 DRYRUN_PEAK_TOL = 0.10
+#: slice 19: the scripts of examples_torch/ in the README's order, each
+#: with the kernels it must launch on the card (the sim-PE and stand-in
+#: engine scripts launch none; the servers replay prompts through
+#: decode_step, so they launch no K4), each script's time limit in
+#: seconds, and how many run at once (each is mostly its process's
+#: start-up: importing torch, reaching the card)
+EXAMPLES = {"runtime_steal": (), "trace_steals": (), "chaos_pool": (),
+            "cnn_inference": ("tiled_mm",),
+            "quant_zoo": ("tiled_mm", "qmm", "vpu_mm"),
+            "quickstart": ("tiled_mm", "flash_attention"),
+            "serve_pipeline": ("tiled_mm", "flash_attention"),
+            "multi_tenant": ("tiled_mm",),
+            "durable_serving": ("tiled_mm",),
+            "train_lm": ("flash_attention",)}
+EXAMPLE_TIMEOUT = 60
+EXAMPLE_LANES = 3
+#: each phase's wall seconds in this run, printed at its end
+PHASE_SECONDS: dict = {}
 
 
 #: K1's and K3's plain versions sum in float64 and round once to fp32, so a
@@ -1276,25 +1313,8 @@ def phase_runtime_path(main: tuple) -> dict:
                         for n in POOL}}
 
 
-def reset_launches() -> None:
-    tiled_matmul.launches = 0
-    tiled_matmul.launches_by_path.update(dict.fromkeys(PATHS, 0))
-    vpu_matmul.launches = 0
-    qmm_matmul.launches = 0
-    qmm_matmul.launches_by_path.update(dict.fromkeys(QMM_PATHS, 0))
-    flash_attention_cuda.launches = 0
-    ssd_cuda.launches = 0
-
-
 #: the CNN paths launch neither of the LM slice's kernels
 NO_LM_KERNELS = {"flash_attention": 0, "ssd": 0}
-
-
-def launch_counts() -> dict:
-    return {"tiled_mm": tiled_matmul.launches, "vpu_mm": vpu_matmul.launches,
-            "qmm": qmm_matmul.launches,
-            "flash_attention": flash_attention_cuda.launches,
-            "ssd": ssd_cuda.launches}
 
 
 def qmm_paths_of(calls: list) -> dict:
@@ -1837,93 +1857,6 @@ def profiled_run(fn) -> tuple[dict, float | None, float]:
     return kernels, busy_ms, wall
 
 
-def cnn_stage(cfg, params: dict, lo: int, hi: int):
-    """Layers [lo, hi) of ``cfg`` as one stage function, from the port's
-    public pieces: im2col + ``synergy_matmul`` for CONV and FC layers,
-    ``maxpool2d`` for pooling, in ``cnn_forward``'s order and with its
-    tile, so a stage pinned to K1 or K3 gives the dispatcher's bits."""
-    shapes, _ = cfg.trace_shapes()
-    last_fc = max(i for i, (spec, *_) in enumerate(shapes)
-                  if spec[0] == "fc")
-
-    def stage(x: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
-            for i in range(lo, hi):
-                spec, h, w, _ = shapes[i]
-                n = x.shape[0]
-                if spec[0] == "conv":
-                    _, cout, k, s, p = spec
-                    oh, ow = conv_out_shape(h, w, k, k, s, p)
-                    a = im2col(x, k, k, s, p).reshape(n * oh * ow, -1)
-                    x = synergy_matmul(
-                        a, params[f"conv{i}_w"].reshape(-1, cout),
-                        bias=params[f"conv{i}_b"], activation=torch.relu,
-                        tile=cfg.tile, name=f"{cfg.name}/conv{i}"
-                    ).reshape(n, oh, ow, cout)
-                elif spec[0] == "pool":
-                    x = maxpool2d(x, spec[1])
-                else:
-                    x = synergy_matmul(
-                        x.reshape(n, -1), params[f"fc{i}_w"],
-                        bias=params[f"fc{i}_b"],
-                        activation=None if i == last_fc else torch.relu,
-                        tile=cfg.tile, name=f"{cfg.name}/fc{i}")
-        return x
-    return stage
-
-
-def pipeline_stages(cfg, params: dict, split=PIPE_STAGES) -> list:
-    """The pipeline phase's stages: ``EngineStage``s over ``split``."""
-    return [EngineStage(name, cnn_stage(cfg, params, lo, hi), engine)
-            for name, lo, hi, engine in split]
-
-
-def conv_front(cfg, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """The dispatcher's conv front-end (every layer up to the last conv
-    before the first FC, through ``cnn_stage``) as the flat ``(m, cout)``
-    output of that conv: what a wave graph's last node holds."""
-    last, *_, (_, _, cout) = conv_graph_steps(cfg)[-1]
-    return cnn_stage(cfg, params, 0, last + 1)(x).reshape(-1, cout)
-
-
-def graph_waves(rt, cfg, params: dict, waves: list, name: str = "wave"
-                ) -> list:
-    """Submit every wave's conv front-end as a dataflow graph
-    (``conv_wave_graph``), all in flight at once; returns the futures."""
-    steps = conv_graph_steps(cfg)
-    futs = []
-    for w, xw in enumerate(waves):
-        jss = [js for _, js in conv_jobsets(cfg, len(xw),
-                                            name_prefix=f"{name}{w}/")]
-        nodes, edges = conv_wave_graph(cfg, params, xw, steps, jss, len(xw))
-        futs.append(rt.submit_graph(nodes, edges, name=f"{name}{w}"))
-    return futs
-
-
-def chain_waves(rt, cfg, params: dict, waves: list) -> list:
-    """The same conv front-ends as a chain (``paper_figs.py::run_chain``):
-    one wave at a time, gather, ``submit_gemm``, ``result()`` after every
-    layer.  Returns each wave's flat last conv output."""
-    steps = conv_graph_steps(cfg)
-    outs = []
-    for w, x in enumerate(waves):
-        n = len(x)
-        jss = conv_jobsets(cfg, n, name_prefix=f"chain{w}/")
-        for (i, pools, (k, s, p), (oh, ow, cout)), (_, js) in zip(steps,
-                                                                  jss):
-            for size in pools:
-                x = maxpool2d(x, size)
-            y = rt.submit_gemm(
-                im2col_wave(x, k, k, s, p),
-                params[f"conv{i}_w"].reshape(-1, cout), jobset=js,
-                bias=params[f"conv{i}_b"], activation=torch.relu,
-                tile=(js.ts_m, js.ts_n, js.ts_k), job_class="prefill"
-            ).result(GRAPH_TIMEOUT)
-            x = y.reshape(n, oh, ow, cout)
-        outs.append(y)
-    return outs
-
-
 def host_timed(fn, reps: int) -> tuple[list, list]:
     """``fn()`` once to warm up, then ``reps`` times, each between two
     synchronizes on the host clock: (seconds, results)."""
@@ -1944,8 +1877,7 @@ def pipe_launches(cfg, split=PIPE_STAGES) -> dict:
     kernel = {"cuda-tiled": "tiled_mm", "neon-vpu": "vpu_mm"}
     out = {"tiled_mm": 0, "vpu_mm": 0}
     for _, lo, hi, engine in split:
-        out[kernel[engine]] += sum(1 for spec in cfg.layers[lo:hi]
-                                   if spec[0] in ("conv", "fc"))
+        out[kernel[engine]] += stage_gemms(cfg, lo, hi)
     return out
 
 
@@ -1960,7 +1892,8 @@ def phase_pipeline(card: str, main: tuple, dispatcher_s: float,
     cfg, params, x, _, logits = main
     frames = list(x.to(DEVICE).split(MICRO))
     reset_launches()
-    outs, _ = ThreadedPipeline(pipeline_stages(cfg, params)).run(frames)
+    outs, _ = ThreadedPipeline(pipeline_stages(cfg, params, PIPE_STAGES)
+                               ).run(frames)
     torch.cuda.synchronize()
     counts = launch_counts()
     got = torch.cat(outs)
@@ -1982,7 +1915,7 @@ def phase_pipeline(card: str, main: tuple, dispatcher_s: float,
           f"dispatcher forward", flush=True)
 
     samples, runs = host_timed(lambda: ThreadedPipeline(
-        pipeline_stages(cfg, params)).run(frames), reps=5)
+        pipeline_stages(cfg, params, PIPE_STAGES)).run(frames), reps=5)
     mid = sorted(range(len(samples)), key=samples.__getitem__)[2]
     wall = statistics.median(samples)
     emit({"pipeline": cfg.name, "frames": FRAMES,
@@ -2130,7 +2063,7 @@ def phase_graph(card: str, main: tuple) -> dict:
             raise AssertionError(f"graph launches {counts}, expected "
                                  f"{panels} panels")
         reset_launches()
-        check(chain_waves(rt, cfg, params, waves), "chain")
+        check(chain_waves(rt, cfg, params, waves, GRAPH_TIMEOUT), "chain")
         torch.cuda.synchronize()
         chain_counts = launch_counts()
 
@@ -2163,7 +2096,8 @@ def phase_graph(card: str, main: tuple) -> dict:
 
         graph_s, graph_vals = host_timed(graph_run, reps=3)
         chain_s, chain_vals = host_timed(
-            lambda: chain_waves(rt, cfg, params, waves), reps=3)
+            lambda: chain_waves(rt, cfg, params, waves, GRAPH_TIMEOUT),
+            reps=3)
         for vals in graph_vals + chain_vals:
             check(vals, "timed")
         kernels, busy_ms, wall = profiled_run(graph_run)
@@ -4300,24 +4234,6 @@ def phase_training_resume() -> dict:
             "checkpoints": saved, "bitwise_leaves": len(names)}
 
 
-@contextlib.contextmanager
-def one_rank_group():
-    """A process group of one rank for the phase (NCCL on the card, gloo
-    on the CPU), destroyed at its end so later phases run as before."""
-    if DEVICE == "cuda":
-        torch.cuda.set_device(torch.cuda.current_device())
-        dist.init_process_group(
-            "nccl", store=dist.HashStore(), rank=0, world_size=1,
-            device_id=torch.device("cuda", torch.cuda.current_device()))
-    else:
-        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
-                                world_size=1)
-    try:
-        yield
-    finally:
-        dist.destroy_process_group()
-
-
 def leaf_digest(t: torch.Tensor) -> tuple:
     """Two integer sums of a leaf's bit patterns (plain and position-
     weighted, in int64 with wraparound), computed on its device: equal
@@ -4392,7 +4308,7 @@ def phase_mesh(card: str, lm: dict) -> dict:
                 "tiled_mm": per_prefill["tiled_mm"]}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with one_rank_group():
+    with one_rank_group(DEVICE):
         mesh = make_test_mesh(data=1, model=1, device_type=DEVICE)
 
         # 1. prefill, the parameters placed once; how many of the
@@ -5659,7 +5575,7 @@ def phase_mesh_training(card: str) -> dict:
         return out
 
     ref = run("unsharded", build_train_step(cfg, TRAIN_CELL)[0])
-    with one_rank_group():
+    with one_rank_group(DEVICE):
         mesh = make_test_mesh(data=1, model=1, device_type=DEVICE)
         step_fn, (_, sspecs), _ = build_train_step(cfg, TRAIN_CELL, mesh)
         got = run("mesh", step_fn,
@@ -6002,6 +5918,107 @@ def phase_dryrun(card: str, lm: dict, training: dict,
     return {"prefill": pre.kernels, "train_per_step": train.kernels}
 
 
+def run_example(name: str, out_dir: str) -> dict:
+    """``python examples_torch/<name>.py`` at its defaults on the card, in
+    a process group of its own (killed whole at EXAMPLE_TIMEOUT), its
+    files and temporary files under ``out_dir``: exit code (None when
+    killed), wall seconds, its last line's check and launches, and its
+    output."""
+    args = {"trace_steals": [os.path.join(out_dir, "trace_steals.json")],
+            "train_lm": ["--ckpt-dir", os.path.join(out_dir, "ckpt")]}
+    env = {**os.environ, "TMPDIR": out_dir}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "examples_torch" / f"{name}.py"),
+         *args.get(name, [])], cwd=ROOT, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT)
+        rc = proc.returncode
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        rc = None
+    wall = time.perf_counter() - t0
+    try:
+        last = json.loads(out.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        last = {}
+    return {"rc": rc, "wall_s": wall, "check": last.get("check"),
+            "launches": last.get("launches", {}), "stdout": out,
+            "stderr": err}
+
+
+def phase_examples(card: str, out_dir: str | None = None) -> dict:
+    """Every script of EXAMPLES on the card, EXAMPLE_LANES at a time (see
+    the module docstring).  Each must exit 0 with its check passed and
+    launch the kernels EXAMPLES names for it.  Prints a line per script and the
+    phase's seconds; writes each script's output to ``out_dir`` when
+    given.  Returns each script's exit code, seconds, check and launches,
+    and the phase's seconds."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    runs, failures, results = {}, [], {}
+    with tempfile.TemporaryDirectory(prefix="examples-") as tmp:
+        todo = list(reversed(EXAMPLES))       # the longest, the LM ones, first
+        lock = threading.Lock()
+
+        def lane():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    name = todo.pop(0)
+                work = os.path.join(tmp, name)
+                os.makedirs(work)
+                results[name] = run_example(name, work)
+
+        lanes = [threading.Thread(target=lane) for _ in range(EXAMPLE_LANES)]
+        for t in lanes:
+            t.start()
+        for t in lanes:
+            t.join()
+        for name, kernels in EXAMPLES.items():
+            r = results[name]
+            if out_dir is not None:
+                Path(out_dir, f"{name}.txt").write_text(
+                    r["stdout"] + "\n--- stderr ---\n" + r["stderr"])
+            ran = {k: v for k, v in r["launches"].items() if v}
+            print(f"examples: {name}: exit {r['rc']}, {r['wall_s']:.2f} s, "
+                  f"check {r['check']!r}, launches {ran}", flush=True)
+            missing = [k for k in kernels if not r["launches"].get(k)]
+            if r["rc"] != 0 or r["check"] != "passed" or missing:
+                failures.append(name)
+                print(f"examples: {name} failed (kernels not launched: "
+                      f"{missing}); stderr tail:\n{r['stderr'][-3000:]}",
+                      flush=True)
+            if name == "quant_zoo":
+                for line in r["stdout"].splitlines():
+                    if ("cost model" in line or "K2 alone" in line
+                            or "vpu_mm matches" in line):
+                        print(f"examples: quant_zoo: {line.strip()}",
+                              flush=True)
+            runs[name] = {k: r[k] for k in ("rc", "wall_s", "check",
+                                            "launches")}
+    seconds = time.perf_counter() - t_phase
+    print(f"examples: {len(runs)} scripts in {seconds:.2f} s on {card}",
+          flush=True)
+    if failures:
+        raise AssertionError(f"examples failed: {failures}")
+    return {"runs": runs, "seconds": seconds}
+
+
+def examples_launches(examples: dict, name: str) -> dict:
+    """The ``examples`` entry of a kernel's ``by_path``: its launches in
+    each script of slice 19's phase."""
+    per = {ex: r["launches"].get(name, 0)
+           for ex, r in examples["runs"].items()}
+    return {"launches": sum(per.values()), "per_script": per,
+            "per": "one run of each examples_torch/ script at its "
+                   "defaults, each in its own process"}
+
+
 def dryrun_calls(dry: dict, name: str) -> dict:
     """A kernel's traced calls in slice 13's dryrun phase."""
     return {"prefill": dry["prefill"].get(name, 0),
@@ -6074,10 +6091,23 @@ def summary(t: dict) -> dict:
             "library_ms": t["library_ms"]}
 
 
+def timed_phase(fn, *args):
+    """``fn(*args)``, its wall seconds added to PHASE_SECONDS under its
+    name (less ``phase_``)."""
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        name = fn.__name__.removeprefix("phase_")
+        PHASE_SECONDS[name] = (PHASE_SECONDS.get(name, 0.0)
+                               + time.perf_counter() - t0)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    t_run = time.perf_counter()
 
     # phase 1: device
     card = card_line()
@@ -6109,61 +6139,67 @@ def main() -> int:
           f"witness built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernels against their plain versions
-    main_err = phase_kernels()
-    phase_k1_bf16()
-    vpu_err = phase_vpu_kernel()
-    phase_fmaf_witness()
-    phase_sass()
-    qmm_err = phase_qmm_kernel()
-    flash_err = phase_flash_kernel()
-    ssd_err = phase_ssd_kernel()
-    phase_ssd_witness()
-    ssd_widths = phase_ssd_widths(card)
-    backward = phase_kernel_backward(card)
+    main_err = timed_phase(phase_kernels)
+    timed_phase(phase_k1_bf16)
+    vpu_err = timed_phase(phase_vpu_kernel)
+    timed_phase(phase_fmaf_witness)
+    timed_phase(phase_sass)
+    qmm_err = timed_phase(phase_qmm_kernel)
+    flash_err = timed_phase(phase_flash_kernel)
+    ssd_err = timed_phase(phase_ssd_kernel)
+    timed_phase(phase_ssd_witness)
+    ssd_widths = timed_phase(phase_ssd_widths, card)
+    backward = timed_phase(phase_kernel_backward, card)
 
     # phase 4: the main paths (fp32, then int8)
-    main = phase_main_path()
-    run = phase_runtime_path(main)
-    phase_quantization(card, main)
-    decode = phase_decode_paths(main)
-    lm = phase_lm(card)
-    phase_reduced_lm()
-    serving = phase_serving(card, lm)
-    durability = phase_durability(card, lm, serving)
+    main = timed_phase(phase_main_path)
+    run = timed_phase(phase_runtime_path, main)
+    timed_phase(phase_quantization, card, main)
+    decode = timed_phase(phase_decode_paths, main)
+    lm = timed_phase(phase_lm, card)
+    timed_phase(phase_reduced_lm)
+    serving = timed_phase(phase_serving, card, lm)
+    durability = timed_phase(phase_durability, card, lm, serving)
 
     # phase 5: times
-    totals, dispatcher_s = phase_times(card, main)
-    runtime_totals, vpu_whole = phase_panel_times(card, run)
-    runtime_fp32 = phase_runtime_times(card, main, run, dispatcher_s)
-    profiled = phase_runtime_profile(card, main)
+    totals, dispatcher_s = timed_phase(phase_times, card, main)
+    runtime_totals, vpu_whole = timed_phase(phase_panel_times, card, run)
+    runtime_fp32 = timed_phase(phase_runtime_times, card, main, run,
+                               dispatcher_s)
+    profiled = timed_phase(phase_runtime_profile, card, main)
     # slice 7: the inter-frame pipeline and the dataflow-graph runtime
-    pipe = phase_pipeline(card, main, dispatcher_s, runtime_fp32)
-    steal = phase_runtime_steal(card, main)
-    graph = phase_graph(card, main)
+    pipe = timed_phase(phase_pipeline, card, main, dispatcher_s,
+                       runtime_fp32)
+    steal = timed_phase(phase_runtime_steal, card, main)
+    graph = timed_phase(phase_graph, card, main)
     # slice 18: the runtime's fault paths on the card
-    faults = phase_faults(card, main, run, decode, serving, runtime_fp32)
-    qmm_dispatcher, qmm_runtime = phase_qmm_times(card, decode)
-    phase_decode_times(card, main, decode, dispatcher_s, runtime_fp32)
-    q_profiled = phase_runtime_profile(card, main, QPOOL, "decode",
-                                       "int8 pool, decode")
-    lm_totals = phase_lm_kernel_times(card, lm)
-    lm_gemms = phase_lm_gemm_times(card, lm)
-    lm_profiled = phase_lm_profile(card, lm)
+    faults = timed_phase(phase_faults, card, main, run, decode, serving,
+                         runtime_fp32)
+    qmm_dispatcher, qmm_runtime = timed_phase(phase_qmm_times, card, decode)
+    timed_phase(phase_decode_times, card, main, decode, dispatcher_s,
+                runtime_fp32)
+    q_profiled = timed_phase(phase_runtime_profile, card, main, QPOOL,
+                             "decode", "int8 pool, decode")
+    lm_totals = timed_phase(phase_lm_kernel_times, card, lm)
+    lm_gemms = timed_phase(phase_lm_gemm_times, card, lm)
+    lm_profiled = timed_phase(phase_lm_profile, card, lm)
     # slice 12: the launchers over a one-rank mesh, on the LM parameters
-    mesh = phase_mesh(card, lm)
+    mesh = timed_phase(phase_mesh, card, lm)
     # slice 14: the serving steps partitioned over two ranks on the card
-    mesh_tp = phase_mesh_tp(card)
+    mesh_tp = timed_phase(phase_mesh_tp, card)
     # slice 10: the training path, last user of the LM phase's parameters
-    training = phase_training(card, lm)
-    mesh_train = phase_mesh_training(card)
+    training = timed_phase(phase_training, card, lm)
+    mesh_train = timed_phase(phase_mesh_training, card)
     # slice 17: Adafactor slice by slice on an MoE at reduced depth
-    ada = phase_adafactor(card)
+    ada = timed_phase(phase_adafactor, card)
     # slice 15: the train step partitioned over two ranks on the card
-    mesh_tp_train = phase_mesh_tp_train(card)
+    mesh_tp_train = timed_phase(phase_mesh_tp_train, card)
     # slice 16: FSDP layer by layer, and the MoE decode on its own rows
-    mesh_fsdp = phase_mesh_fsdp(card)
+    mesh_fsdp = timed_phase(phase_mesh_fsdp, card)
     # slice 13: the dry run, and its traces against the card's counts
-    dry = phase_dryrun(card, lm, training, mesh_train)
+    dry = timed_phase(phase_dryrun, card, lm, training, mesh_train)
+    # slice 19: the README's entry points, examples_torch/, on the card
+    examples = timed_phase(phase_examples, card)
 
     # phase 6: the kernels line, the card, the result
     on_runtime = (f"one CIFAR_Alex+ forward at {FRAMES} frames through the "
@@ -6206,7 +6242,8 @@ def main() -> int:
                                                            name),
                    "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, name),
                    "dryrun": dryrun_calls(dry, name),
-                   "adafactor": adafactor_launches(ada, name)}
+                   "adafactor": adafactor_launches(ada, name),
+                   "examples": examples_launches(examples, name)}
         if name == "tiled_mm":
             lm_per = (f"one {LM_ARCH} {{}} of {LM_BATCH} requests: per-GEMM "
                       f"medians (CUDA events) times the calls; library: "
@@ -6269,7 +6306,8 @@ def main() -> int:
                                                             "qmm"),
                     "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, "qmm"),
                     "dryrun": dryrun_calls(dry, "qmm"),
-                    "adafactor": adafactor_launches(ada, "qmm")}})
+                    "adafactor": adafactor_launches(ada, "qmm"),
+                    "examples": examples_launches(examples, "qmm")}})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (
@@ -6302,6 +6340,7 @@ def main() -> int:
                 "mesh_fsdp": mesh_fsdp_launches(mesh_fsdp, name),
                 "dryrun": dryrun_calls(dry, name),
                 "adafactor": adafactor_launches(ada, name),
+                "examples": examples_launches(examples, name),
                 "training": {**training_launches(training, name),
                              "profiled": {
                                  **training["kernel_device_ms_per_step"].get(
@@ -6322,6 +6361,11 @@ def main() -> int:
         "rows": ssd_widths,
         "per": "one call at a rank's share of P (SSD_WIDTH_SHAPES, fp32): "
                "CUDA-event median of REPS; bound by ssd_bound"}
+    print(f"chip_smoke: phase seconds "
+          f"{ {k: round(v, 2) for k, v in PHASE_SECONDS.items()} }",
+          flush=True)
+    print(f"chip_smoke: whole run {time.perf_counter() - t_run:.2f} s, "
+          f"the examples phase {examples['seconds']:.2f} s of it", flush=True)
     emit({"kernels": entries})
     print(f"card: {card}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -45,7 +45,9 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
 from chip_smoke import (MICRO, ThreadedPipeline, emit,  # noqa: E402
-                        host_timed, pipeline_stages, profiled_run)
+                        host_timed, profiled_run)
+from repro_torch.models.cnn import (PIPE_STAGES,  # noqa: E402
+                                    pipeline_stages)
 
 FRAMES = 256
 REPS = 5
@@ -61,7 +63,7 @@ def gemm_paths(card: str) -> None:
                "neon-vpu": ("vpu_mm", chip_smoke.vpu_matmul,
                             chip_smoke.vpu_mm_ref)}
     stage_of = {layer: engine for _, lo, hi, engine in
-                chip_smoke.PIPE_STAGES for layer in range(lo, hi)}
+                PIPE_STAGES for layer in range(lo, hi)}
     pipe = {name: chip_smoke.new_totals() for name, _, _ in
             kernels.values()}
     graph = {name: chip_smoke.new_totals() for name, _, _ in
@@ -113,10 +115,11 @@ def main() -> int:
     frames = list(x.split(MICRO))
 
     def pipeline():
-        return ThreadedPipeline(pipeline_stages(cfg, params)).run(frames)
+        return ThreadedPipeline(
+            pipeline_stages(cfg, params, PIPE_STAGES)).run(frames)
 
     def serial():
-        stages = pipeline_stages(cfg, params)
+        stages = pipeline_stages(cfg, params, PIPE_STAGES)
         outs = []
         for mb in frames:
             for st in stages:

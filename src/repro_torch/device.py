@@ -5,7 +5,8 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
-__all__ = ["resolve_device", "device_type", "ranked_device"]
+__all__ = ["resolve_device", "device_type", "ranked_device",
+           "device_label"]
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -43,3 +44,12 @@ def ranked_device(device) -> torch.device:
             if target is not None:
                 return torch.device(target)
     return dev
+
+
+def device_label(device) -> str:
+    """What ran: the card's name (``torch.cuda.get_device_name``) for a
+    CUDA device, else the device's type in capitals ("CPU")."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_name(dev)
+    return dev.type.upper()

@@ -496,7 +496,7 @@ int launch(int dtype, const void* q, const void* k, const void* v, void* o,
 
 // q: (b, hq, s, d); k, v: (b, hkv, sk, d); o: like q; all contiguous and of
 // one dtype (DT_F32 or DT_BF16), on 16-byte boundaries.  hq % hkv == 0; d
-// one of 16, 64, 80, 112, 128, 256.
+// one of 16, 32, 48, 64, 80, 112, 128, 256.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int b, int hq, int hkv, int s,
                                int sk, int d, float scale, int causal,
@@ -508,6 +508,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 16: return launch<16>(dtype, q, k, v, o, b, hq, hkv, s, sk, scale, causal, st);
+    case 32: return launch<32>(dtype, q, k, v, o, b, hq, hkv, s, sk, scale, causal, st);
+    case 48: return launch<48>(dtype, q, k, v, o, b, hq, hkv, s, sk, scale, causal, st);
     case 64: return launch<64>(dtype, q, k, v, o, b, hq, hkv, s, sk, scale, causal, st);
     case 80: return launch<80>(dtype, q, k, v, o, b, hq, hkv, s, sk, scale, causal, st);
     case 112: return launch<112>(dtype, q, k, v, o, b, hq, hkv, s, sk, scale, causal, st);

@@ -28,9 +28,10 @@ FLASH_ATTENTION_ARGTYPES = [
     ctypes.c_void_p]
 
 #: the head dims the kernel is instantiated for: those of the zoo's ten
-#: configs (64, 80 zamba2, 112 kimi, 128, 256 gemma) and of their
-#: ``reduced()`` versions (16)
-HEAD_DIMS = (16, 64, 80, 112, 128, 256)
+#: configs (64, 80 zamba2, 112 kimi, 128, 256 gemma), of their
+#: ``reduced()`` versions (16) and of the training example's presets
+#: (``examples_torch/train_lm.py``: 32 tiny, 48 small, 64 100m)
+HEAD_DIMS = (16, 32, 48, 64, 80, 112, 128, 256)
 
 
 def flash_attention_library() -> Path:

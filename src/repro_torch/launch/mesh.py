@@ -11,10 +11,14 @@ process group."""
 
 from __future__ import annotations
 
+import contextlib
+
+import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-__all__ = ["make_production_mesh", "make_test_mesh", "dp_axes", "MODEL_AXIS"]
+__all__ = ["make_production_mesh", "make_test_mesh", "dp_axes", "MODEL_AXIS",
+           "one_rank_group"]
 
 MODEL_AXIS = "model"
 
@@ -52,3 +56,23 @@ def make_test_mesh(data: int = 2, model: int = 2, pod: int = 0, *,
 def dp_axes(mesh) -> tuple[str, ...]:
     """The data-parallel axes of a mesh (everything except 'model')."""
     return tuple(a for a in mesh.mesh_dim_names if a != MODEL_AXIS)
+
+
+@contextlib.contextmanager
+def one_rank_group(device_type: str = "cuda"):
+    """A default process group of one rank, for a mesh of one rank in
+    this process (``make_test_mesh(data=1, model=1)``): NCCL on the
+    current card, gloo on the CPU, over an in-process store; destroyed on
+    exit."""
+    if device_type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1, device_id=dev)
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -385,11 +385,14 @@ def local_tree(tree):
 
 
 def gather_data_tree(tree, spec_tree, mesh):
-    """:func:`gather_data` of every leaf of a tree of DTensors placed by
+    """Oracle, for tests only: no step calls it.
+
+    :func:`gather_data` of every leaf of a tree of DTensors placed by
     ``spec_tree``: the whole tree gathered over the data axes at once,
     the 'model' shards kept.  The steps gather layer by layer instead
-    (:func:`data_gather_of`); this is the computation they are held to.
-    A plain tensor is refused: the tree was not placed."""
+    (:func:`data_gather_of`); this whole gather is the computation the
+    tests hold them to, bitwise.  A plain tensor is refused: the tree was
+    not placed."""
     return tree_map(lambda t, spec: gather_data(t, spec, mesh),
                     local_tree(tree), spec_tree)
 

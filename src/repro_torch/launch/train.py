@@ -130,10 +130,12 @@ def _mesh_loss_and_grads(cfg: ArchConfig, mesh, bspecs: dict, params: dict,
     global ``batch`` (split by ``bspecs``), computed partitioned over
     'model' and averaged over the data-parallel axes: the global batch's
     loss, and this rank's shards of its gradient, on every rank.
-    Without ``pspecs`` the leaves are this rank's 'model' shards whole
-    over the data axes; with them, this rank's shards under ``pspecs``,
-    each gathered over the data axes for its use and its gradient
-    reduce-scattered back."""
+    With ``pspecs`` (how :func:`_mesh_train_step` calls it) the leaves
+    are this rank's shards under ``pspecs``, each gathered over the data
+    axes for its use and its gradient reduce-scattered back.  Without
+    them the leaves are this rank's 'model' shards whole over the data
+    axes: that form is an oracle for tests only (the whole-gather step
+    the layer-by-layer gathers are held to, bitwise); no step calls it."""
     mine = {k: local_shard(v, bspecs[k], mesh) for k, v in batch.items()}
     axes = axes_of(bspecs["labels"][0])
     gather = None if pspecs is None else data_gather_of(pspecs, mesh)

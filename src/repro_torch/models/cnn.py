@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.core.im2col import conv_out_shape, im2col, im2col_wave
 from repro_torch.core.job import JobSet
+from repro_torch.core.pipeline import EngineStage
 from repro_torch.core.scheduler import SimLayer, SimNet
 from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
@@ -29,7 +30,10 @@ from repro_torch.soc.graph import GraphNode
 from repro_torch.soc.runtime import runtime_scope
 
 __all__ = ["CNNConfig", "init_cnn", "params_from_jax", "cnn_forward",
-           "conv_jobsets", "conv_graph_steps", "conv_wave_graph",
+           "cnn_layers", "cnn_stage", "stage_gemms", "PIPE_STAGES",
+           "pipeline_stages",
+           "conv_front", "graph_waves", "chain_waves", "conv_jobsets",
+           "conv_graph_steps", "conv_wave_graph",
            "maxpool2d", "cnn_flops_per_frame", "build_simnet"]
 
 
@@ -126,6 +130,35 @@ def _conv_via_jobs(x, w, b, stride, pad, tile, name, engine=None,
     return y.reshape(n, oh, ow, cout)
 
 
+def cnn_layers(cfg: CNNConfig, params: dict, x: torch.Tensor, lo: int = 0,
+               hi: int | None = None, *, engine: str | None = None,
+               job_class: str | None = None) -> torch.Tensor:
+    """Layers ``[lo, hi)`` of ``cfg`` (default all) on ``x``, the layer
+    loop of :func:`cnn_forward`: im2col + ``synergy_matmul`` for CONV and
+    FC layers, ``maxpool2d`` for pooling, with the config's tile.  The
+    last FC layer has no activation.  No device check and no inference
+    mode: the callers set those up."""
+    shapes, _ = cfg.trace_shapes()
+    last_fc = max((i for i, (spec, *_) in enumerate(shapes)
+                   if spec[0] == "fc"), default=None)
+    for i in range(lo, len(shapes) if hi is None else hi):
+        spec = shapes[i][0]
+        if spec[0] == "conv":
+            _, cout, k, s, p = spec
+            x = _conv_via_jobs(x, params[f"conv{i}_w"], params[f"conv{i}_b"],
+                               s, p, cfg.tile, f"{cfg.name}/conv{i}",
+                               engine=engine, job_class=job_class)
+        elif spec[0] == "pool":
+            x = maxpool2d(x, spec[1])
+        elif spec[0] == "fc":
+            x = synergy_matmul(x.reshape(x.shape[0], -1), params[f"fc{i}_w"],
+                               bias=params[f"fc{i}_b"],
+                               activation=None if i == last_fc else torch.relu,
+                               tile=cfg.tile, name=f"{cfg.name}/fc{i}",
+                               engine=engine, job_class=job_class)
+    return x
+
+
 def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
                 engine: str | None = None,
                 job_class: str | None = None,
@@ -151,26 +184,91 @@ def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
     scope = (runtime_scope(runtime) if runtime is not None
              else contextlib.nullcontext())
     with scope, torch.inference_mode():
-        x = x.to(dev)
-        shapes, _ = cfg.trace_shapes()
-        for i, (spec, *_rest) in enumerate(shapes):
-            if spec[0] == "conv":
-                _, cout, k, s, p = spec
-                x = _conv_via_jobs(x, params[f"conv{i}_w"],
-                                   params[f"conv{i}_b"], s, p, cfg.tile,
-                                   f"{cfg.name}/conv{i}", engine=engine,
-                                   job_class=job_class)
-            elif spec[0] == "pool":
-                x = maxpool2d(x, spec[1])
-            elif spec[0] == "fc":
-                x = x.reshape(x.shape[0], -1)
-                last = all(s2[0] != "fc" for s2, *_ in shapes[i + 1:])
-                x = synergy_matmul(x, params[f"fc{i}_w"],
-                                   bias=params[f"fc{i}_b"],
-                                   activation=None if last else torch.relu,
-                                   tile=cfg.tile, name=f"{cfg.name}/fc{i}",
-                                   engine=engine, job_class=job_class)
-        return x
+        return cnn_layers(cfg, params, x.to(dev), engine=engine,
+                          job_class=job_class)
+
+
+def cnn_stage(cfg: CNNConfig, params: dict, lo: int, hi: int):
+    """Layers ``[lo, hi)`` as one stage function (``x -> y`` under
+    ``torch.inference_mode``) for a ``ThreadedPipeline``: a stage pinned
+    to an engine gives that engine's bits of the same layers of
+    :func:`cnn_forward`."""
+    def stage(x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return cnn_layers(cfg, params, x, lo, hi)
+    return stage
+
+
+def stage_gemms(cfg: CNNConfig, lo: int, hi: int) -> int:
+    """The GEMMs a frame batch makes in layers ``[lo, hi)``: one per CONV
+    or FC layer."""
+    return sum(1 for spec in cfg.layers[lo:hi] if spec[0] in ("conv", "fc"))
+
+
+#: CIFAR_Alex+'s layers in three pipeline stages, each pinned to one
+#: kernel's engine: ``(name, lo, hi, engine)`` over layers ``[lo, hi)``
+PIPE_STAGES = [("conv0+pool1", 0, 2, "cuda-tiled"),
+               ("conv2+pool3", 2, 4, "neon-vpu"),
+               ("conv4+pool5+fc6+fc7", 4, 8, "cuda-tiled")]
+
+
+def pipeline_stages(cfg: CNNConfig, params: dict,
+                    split: Sequence[tuple[str, int, int, str | None]]
+                    ) -> list:
+    """:class:`~repro_torch.core.pipeline.EngineStage`s over ``split``:
+    ``(name, lo, hi, engine)`` per stage, each running layers ``[lo, hi)``
+    pinned to ``engine``."""
+    return [EngineStage(name, cnn_stage(cfg, params, lo, hi), engine)
+            for name, lo, hi, engine in split]
+
+
+def conv_front(cfg: CNNConfig, params: dict, x: torch.Tensor
+               ) -> torch.Tensor:
+    """The dispatcher's conv front-end (every layer up to the last conv
+    before the first FC) as the flat ``(m, cout)`` output of that conv:
+    what a wave graph's last node holds."""
+    last, *_, (_, _, cout) = conv_graph_steps(cfg)[-1]
+    return cnn_stage(cfg, params, 0, last + 1)(x).reshape(-1, cout)
+
+
+def graph_waves(rt, cfg: CNNConfig, params: dict, waves: list,
+                name: str = "wave") -> list:
+    """Submit every wave's conv front-end to ``rt`` as a dataflow graph
+    (:func:`conv_wave_graph`), all in flight at once; returns the
+    :class:`~repro_torch.soc.graph.GraphFuture`s."""
+    steps = conv_graph_steps(cfg)
+    futs = []
+    for w, xw in enumerate(waves):
+        jss = [js for _, js in conv_jobsets(cfg, len(xw),
+                                            name_prefix=f"{name}{w}/")]
+        nodes, edges = conv_wave_graph(cfg, params, xw, steps, jss, len(xw))
+        futs.append(rt.submit_graph(nodes, edges, name=f"{name}{w}"))
+    return futs
+
+
+def chain_waves(rt, cfg: CNNConfig, params: dict, waves: list,
+                timeout: float = 300.0) -> list:
+    """The same conv front-ends as a chain: one wave at a time, gather,
+    ``submit_gemm``, ``result()`` after every layer.  Returns each wave's
+    flat last conv output."""
+    steps = conv_graph_steps(cfg)
+    outs = []
+    for w, x in enumerate(waves):
+        n = len(x)
+        jss = conv_jobsets(cfg, n, name_prefix=f"chain{w}/")
+        for (i, pools, (k, s, p), (oh, ow, cout)), (_, js) in zip(steps,
+                                                                  jss):
+            for size in pools:
+                x = maxpool2d(x, size)
+            y = rt.submit_gemm(
+                im2col_wave(x, k, k, s, p),
+                params[f"conv{i}_w"].reshape(-1, cout), jobset=js,
+                bias=params[f"conv{i}_b"], activation=torch.relu,
+                tile=(js.ts_m, js.ts_n, js.ts_k), job_class="prefill"
+            ).result(timeout)
+            x = y.reshape(n, oh, ow, cout)
+        outs.append(y)
+    return outs
 
 
 def cnn_flops_per_frame(cfg: CNNConfig) -> int:

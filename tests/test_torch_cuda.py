@@ -66,7 +66,9 @@ from repro_torch.kernels.tiled_mm import (PATHS, ffma_chain_ref,
 from repro_torch.kernels.vpu_mm import vpu_matmul, vpu_mm_library, vpu_mm_ref
 from repro_torch.models import (decode_fn, init_cache, init_model,
                                 lm_forward, prefill_fn)
-from repro_torch.models.cnn import cnn_forward, conv_jobsets, init_cnn
+from repro_torch.models.cnn import (chain_waves, cnn_forward, conv_front,
+                                    conv_jobsets, graph_waves, init_cnn,
+                                    pipeline_stages, stage_gemms)
 from repro_torch.quant import (QuantizedEngine, quantize_weights, rel_err)
 from repro_torch.quant.act import one_shot_act_scale, quantize_activations
 from repro_torch.core.serving import SynergyServer
@@ -561,7 +563,9 @@ def _fa_tol(sk, dtype):
     (1, 10, 5, 96, 96, 128, True), (1, 8, 1, 64, 64, 112, True),
     (1, 4, 4, 130, 130, 256, True), (2, 4, 4, 150, 150, 64, False),
     (2, 4, 4, 16, 150, 64, False), (1, 2, 2, 1, 1, 64, True),
-    (2, 4, 4, 70, 70, 16, True), (2, 4, 2, 40, 90, 16, False)],
+    (2, 4, 4, 70, 70, 16, True), (2, 4, 2, 40, 90, 16, False),
+    (8, 4, 4, 128, 128, 32, True), (8, 8, 8, 128, 128, 48, True),
+    (2, 4, 2, 40, 90, 32, False), (2, 4, 2, 70, 70, 48, False)],
     ids=lambda c: "x".join(map(str, c[:6])) + ("-causal" if c[6] else ""))
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
     b, hq, hkv, s, sk, d, causal = case
@@ -750,8 +754,8 @@ def test_reduced_config_prefills_on_the_card(cuda, arch, n_layers):
 
 
 def _chip_smoke():
-    """``chip_smoke.py`` as a module: its stage, wave-graph and
-    conv front-end builders are what its card phases run."""
+    """``chip_smoke.py`` as a module: its operand, serving and durability
+    helpers are what its card phases run."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -772,19 +776,18 @@ def test_two_stage_pipeline_on_k1_and_k3_is_bitwise_the_forward(cuda):
     ``cuda-tiled`` (conv0 to pool3) and ``neon-vpu`` (conv4 to fc7): the
     logits are the dispatcher forward's bits, and each kernel launches
     once per GEMM of its stage."""
-    cs = _chip_smoke()
     cfg, params, x = _alex_on(cuda, 64, 20)
     want = cnn_forward(cfg, params, x)
     split = [("front", 0, 4, "cuda-tiled"), ("back", 4, 8, "neon-vpu")]
     launches = (tiled_matmul.launches, vpu_matmul.launches)
-    outs, stats = ThreadedPipeline(cs.pipeline_stages(cfg, params, split)
+    outs, stats = ThreadedPipeline(pipeline_stages(cfg, params, split)
                                    ).run(list(x.split(32)))
     torch.cuda.synchronize()
     assert torch.equal(torch.cat(outs), want)
-    per_mb = cs.pipe_launches(cfg, split)
+    per_mb = [stage_gemms(cfg, lo, hi) for _, lo, hi, _ in split]
     assert (tiled_matmul.launches - launches[0],
             vpu_matmul.launches - launches[1]) == (
-        2 * per_mb["tiled_mm"], 2 * per_mb["vpu_mm"]) == (4, 6)
+        2 * per_mb[0], 2 * per_mb[1]) == (4, 6)
     assert stats["stage_engines"] == {"front": "cuda-tiled",
                                       "back": "neon-vpu"}
 
@@ -794,19 +797,18 @@ def test_wave_graphs_on_the_card_are_bitwise_the_conv_front_end(cuda):
     K3 (32-row panels, gathers on the host executor's default stream):
     each wave's last node is the dispatcher's conv front-end bits, and so
     is the chain mode's."""
-    cs = _chip_smoke()
     cfg, params, x = _alex_on(cuda, 16, 22)
-    want = cs.conv_front(cfg, params, x)
+    want = conv_front(cfg, params, x)
     waves = list(x.split(8))
     rows = want.shape[0] // len(waves)
     launches = (tiled_matmul.launches, vpu_matmul.launches)
     with SynergyRuntime(POOL, device=cuda) as rt:
         vals = [f.result(60)[-1]
-                for f in cs.graph_waves(rt, cfg, params, waves)]
+                for f in graph_waves(rt, cfg, params, waves)]
         torch.cuda.synchronize()
         ran = (tiled_matmul.launches - launches[0]
                + vpu_matmul.launches - launches[1])
-        chain = cs.chain_waves(rt, cfg, params, waves)
+        chain = chain_waves(rt, cfg, params, waves)
     for w in range(len(waves)):
         assert torch.equal(vals[w], want[w * rows:(w + 1) * rows]), w
         assert torch.equal(chain[w], want[w * rows:(w + 1) * rows]), w
@@ -819,11 +821,10 @@ def test_graph_cancel_on_the_card_drains_queued_panels(cuda):
     drains them (fewer than all 1,024 launch), cancels every later node,
     ends the graph in ``GraphCancelled``, and the runtime then runs a
     fresh wave to the dispatcher's bits."""
-    cs = _chip_smoke()
     cfg, params, x = _alex_on(cuda, 32, 24)
     with SynergyRuntime(POOL, device=cuda) as rt:
         launches = tiled_matmul.launches + vpu_matmul.launches
-        gf, = cs.graph_waves(rt, cfg, params, [x], name="cancel")
+        gf, = graph_waves(rt, cfg, params, [x], name="cancel")
         deadline = time.monotonic() + 60
         while gf.node_future(1) is None:
             assert time.monotonic() < deadline
@@ -835,9 +836,9 @@ def test_graph_cancel_on_the_card_drains_queued_panels(cuda):
         ran = tiled_matmul.launches + vpu_matmul.launches - launches
         assert ran < 1024
         assert gf.node_states() == ["done", "failed"] + ["cancelled"] * 4
-        fresh, = cs.graph_waves(rt, cfg, params, [x], name="after")
+        fresh, = graph_waves(rt, cfg, params, [x], name="after")
         got = fresh.result(60)[-1]
-    assert torch.equal(got, cs.conv_front(cfg, params, x))
+    assert torch.equal(got, conv_front(cfg, params, x))
 
 
 # ------------------------------------------------- faults on the card

@@ -191,7 +191,7 @@ def test_kernel_is_built_for_every_zoo_head_dim(d):
     check_kernel_shape(2, 4, 64, 64, d)
 
 
-@pytest.mark.parametrize("d", [8, 32, 48, 96, 100, 512])
+@pytest.mark.parametrize("d", [8, 24, 40, 96, 100, 512])
 def test_kernel_shape_check_refuses_other_head_dims(d):
     with pytest.raises(ValueError, match="head dim"):
         check_kernel_shape(2, 4, 64, 64, d)

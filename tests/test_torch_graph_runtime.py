@@ -13,11 +13,9 @@ oracle: here the branches are held within 1e-5 of repro's values.  Every
 wait has a timeout; the cancel and shutdown tests order their events on
 ``threading.Event``s, not on sleeps."""
 
-import importlib.util
 import random
 import threading
 import time
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -40,7 +38,6 @@ from repro_torch.soc import (GraphCancelled, GraphFuture, GraphNode,
                              SynergyRuntime)
 from repro_torch.soc.graph import validate_dag
 
-ROOT = Path(__file__).resolve().parents[1]
 POOL = ["F-PE", "S-PE", "cuda-tiled", "neon-vpu"]
 TIMEOUT = 30
 
@@ -422,23 +419,20 @@ def test_conv_wave_graph_matches_repro():
 
 
 def test_chip_smoke_graph_and_chain_modes_agree():
-    """``chip_smoke.py``'s graph and chain modes (two waves in flight, and
-    one wave at a time with a reap after every layer) and its dispatcher
-    conv front-end, each wave within 1e-5 of repro's ``conv_wave_graph``
-    on its own runtime."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    """The graph and chain modes that ``chip_smoke.py`` runs
+    (``cnn.graph_waves``: two waves in flight; ``cnn.chain_waves``: one
+    wave at a time with a reap after every layer) and the dispatcher conv
+    front-end (``cnn.conv_front``), each wave within 1e-5 of repro's
+    ``conv_wave_graph`` on its own runtime."""
     cfg, jcfg, params, jparams, x = _alex(frames=4, seed=9)
     xt = torch.from_numpy(x)
     waves = list(xt.split(2))
-    front = cs.conv_front(cfg, params, xt)
+    front = cnn.conv_front(cfg, params, xt)
     with SynergyRuntime(["cuda-tiled", "neon-vpu"], name="modes",
                         device="cpu") as rt:
         graph = [f.result(TIMEOUT)[-1]
-                 for f in cs.graph_waves(rt, cfg, params, waves)]
-        chain = cs.chain_waves(rt, cfg, params, waves)
+                 for f in cnn.graph_waves(rt, cfg, params, waves)]
+        chain = cnn.chain_waves(rt, cfg, params, waves)
     jsteps = jax_cnn.conv_graph_steps(jcfg)
     rows = front.shape[0] // 2
     with JaxSynergyRuntime(["F-PE", "S-PE"], name="modes") as jrt:

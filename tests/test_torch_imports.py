@@ -1,6 +1,7 @@
 """The port stands alone: no module of src/repro_torch, and none of
-chip_smoke.py and the card scripts under scripts/, imports JAX or anything
-of the reference package repro."""
+chip_smoke.py, the card scripts under scripts/ and the port's examples
+under examples_torch/, imports JAX or anything of the reference package
+repro."""
 
 import ast
 from pathlib import Path
@@ -9,7 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "scripts").glob("*.py")) + sorted(
+    (ROOT / "examples_torch").glob("*.py"))
 
 
 def _imported(tree):

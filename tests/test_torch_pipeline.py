@@ -1,16 +1,15 @@
 """The port's inter-frame pipeline (``core/pipeline.py``) against repro's on
 the CPU: the mailbox pipeline's order, overlap and failure drain, the GPipe
 microbatch oracle, ``EngineStage.gemm`` pinned to ``cuda-tiled`` (its plain
-version on CPU tensors), CIFAR_Alex+ split into ``chip_smoke.py``'s three
-pinned stages, and a pipeline under a runtime scope.
+version on CPU tensors), CIFAR_Alex+ split into the three pinned stages
+that ``chip_smoke.py``'s pipeline phase runs (``cnn.PIPE_STAGES``),
+and a pipeline under a runtime scope.
 
 Inputs are numpy arrays from a seed, handed to both packages.  Tolerances:
 1e-6 for the GPipe oracle (the same elementwise ops), 1e-5 for one GEMM,
 1e-4 for CNN logits (five GEMMs summed in another order)."""
 
-import importlib.util
 import time
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -29,18 +28,7 @@ from repro_torch.engines import get_engine
 from repro_torch.models import cnn
 from repro_torch.soc import SynergyRuntime
 
-ROOT = Path(__file__).resolve().parents[1]
 TIMEOUT = 30
-
-
-def _chip_smoke():
-    """``chip_smoke.py`` as a module: its stage builder is what the card's
-    pipeline phase runs."""
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  ROOT / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _np(seed, *shape):
@@ -168,9 +156,8 @@ def test_engine_stage_gemm_pinned_matches_repro():
 
 def test_alex_three_stage_split_matches_repro_forward():
     """CIFAR_Alex+ (4 frames, 2 micro-batches of 2) through
-    ``chip_smoke.py``'s three stages pinned to K1, K3 and K1: the
+    ``cnn.PIPE_STAGES``, three stages pinned to K1, K3 and K1: the
     concatenated logits match repro's ``cnn_forward``."""
-    cs = _chip_smoke()
     cfg, jcfg = PAPER_CNNS["CIFAR_Alex+"], JAX_CNNS["CIFAR_Alex+"]
     jparams = jax_cnn.init_cnn(jcfg, jax.random.key(0))
     params = cnn.params_from_jax({k: np.asarray(v)
@@ -180,18 +167,21 @@ def test_alex_three_stage_split_matches_repro_forward():
     engines = {n: get_engine(n).telemetry for n in ("cuda-tiled",
                                                      "neon-vpu")}
     before = {n: t.gemms for n, t in engines.items()}
-    outs, stats = ThreadedPipeline(cs.pipeline_stages(cfg, params)).run(
+    outs, stats = ThreadedPipeline(
+        cnn.pipeline_stages(cfg, params, cnn.PIPE_STAGES)).run(
         list(torch.from_numpy(x).split(2)))
     got = torch.cat(outs)
     assert got.shape == (4, cfg.num_classes)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
-    assert stats["stage_engines"] == {n: e for n, _, _, e in
-                                      cs.PIPE_STAGES}
-    per_mb = cs.pipe_launches(cfg)
+    assert stats["stage_engines"] == {n: e for n, _, _, e in cnn.PIPE_STAGES}
+    per_mb = {n: sum(cnn.stage_gemms(cfg, lo, hi)
+                     for _, lo, hi, e in cnn.PIPE_STAGES if e == n)
+              for n in engines}
     assert {n: t.gemms - before[n] for n, t in engines.items()} == {
-        "cuda-tiled": 2 * per_mb["tiled_mm"],
-        "neon-vpu": 2 * per_mb["vpu_mm"]}
+        "cuda-tiled": 2 * per_mb["cuda-tiled"],
+        "neon-vpu": 2 * per_mb["neon-vpu"]} == {"cuda-tiled": 8,
+                                                 "neon-vpu": 2}
 
 
 @pytest.mark.parametrize("how", ["inherited", "explicit"])
