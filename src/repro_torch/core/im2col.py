@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.obs.trace import span
+
 __all__ = ["im2col", "im2col_wave", "conv_out_shape", "conv2d_gemm"]
 
 
@@ -38,18 +40,27 @@ def _patch_index_grids(oh: int, ow: int, kh: int, kw: int,
 
 def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
-    """x: (N, H, W, C) -> patches (N, OH*OW, KH*KW*C)."""
+    """x: (N, H, W, C) -> patches (N, OH*OW, KH*KW*C).
+
+    Spans ``im2col`` and, around the hand-over of the two index grids to
+    ``x``'s device (a pageable copy that waits for the stream on the
+    card), ``im2col.upload``, which counts ``uploads`` and
+    ``upload_bytes``."""
     n, h, w, c = x.shape
-    if padding:
-        x = F.pad(x, (0, 0, padding, padding, padding, padding))
     oh, ow = conv_out_shape(h, w, kh, kw, stride, padding)
-    rows, cols = _patch_index_grids(oh, ow, kh, kw, stride)
-    rows = torch.as_tensor(rows, device=x.device)
-    cols = torch.as_tensor(cols, device=x.device)
-    patches = x[:, rows]                 # (N, OH, KH, W+2p, C)
-    patches = patches[:, :, :, cols]     # (N, OH, KH, OW, KW, C)
-    patches = patches.permute(0, 1, 3, 2, 4, 5)   # (N, OH, OW, KH, KW, C)
-    return patches.reshape(n, oh * ow, kh * kw * c)
+    with span("im2col", device=x.device, kh=kh, kw=kw, stride=stride,
+              m=n * oh * ow, k=kh * kw * c):
+        if padding:
+            x = F.pad(x, (0, 0, padding, padding, padding, padding))
+        rows, cols = _patch_index_grids(oh, ow, kh, kw, stride)
+        with span("im2col.upload", blocks=True) as upload:
+            upload.count(uploads=2, upload_bytes=rows.nbytes + cols.nbytes)
+            rows = torch.as_tensor(rows, device=x.device)
+            cols = torch.as_tensor(cols, device=x.device)
+        patches = x[:, rows]                 # (N, OH, KH, W+2p, C)
+        patches = patches[:, :, :, cols]     # (N, OH, KH, OW, KW, C)
+        patches = patches.permute(0, 1, 3, 2, 4, 5)  # (N, OH, OW, KH, KW, C)
+        return patches.reshape(n, oh * ow, kh * kw * c)
 
 
 def im2col_wave(x: torch.Tensor, kh: int, kw: int, stride: int = 1,

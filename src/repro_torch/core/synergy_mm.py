@@ -36,6 +36,8 @@ import torch
 from repro_torch.device import ranked_device
 from repro_torch.engines import (CAP_GRAD, Engine, Telemetry,
                                  current_scope_engine, dispatch_gemm)
+from repro_torch.kernels.tiled_mm.ops import tiled_matmul
+from repro_torch.obs.trace import span
 from repro_torch.soc.runtime import current_runtime, is_concrete
 
 from .job import JobSet
@@ -136,52 +138,69 @@ def synergy_matmul(a: torch.Tensor, b: torch.Tensor, *,
     is split across the runtime's pool, unless autograd records it: the
     pool's kernels have no backward, so a differentiated GEMM keeps
     single-engine dispatch onto a grad-safe engine.
+
+    Spans ``gemm`` (``name``, ``m``, ``n``, ``k``, the ``engine`` chosen)
+    around the call, ``gemm.dispatch`` around the JobSet, the choice of
+    engine and its telemetry, and ``gemm.launch`` around the engine's
+    run, which counts K1's ``launches``.  Under a runtime scope ``gemm``
+    covers the submission to the pool, whose panels trace themselves.
     """
     *lead, m, k = a.shape
     k2, n = b.shape
     if k != k2:
         raise ValueError(f"contraction mismatch {tuple(a.shape)} @ "
                          f"{tuple(b.shape)}")
-    if engine is None:
-        engine = current_scope_engine()   # engine_scope() pin, if any
-
-    # grad guard: a GEMM being differentiated may only land on CAP_GRAD
-    # engines, whatever the job class said (a grad-free pin under autograd
-    # is a hard error, not a silently missing gradient).
-    require = (CAP_GRAD,) if _under_grad(a, b, bias) else ()
-
     batch = 1
     for d in lead:
         batch *= d
-    tr = current_trace()
-    if tr is not None:
-        js = tr.add(batch * m, n, k, tile, name=name or "gemm")
-    else:
-        js = JobSet.for_gemm(0, batch * m, n, k, tile, name=name or "gemm")
+    with span("gemm", device=a.device, name=name or "gemm", m=batch * m,
+              n=n, k=k) as gemm:
+        if engine is None:
+            engine = current_scope_engine()   # engine_scope() pin, if any
 
-    rt = current_runtime()
-    if rt is not None and not require and is_concrete(a, b, bias):
-        # precision routing under a runtime scope happens INSIDE the
-        # split (per-job int8 eligibility + LPT over the pool); only an
-        # explicit engine pin survives, as a queue-affinity hint
-        affinity = engine.name if isinstance(engine, Engine) else engine
-        y, accounting = rt.run_matmul(
-            js, a.reshape(-1, k), b, bias=bias, activation=activation,
-            tile=tile if isinstance(tile, tuple) else (tile,) * 3,
-            out_dtype=out_dtype, affinity=affinity, job_class=job_class)
-        if tr is not None:
-            tr.record_runtime(js, accounting)
+        # grad guard: a GEMM being differentiated may only land on
+        # CAP_GRAD engines, whatever the job class said (a grad-free pin
+        # under autograd is a hard error, not a silently missing gradient).
+        require = (CAP_GRAD,) if _under_grad(a, b, bias) else ()
+
+        with span("gemm.dispatch"):
+            tr = current_trace()
+            if tr is not None:
+                js = tr.add(batch * m, n, k, tile, name=name or "gemm")
+            else:
+                js = JobSet.for_gemm(0, batch * m, n, k, tile,
+                                     name=name or "gemm")
+            rt = current_runtime()
+            split = rt is not None and not require and is_concrete(a, b,
+                                                                   bias)
+            if not split:
+                device = ranked_device(a.device)
+                eng = dispatch_gemm(js, engine=engine, require=require,
+                                    job_class=job_class, device=device)
+                est_s = eng.estimate(js, device)
+                eng.telemetry.record(js, est_s)
+                if tr is not None:
+                    tr.record_engine(eng.name, js, est_s)
+
+        if split:
+            # precision routing under a runtime scope happens INSIDE the
+            # split (per-job int8 eligibility + LPT over the pool); only
+            # an explicit engine pin survives, as a queue-affinity hint
+            gemm.tag(engine="runtime")
+            affinity = engine.name if isinstance(engine, Engine) else engine
+            y, accounting = rt.run_matmul(
+                js, a.reshape(-1, k), b, bias=bias, activation=activation,
+                tile=tile if isinstance(tile, tuple) else (tile,) * 3,
+                out_dtype=out_dtype, affinity=affinity, job_class=job_class)
+            if tr is not None:
+                tr.record_runtime(js, accounting)
+            return y.reshape(*lead, m, n)
+
+        gemm.tag(engine=eng.name)
+        with span("gemm.launch") as launch:
+            launched = tiled_matmul.launches
+            y = eng.execute(a.reshape(-1, k), b, bias=bias,
+                            activation=activation, tile=tile,
+                            out_dtype=out_dtype)
+            launch.count(launches=tiled_matmul.launches - launched)
         return y.reshape(*lead, m, n)
-
-    device = ranked_device(a.device)
-    eng = dispatch_gemm(js, engine=engine, require=require,
-                        job_class=job_class, device=device)
-    est_s = eng.estimate(js, device)
-    eng.telemetry.record(js, est_s)
-    if tr is not None:
-        tr.record_engine(eng.name, js, est_s)
-
-    a2 = a.reshape(-1, k)
-    y = eng.execute(a2, b, bias=bias, activation=activation, tile=tile,
-                    out_dtype=out_dtype)
-    return y.reshape(*lead, m, n)

@@ -26,6 +26,7 @@ from repro_torch.core.scheduler import SimLayer, SimNet
 from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
 from repro_torch.models.params import tensor_from_numpy
+from repro_torch.obs.trace import span
 from repro_torch.soc.graph import GraphNode
 from repro_torch.soc.runtime import runtime_scope
 
@@ -39,10 +40,12 @@ __all__ = ["CNNConfig", "init_cnn", "params_from_jax", "cnn_forward",
 
 def maxpool2d(x: torch.Tensor, size: int) -> torch.Tensor:
     """Non-overlapping max pool (stride == size), cropping odd edges —
-    the paper's CPU-side pooling (§3.1.4)."""
-    n, h, w, c = x.shape
-    x = x[:, : h - h % size, : w - w % size, :]
-    return x.reshape(n, h // size, size, w // size, size, c).amax(dim=(2, 4))
+    the paper's CPU-side pooling (§3.1.4).  Span ``pool``."""
+    with span("pool"):
+        n, h, w, c = x.shape
+        x = x[:, : h - h % size, : w - w % size, :]
+        return x.reshape(n, h // size, size, w // size, size,
+                         c).amax(dim=(2, 4))
 
 # layer spec forms:
 #   ("conv", cout, k, stride, pad)
@@ -175,17 +178,22 @@ def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
     device — every CONV/FC GEMM is split into row panels across its
     engine pool and balanced by work stealing (with ``engine`` demoted to
     a queue-affinity hint).  ``params`` must already live on ``device``;
-    ``x`` is moved there."""
-    dev = resolve_device(device)
-    for name, p in params.items():
-        if p.device.type != dev.type:
-            raise ValueError(f"param {name!r} is on {p.device}, the forward "
-                             f"runs on {dev}")
-    scope = (runtime_scope(runtime) if runtime is not None
-             else contextlib.nullcontext())
-    with scope, torch.inference_mode():
-        return cnn_layers(cfg, params, x.to(dev), engine=engine,
-                          job_class=job_class)
+    ``x`` is moved there.
+
+    Span ``cnn.forward`` (``frames``, ``net``) around the whole call: the
+    root of the forward's ``im2col``, ``gemm`` and ``pool`` spans, and at
+    its end the forward's totals of their counts."""
+    with span("cnn.forward", frames=x.shape[0], net=cfg.name):
+        dev = resolve_device(device)
+        for name, p in params.items():
+            if p.device.type != dev.type:
+                raise ValueError(f"param {name!r} is on {p.device}, the "
+                                 f"forward runs on {dev}")
+        scope = (runtime_scope(runtime) if runtime is not None
+                 else contextlib.nullcontext())
+        with scope, torch.inference_mode():
+            return cnn_layers(cfg, params, x.to(dev), engine=engine,
+                              job_class=job_class)
 
 
 def cnn_stage(cfg: CNNConfig, params: dict, lo: int, hi: int):

@@ -843,7 +843,8 @@ class SynergyRuntime:
                     "priority": job.priority}
             if err is not None:
                 tags["err"] = type(err).__name__
-            tr.span("panel", eng.name, t0, dt, **tags)
+            # on the tracer's clock: the panel ended now, dt ago it began
+            tr.span("panel", eng.name, tr.now() - dt, dt, **tags)
         est = job.n_jobs * w.job_time(job.job_macs, job.job_bytes)
         w.jobs += job.n_jobs
         w.steals += int(stolen)
