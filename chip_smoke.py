@@ -6,9 +6,9 @@
 Phases, in order; each raises on failure and nothing is caught:
 
 1. Device: a CUDA card must be present; prints its name and power limit.
-2. Build: compiles the five hand-written kernels from ``src/repro_torch``
-   and K5's frozen witness, one ``nvcc`` per source, all started together
-   (set-up time, printed).
+2. Build: compiles the five hand-written kernels from ``src/repro_torch``,
+   K5's frozen witness and the im2col kernel, one ``nvcc`` per source, all
+   started together (set-up time, printed).
 3. Kernels against their plain PyTorch versions, on the card, at every GEMM
    shape of CIFAR_Alex+ at 256 frames, at ragged shapes, for fp32 and bf16
    inputs and every fused epilogue.  TF32 is off for both matmul and cuDNN.
@@ -39,7 +39,13 @@ Phases, in order; each raises on failure and nothing is caught:
    rows; K2's SASS holds IMMA and no IDP (dp4a), K3's FFMA and no *MMA.
    Slice 11: K5 bitwise (``torch.equal`` on y and the final state) its
    frozen witness, ``csrc/ssd_witness.cu`` (its first version), at every
-   SSD_CASES and BWD_SSD_CASES shape in fp32 and bf16.
+   SSD_CASES and BWD_SSD_CASES shape in fp32 and bf16.  The im2col
+   kernel (``kernels/im2col``, no TPU kernel: ``repro``'s im2col is a
+   ``jnp`` gather) bitwise its plain version run on the CPU, one launch a
+   call, at IM2COL_CASES in every dtype it takes and at CIFAR_Alex+'s
+   convs at 1, 256 and 1,024 frames, its access width equal to
+   ``access_rule``; each conv at 1,024 frames timed beside the bound of
+   writing its patches once and beside the plain version on the card.
 4. Main path, dispatcher (slice 1): ``cnn_forward`` of CIFAR_Alex+ at its
    published widths on 256 frames, with launch counts set to 0 just before
    and read just after; logits are held against the same forward with
@@ -314,14 +320,19 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs import ARCHS, PAPER_CNNS, reduced  # noqa: E402
-from repro_torch.core.im2col import im2col, im2col_wave  # noqa: E402
+from repro_torch.core.im2col import (conv_out_shape, im2col,  # noqa: E402
+                                     im2col_wave)
 from repro_torch.core.pipeline import (EngineStage,  # noqa: E402
                                        ThreadedPipeline)
 from repro_torch.core.synergy_mm import SynergyTrace  # noqa: E402
 from repro_torch.engines import (CostModel, Engine,  # noqa: E402
                                  engine_scope, get_engine, list_engines)
 from repro_torch.kernels.common import build as kernel_build  # noqa: E402
-from repro_torch.kernels.common.build import sass_opcodes  # noqa: E402
+from repro_torch.kernels.common.build import (load_together,  # noqa: E402
+                                               sass_opcodes)
+from repro_torch.kernels.im2col import (access_rule, im2col_cuda,  # noqa: E402
+                                        im2col_ref, load_im2col)
+from repro_torch.kernels.im2col.ops import DTYPES as IM2COL_DTYPES  # noqa: E402
 from repro_torch.kernels.launches import (launch_counts,  # noqa: E402
                                          reset_launches)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -446,6 +457,17 @@ SLOW_GEMMS = 16                 # at most, until neon-vpu is quarantined
 #: seconds a graph, a wave or a chained GEMM may take before the phase fails
 GRAPH_TIMEOUT = 300
 BF16_TOL = 3e-2
+#: im2col at small shapes against its plain version, bitwise, on every
+#: dtype it takes: (n, h, w, c, kernel, stride, padding), the CPU tests'
+#: geometries and strides 1-3 x paddings 0-2 x C 1, 3, 4, 64
+IM2COL_CASES = ([(2, 12, 12, 3, 5, 1, 2), (2, 9, 7, 2, 3, 2, 1),
+                 (2, 8, 8, 4, 1, 1, 0), (2, 32, 32, 3, 5, 1, 2),
+                 (2, 6, 10, 1, 3, 3, 0)]
+                + [(3, 11, 9, c, 3, s, p) for c in (1, 3, 4, 64)
+                   for s in (1, 2, 3) for p in (0, 1, 2)])
+#: CIFAR_Alex+'s convs are checked and timed at these batches; the write
+#: bound is given at the largest
+IM2COL_BATCHES = (1, 256, 1024)
 
 #: bf16 dense on the tensor cores (data sheet): the card's least time for
 #: bf16 products, whatever K4 runs them on
@@ -920,6 +942,104 @@ def phase_vpu_kernel() -> float:
     return main_err
 
 
+def alex_convs() -> list[tuple]:
+    """(name, h, w, c, kernel, stride, padding) of CIFAR_Alex+'s convs."""
+    shapes, _ = PAPER_CNNS["CIFAR_Alex+"].trace_shapes()
+    return [(f"conv{i}", h, w, c, spec[2], spec[3], spec[4])
+            for i, (spec, h, w, c) in enumerate(shapes) if spec[0] == "conv"]
+
+
+def im2col_input(g: torch.Generator, shape: tuple,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """Normal values for a float dtype, the whole range for an int one."""
+    if dtype.is_floating_point:
+        return torch.randn(shape, device=DEVICE, generator=g).to(dtype)
+    info = torch.iinfo(dtype)
+    return torch.randint(info.min, info.max + 1, shape, device=DEVICE,
+                         generator=g, dtype=dtype)
+
+
+def check_im2col(x: torch.Tensor, k: int, stride: int, pad: int) -> None:
+    """``im2col`` of ``x`` on the card, one kernel launch, bitwise the
+    plain version on the same input moved to the CPU."""
+    before = im2col_cuda.launches
+    got = im2col(x, k, k, stride, pad)
+    torch.cuda.synchronize()
+    want = im2col_ref(x.cpu(), k, k, stride, pad)
+    label = (f"im2col x {tuple(x.shape)} {x.dtype} k {k} stride {stride} "
+             f"pad {pad}")
+    if im2col_cuda.launches != before + 1:
+        raise AssertionError(f"{label}: {im2col_cuda.launches - before} "
+                             f"launches, expected 1")
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{label}: got {got.dtype} "
+                             f"{tuple(got.shape)}, want {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if not torch.equal(got.cpu(), want):
+        raise AssertionError(f"{label}: {first_mismatch(got.cpu(), want)}")
+
+
+def phase_im2col_kernel(card: str) -> dict:
+    """Phase 3: the im2col kernel bitwise against its plain version run on
+    the same input on the CPU: IM2COL_CASES in every IM2COL_DTYPES, and
+    CIFAR_Alex+'s convs in fp32 at IM2COL_BATCHES, one launch a call; the
+    kernel's access width equal to ``access_rule``.  Then each Alex conv
+    at the largest batch, timed (CUDA-event medians) beside the bound of
+    writing its patches once at the HBM rate, and the plain version on
+    the card (pad, index uploads, two gathers, copy) beside it."""
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    lib = load_im2col()
+    for c in (1, 2, 3, 4, 8, 64, 128):
+        for kk in (1, 3, 5):
+            for size in (1, 2, 4):
+                k = kk * kk * c
+                got, want = lib.im2col_vec(c, k, size), access_rule(c, k,
+                                                                    size)
+                if got != want:
+                    raise AssertionError(f"im2col: access width {got} for "
+                                         f"C {c}, k {k}, {size}-byte "
+                                         f"elements; access_rule {want}")
+    checked = 0
+    for n, h, w, c, k, st, p in IM2COL_CASES:
+        for dtype in IM2COL_DTYPES:
+            check_im2col(im2col_input(g, (n, h, w, c), dtype), k, st, p)
+            checked += 1
+    convs = alex_convs()
+    for batch in IM2COL_BATCHES:
+        for _, h, w, c, k, st, p in convs:
+            check_im2col(im2col_input(g, (batch, h, w, c), torch.float32),
+                         k, st, p)
+            checked += 1
+    print(f"im2col: {checked} cases bitwise the plain version, one launch "
+          f"each; access widths equal access_rule", flush=True)
+    batch = IM2COL_BATCHES[-1]
+    rows = []
+    for name, h, w, c, k, st, p in convs:
+        x = torch.randn(batch, h, w, c, device=DEVICE, generator=g)
+        oh, ow = conv_out_shape(h, w, k, k, st, p)
+        out_bytes = batch * oh * ow * k * k * c * x.element_size()
+        rows.append({
+            "conv": name, "access_bytes": access_rule(c, k * k * c, 4),
+            "ms": median_ms(lambda: im2col_cuda(x, k, k, st, p)),
+            "bound_ms": 1e3 * out_bytes / HBM_BYTES_PER_S,
+            "plain_ms": median_ms(lambda: im2col_ref(x, k, k, st, p),
+                                  reps=5)})
+        del x
+    total = {key: sum(r[key] for r in rows)
+             for key in ("ms", "bound_ms", "plain_ms")}
+    for r in rows:
+        print(f"im2col: {r['conv']} x{batch}, {r['access_bytes']}-byte "
+              f"accesses: {r['ms']:.4f} ms (write bound "
+              f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.3f} ms)",
+              flush=True)
+    print(f"im2col: CIFAR_Alex+ x{batch} on {card}: {total['ms']:.4f} ms a "
+          f"batch against the {total['bound_ms']:.4f} ms write bound "
+          f"({100 * total['bound_ms'] / total['ms']:.1f} %); plain "
+          f"{total['plain_ms']:.3f} ms", flush=True)
+    return {"rows": rows, **total, "bound_by": "bytes", "frames": batch,
+            "checked": checked}
+
+
 def phase_fmaf_witness() -> None:
     """Phase 3: K1's ``ffma`` path and K3 hold the bits of one fmaf per k
     in increasing k, as ``ffma_chain_ref`` emulates them on the CPU, at
@@ -1172,6 +1292,10 @@ def phase_main_path() -> tuple:
         logits = cnn_forward(cfg, params, x, device=DEVICE)
     torch.cuda.synchronize()
     launches, k3_launches = tiled_matmul.launches, vpu_matmul.launches
+    lowering = im2col_cuda.launches
+    if lowering != len(alex_convs()):
+        raise AssertionError(f"im2col launched {lowering} times in the "
+                             f"forward, expected {len(alex_convs())}")
     if qmm_matmul.launches != 0:
         raise AssertionError(f"qmm launched {qmm_matmul.launches} times in "
                              f"the fp32 dispatcher forward")
@@ -1203,7 +1327,8 @@ def phase_main_path() -> tuple:
     torch.testing.assert_close(logits, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL)
     err = (logits - ref).abs().max().item()
     print(f"main path (dispatcher): {cfg.name} x{FRAMES} frames, tiled_mm "
-          f"launches {launches}, vpu_mm launches {k3_launches}, "
+          f"launches {launches}, vpu_mm launches {k3_launches}, im2col "
+          f"launches {lowering}, "
           f"torch-engine GEMMs {torch_gemms}, "
           f"{len(tr.jobsets)} jobsets, logits max |err| vs reference "
           f"{err:.3g} (tol {LOGIT_TOL})", flush=True)
@@ -1225,8 +1350,8 @@ def phase_main_path() -> tuple:
         torch.testing.assert_close(y, yr, rtol=LOGIT_TOL, atol=LOGIT_TOL)
         print(f"  {name} x{OTHER_FRAMES}: {n_gemm} launches, max |err| "
               f"{(y - yr).abs().max().item():.3g}", flush=True)
-    return cfg, params, x, {"tiled_mm": launches,
-                            "vpu_mm": k3_launches}, logits
+    return cfg, params, x, {"tiled_mm": launches, "vpu_mm": k3_launches,
+                            "im2col": lowering}, logits
 
 
 def phase_runtime_path(main: tuple) -> dict:
@@ -1313,8 +1438,9 @@ def phase_runtime_path(main: tuple) -> dict:
                         for n in POOL}}
 
 
-#: the CNN paths launch neither of the LM slice's kernels
-NO_LM_KERNELS = {"flash_attention": 0, "ssd": 0}
+#: the other kernels of one CIFAR_Alex+ forward on the card: im2col once
+#: a CONV, neither of the LM slice's kernels
+ALEX_OTHER_KERNELS = {"flash_attention": 0, "ssd": 0, "im2col": 3}
 
 
 def qmm_paths_of(calls: list) -> dict:
@@ -1359,7 +1485,7 @@ def phase_decode_paths(main: tuple) -> dict:
     torch.cuda.synchronize()
     disp = launch_counts()
     disp_paths = dict(qmm_matmul.launches_by_path)
-    if disp != {**NO_LM_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
+    if disp != {**ALEX_OTHER_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
                  "qmm": len(ALEX_GEMMS)}:
         raise AssertionError(f"dispatcher decode forward launched {disp}")
     want_paths = qmm_paths_of([(n, k, 1) for _, _, n, k, _ in ALEX_GEMMS])
@@ -1401,7 +1527,7 @@ def phase_decode_paths(main: tuple) -> dict:
                              f"{run_paths}, expected {want_paths}")
     panels = sum(panels_per_gemm)
     per = stats["engines"]
-    if run != {**NO_LM_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
+    if run != {**ALEX_OTHER_KERNELS, "tiled_mm": 0, "vpu_mm": 0,
                 "qmm": panels}:
         raise AssertionError(f"runtime decode forward launched {run}, "
                              f"{panels} panels")
@@ -1442,7 +1568,7 @@ def phase_decode_paths(main: tuple) -> dict:
         fp = cnn_forward(cfg, params, x, runtime=rt, device=DEVICE)
     torch.cuda.synchronize()
     fp_run = launch_counts()
-    if fp_run != {**NO_LM_KERNELS, "tiled_mm": panels, "vpu_mm": 0,
+    if fp_run != {**ALEX_OTHER_KERNELS, "tiled_mm": panels, "vpu_mm": 0,
                    "qmm": 0}:
         raise AssertionError(f"fp32 forward through the int8 pool launched "
                              f"{fp_run}, {panels} panels")
@@ -2317,7 +2443,7 @@ def phase_faults(card: str, main: tuple, run: dict, decode: dict,
         qeng.calibrator.import_state(decode["state0"])
     check_forward(q, decode["runtime_logits"], "int8")
     if (injected_kinds(qplan) != {"raise": 2} or q["stats"]["retries"] != 2
-            or q["launches"] != {**NO_LM_KERNELS, "tiled_mm": 0,
+            or q["launches"] != {**ALEX_OTHER_KERNELS, "tiled_mm": 0,
                                  "vpu_mm": 0, "qmm": q["panels"]}):
         raise AssertionError(f"faults (int8): injected {qplan.injected}, "
                              f"retries {q['stats']['retries']}, launches "
@@ -6117,29 +6243,15 @@ def main() -> int:
 
     # phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    errors = []
-
-    def build(load):
-        try:
-            load()
-        except BaseException as e:     # re-raised below, on this thread
-            errors.append(e)
-
-    threads = [threading.Thread(target=build, args=(load,))
-               for load in (load_tiled_mm, load_vpu_mm, load_qmm,
-                            load_flash_attention, load_ssd,
-                            load_ssd_witness)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
-    if errors:
-        raise errors[0]
-    print(f"set-up: tiled_mm, vpu_mm, qmm, flash_attention, ssd and ssd's "
-          f"witness built and loaded in {time.perf_counter() - t0:.2f} s", flush=True)
+    load_together(load_tiled_mm, load_vpu_mm, load_qmm, load_flash_attention,
+                  load_ssd, load_ssd_witness, load_im2col)
+    print(f"set-up: tiled_mm, vpu_mm, qmm, flash_attention, ssd, ssd's "
+          f"witness and im2col built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
 
     # phase 3: kernels against their plain versions
     main_err = timed_phase(phase_kernels)
+    lowering = timed_phase(phase_im2col_kernel, card)
     timed_phase(phase_k1_bf16)
     vpu_err = timed_phase(phase_vpu_kernel)
     timed_phase(phase_fmaf_witness)
@@ -6308,6 +6420,16 @@ def main() -> int:
                     "dryrun": dryrun_calls(dry, "qmm"),
                     "adafactor": adafactor_launches(ada, "qmm"),
                     "examples": examples_launches(examples, "qmm")}})
+    entries.append({
+        "name": "im2col", "route": "cuda",
+        "source": "src/repro_torch/kernels/im2col/csrc/im2col.cu",
+        "replaces": None, "launches": main[3]["im2col"],
+        **{k: lowering[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "rows")},
+        "per": (f"one CIFAR_Alex+ forward's three convs at "
+                f"{lowering['frames']} frames: CUDA-event medians; bound: "
+                f"the patches written once at the HBM rate; no TPU kernel "
+                f"(repro's im2col is a jnp gather)")})
     lm_per = (f"one {LM_ARCH} prefill of {LM_BATCH} x {LM_PROMPT} tokens: "
               f"the per-call median (CUDA events) times the calls it makes")
     for name, source, replaces, err in (

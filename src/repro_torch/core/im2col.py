@@ -14,53 +14,34 @@ Torch's NCHW ``unfold`` orders K as (cin, kh, kw) and must not be used here.
 
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
-import torch.nn.functional as F
 
+from repro_torch.kernels.im2col import conv_out_shape, im2col_cuda, im2col_ref
 from repro_torch.obs.trace import span
 
 __all__ = ["im2col", "im2col_wave", "conv_out_shape", "conv2d_gemm"]
-
-
-@functools.lru_cache(maxsize=256)
-def _patch_index_grids(oh: int, ow: int, kh: int, kw: int,
-                       stride: int) -> tuple[np.ndarray, np.ndarray]:
-    """(OH, KH) row and (OW, KW) col gather indices, memoized per geometry
-    (a CNN forward calls im2col with the same handful of geometries every
-    step).  Treat the returned arrays as read-only: they are shared."""
-    i0 = np.arange(oh) * stride
-    j0 = np.arange(ow) * stride
-    rows = i0[:, None] + np.arange(kh)[None, :]
-    cols = j0[:, None] + np.arange(kw)[None, :]
-    return rows, cols
 
 
 def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """x: (N, H, W, C) -> patches (N, OH*OW, KH*KW*C).
 
-    Spans ``im2col`` and, around the hand-over of the two index grids to
-    ``x``'s device (a pageable copy that waits for the stream on the
-    card), ``im2col.upload``, which counts ``uploads`` and
-    ``upload_bytes``."""
+    A CUDA tensor takes the hand-written kernel (``kernels/im2col``: one
+    launch writes the patches from ``x``, every index computed on the
+    card) or raises; any other takes the plain version (two gathers
+    through index grids handed to ``x``'s device, span
+    ``im2col.upload``).  The two give the same bits.
+
+    Spans ``im2col``, which counts ``im2col_launches`` on the card."""
     n, h, w, c = x.shape
     oh, ow = conv_out_shape(h, w, kh, kw, stride, padding)
     with span("im2col", device=x.device, kh=kh, kw=kw, stride=stride,
-              m=n * oh * ow, k=kh * kw * c):
-        if padding:
-            x = F.pad(x, (0, 0, padding, padding, padding, padding))
-        rows, cols = _patch_index_grids(oh, ow, kh, kw, stride)
-        with span("im2col.upload", blocks=True) as upload:
-            upload.count(uploads=2, upload_bytes=rows.nbytes + cols.nbytes)
-            rows = torch.as_tensor(rows, device=x.device)
-            cols = torch.as_tensor(cols, device=x.device)
-        patches = x[:, rows]                 # (N, OH, KH, W+2p, C)
-        patches = patches[:, :, :, cols]     # (N, OH, KH, OW, KW, C)
-        patches = patches.permute(0, 1, 3, 2, 4, 5)  # (N, OH, OW, KH, KW, C)
-        return patches.reshape(n, oh * ow, kh * kw * c)
+              m=n * oh * ow, k=kh * kw * c) as s:
+        if x.device.type != "cuda":
+            return im2col_ref(x, kh, kw, stride, padding)
+        patches = im2col_cuda(x, kh, kw, stride, padding)
+        s.count(im2col_launches=1)
+        return patches
 
 
 def im2col_wave(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
@@ -71,12 +52,6 @@ def im2col_wave(x: torch.Tensor, kh: int, kw: int, stride: int = 1,
     n = x.shape[0]
     patches = im2col(x, kh, kw, stride, padding)
     return patches.reshape(n * patches.shape[1], patches.shape[2])
-
-
-def conv_out_shape(h: int, w: int, kh: int, kw: int, stride: int,
-                   padding: int) -> tuple[int, int]:
-    return ((h + 2 * padding - kh) // stride + 1,
-            (w + 2 * padding - kw) // stride + 1)
 
 
 def conv2d_gemm(x: torch.Tensor, w: torch.Tensor, stride: int = 1,

@@ -7,12 +7,13 @@ and the flags, and bound with ``ctypes`` through its plain C entry point.
 Nothing here runs at import time: the CPU tests import this module on
 machines with no CUDA toolkit.  Builds of different sources may run at
 once (one lock per source), so a caller can start every ``nvcc``
-together.
+together (:func:`load_together`).
 """
 
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -22,9 +23,10 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Callable
 
 __all__ = ["GEMM_ARGTYPES", "build_library", "cuda_tool", "load_library",
-           "sass_opcodes"]
+           "load_together", "sass_opcodes"]
 
 _COMMON = Path(__file__).resolve().parent
 _BUILD_DIR = _COMMON.parents[3] / "build" / "kernels"
@@ -106,6 +108,17 @@ def load_library(name: str, source: Path,
             fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def load_together(*loads: Callable[[], ctypes.CDLL]) -> None:
+    """Call every ``load`` (a kernel's ``load_*``) at once, each on a
+    thread of its own, so that their first builds overlap: a first run
+    waits for the slowest ``nvcc``, not for their sum.  Raises the first
+    failure once all have ended."""
+    with concurrent.futures.ThreadPoolExecutor(len(loads)) as pool:
+        futures = [pool.submit(load) for load in loads]
+    for f in futures:
+        f.result()
 
 
 #: one SASS instruction line of ``cuobjdump -sass``:

@@ -1,4 +1,4 @@
-"""The five kernels' launch counts, read and reset together.
+"""The kernels' launch counts, read and reset together.
 
 Each wrapper adds one to its count where it launches its kernel and
 nowhere else (a CPU tensor takes the plain version and counts nothing),
@@ -8,6 +8,7 @@ end knows which kernels its work ran on."""
 from __future__ import annotations
 
 from repro_torch.kernels.flash_attention import flash_attention_cuda
+from repro_torch.kernels.im2col import im2col_cuda
 from repro_torch.kernels.qmm import qmm_matmul
 from repro_torch.kernels.ssd import ssd_cuda
 from repro_torch.kernels.tiled_mm import tiled_matmul
@@ -17,7 +18,8 @@ __all__ = ["KERNELS", "launch_counts", "reset_launches"]
 
 #: kernel name -> its checked wrapper
 KERNELS = {"tiled_mm": tiled_matmul, "vpu_mm": vpu_matmul, "qmm": qmm_matmul,
-           "flash_attention": flash_attention_cuda, "ssd": ssd_cuda}
+           "flash_attention": flash_attention_cuda, "ssd": ssd_cuda,
+           "im2col": im2col_cuda}
 
 
 def launch_counts() -> dict[str, int]:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -25,6 +26,9 @@ from repro_torch.core.pipeline import EngineStage
 from repro_torch.core.scheduler import SimLayer, SimNet
 from repro_torch.core.synergy_mm import synergy_matmul
 from repro_torch.device import resolve_device
+from repro_torch.kernels.common.build import load_together
+from repro_torch.kernels.im2col import load_im2col
+from repro_torch.kernels.tiled_mm import load_tiled_mm
 from repro_torch.models.params import tensor_from_numpy
 from repro_torch.obs.trace import span
 from repro_torch.soc.graph import GraphNode
@@ -162,6 +166,14 @@ def cnn_layers(cfg: CNNConfig, params: dict, x: torch.Tensor, lo: int = 0,
     return x
 
 
+@functools.cache
+def _load_card_kernels() -> None:
+    """The kernels a forward on the card launches, im2col and K1, loaded
+    together at the first such forward, so that a first run builds them
+    side by side (:func:`load_together`)."""
+    load_together(load_im2col, load_tiled_mm)
+
+
 def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
                 engine: str | None = None,
                 job_class: str | None = None,
@@ -185,6 +197,8 @@ def cnn_forward(cfg: CNNConfig, params: dict, x: torch.Tensor, *,
     its end the forward's totals of their counts."""
     with span("cnn.forward", frames=x.shape[0], net=cfg.name):
         dev = resolve_device(device)
+        if dev.type == "cuda":
+            _load_card_kernels()
         for name, p in params.items():
             if p.device.type != dev.type:
                 raise ValueError(f"param {name!r} is on {p.device}, the "

@@ -119,7 +119,8 @@ def test_device_only_session_records_spans_and_mirrors_none(
     forwards = trace.profiled_forwards(3)
     assert forwards is not None
     for forward, spans in forwards:
-        assert forward.tags["uploads"] == 6
+        assert forward.tags.get("uploads", 0) == 0
+        assert forward.tags["im2col_launches"] == 3
         assert forward.tags["launches"] == 5
         stretches = {k: [e.stream_ms() for e in spans if e.kind == k]
                      for k in ("im2col", "gemm")}
